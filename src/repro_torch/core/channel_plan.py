@@ -1,0 +1,143 @@
+"""ChannelPlan: the Stage-④ fold plan, port of `repro/core/channel_plan.py`.
+
+For one ``(moduli, bound)`` pair the plan precomputes the per-channel fold
+ladders (padded to a common rung count with the provable no-op rung
+``(30, 0)``), the shared conditional-subtract count ``n_sub``, and the
+signedness of the accumulator.  ``sched``/``mods``/``n_sub`` are what the
+CUDA epilogue receives (`kernels/rns_fused.py`); `apply_ladder`,
+`fold_signed` and `fold` are the same ladder on torch int32 tensors, used by
+the plain versions in `kernels/ref.py`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .folding import INT32_SAFE, fold_schedule, max_subtracts
+from .twit import Modulus, is_power_of_two
+
+__all__ = ["ChannelPlan", "residue_dtype_for"]
+
+# Every post-ladder value is < 4m < 2^30, so ``v & (2^30 - 1)`` keeps it and
+# the hi term adds 0: a pad rung changes nothing.
+_PAD_RUNG = (30, 0)
+
+
+def residue_dtype_for(moduli) -> torch.dtype:
+    """int8 when every residue fits an int8 operand, int32 otherwise."""
+    return torch.int8 if max(moduli) <= 128 else torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelPlan:
+    """Frozen, hashable Stage-④ plan for one ``(moduli, bound)`` pair."""
+
+    moduli: Tuple[int, ...]
+    channels: Tuple[Optional[Modulus], ...]
+    bound: int
+    rungs: Tuple[Tuple[Tuple[int, int], ...], ...]   # (C, R, 2), padded
+    n_sub: int
+    signed: bool = False
+
+    @classmethod
+    def build(cls, moduli: Sequence[int], bound: int, *,
+              signed: bool = False, max_rungs: int = 6) -> "ChannelPlan":
+        """Plan for accumulators in [-bound, bound] (signed) or [0, bound];
+        raises on int32 overflow."""
+        mods = tuple(int(m) for m in moduli)
+        chans = tuple(None if is_power_of_two(m) else Modulus.from_value(m)
+                      for m in mods)
+        return _build_plan(mods, chans, int(bound), bool(signed),
+                           int(max_rungs))
+
+    @classmethod
+    def for_matmul(cls, moduli: Sequence[int], k: int, *,
+                   signed: bool = False) -> "ChannelPlan":
+        """Plan for a K-deep deferred-reduction matmul: |acc| <=
+        K·max(m−1)² for canonical operands, K·128·max(m−1) for raw signed
+        int8 activations against canonical weight residues."""
+        return _for_matmul(tuple(int(m) for m in moduli), int(k),
+                           bool(signed))
+
+    @property
+    def k(self) -> int:
+        return len(self.moduli)
+
+    @property
+    def num_rungs(self) -> int:
+        return len(self.rungs[0]) if self.rungs else 0
+
+    @functools.cached_property
+    def sched(self) -> np.ndarray:
+        """(C, R, 2) int32 rung table."""
+        return np.asarray(self.rungs, dtype=np.int32).reshape(
+            self.k, self.num_rungs, 2)
+
+    @functools.cached_property
+    def mods(self) -> np.ndarray:
+        return np.asarray(self.moduli, dtype=np.int32)
+
+    @property
+    def residue_dtype(self) -> torch.dtype:
+        return residue_dtype_for(self.moduli)
+
+    def apply_ladder(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        """Channel ``c``'s fold ladder and ``n_sub`` conditional subtracts on
+        a nonnegative int32 tensor: result canonical in [0, m_c)."""
+        m = self.moduli[c]
+        for s, cc in self.rungs[c]:
+            x = (x & ((1 << s) - 1)) + (x >> s) * cc
+        for _ in range(self.n_sub):
+            x = torch.where(x >= m, x - m, x)
+        return x
+
+    def fold_signed(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        """Ladder for possibly-negative accumulators: fold |x|, then
+        (−v) mod m = m − (v mod m) where x < 0 and the residue is nonzero."""
+        m = self.moduli[c]
+        r = self.apply_ladder(torch.abs(x), c)
+        return torch.where((x < 0) & (r > 0), m - r, r)
+
+    def fold(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        if self.signed:
+            return self.fold_signed(x, c)
+        return self.apply_ladder(x, c)
+
+
+@functools.lru_cache(maxsize=1024)
+def _for_matmul(mods: Tuple[int, ...], k: int, signed: bool) -> ChannelPlan:
+    if signed:
+        bound = k * 128 * max(m - 1 for m in mods)
+    else:
+        bound = k * max((m - 1) ** 2 for m in mods)
+    if bound > INT32_SAFE:
+        raise ValueError(
+            f"int32 accumulator overflow: K={k}, moduli={mods}, "
+            f"bound={bound} >= 2^31")
+    return ChannelPlan.build(mods, bound, signed=signed)
+
+
+@functools.lru_cache(maxsize=1024)
+def _build_plan(moduli: Tuple[int, ...],
+                channels: Tuple[Optional[Modulus], ...],
+                bound: int, signed: bool, max_rungs: int) -> ChannelPlan:
+    if bound > INT32_SAFE:
+        raise ValueError(f"bound {bound} exceeds the int32 accumulator range")
+    scheds = []
+    n_sub = 1
+    for m, ch in zip(moduli, channels):
+        if ch is None:                    # power of two: mask-only reduction
+            scheds.append([(int(np.log2(m)), 0)])
+            continue
+        sc = list(fold_schedule(bound, ch, target_multiple=4,
+                                max_rungs=max_rungs))
+        n_sub = max(n_sub, max_subtracts(bound, sc, m))
+        scheds.append(sc)
+    R = max(len(s) for s in scheds)
+    rungs = tuple(tuple(s) + (_PAD_RUNG,) * (R - len(s)) for s in scheds)
+    return ChannelPlan(moduli=moduli, channels=channels, bound=bound,
+                       rungs=rungs, n_sub=n_sub, signed=signed)

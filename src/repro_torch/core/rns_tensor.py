@@ -1,0 +1,85 @@
+"""RNSTensor: a quantized weight held as canonical residues, port of
+`repro/core/rns_tensor.py`.
+
+``residues`` has the channel axis at −3 — a plain weight is ``(C, K, N)``, a
+per-layer stacked weight ``(n_blocks, C, K, N)`` — so indexing a stacked
+tensor by layer gives a contiguous ``(C, K, N)`` weight.  ``scale`` is the
+per-column dequant scale ``(…, 1, N)``.  `encode`/`encode_params` run the
+weight's quantize + forward conversion ONCE; the linear layer then consumes
+the residues directly (`core/rns_linear.rns_dense`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from .conversion_plan import forward as _forward_convert
+from .quant import quantize_int8
+from .rns import RNSBasis, basis_for_int8_matmul
+
+__all__ = ["RNSTensor", "encode", "encode_params", "ENCODED_LINEAR_LEAVES"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RNSTensor:
+    """Canonical residues ``(*B, C, K, N)`` of int8 weights quantized to
+    ±127, and their dequant scale ``(*B, 1, N)``."""
+
+    residues: torch.Tensor
+    scale: torch.Tensor
+    basis: RNSBasis
+
+    @property
+    def moduli(self) -> Tuple[int, ...]:
+        return tuple(int(m) for m in self.basis.moduli)
+
+    def __getitem__(self, i: int) -> "RNSTensor":
+        """Layer ``i`` of a stacked tensor (a view, no copy)."""
+        if self.residues.ndim < 4:
+            raise IndexError("only stacked (n_blocks, C, K, N) tensors index")
+        return RNSTensor(self.residues[i], self.scale[i], self.basis)
+
+
+def encode(w: torch.Tensor, basis: RNSBasis | None = None) -> RNSTensor:
+    """Quantize (per column, over K) + forward-convert a float weight
+    ``(…, K, N)`` once.  Residues come out in ``(…, C, K, N)`` layout."""
+    if w.ndim < 2:
+        raise ValueError(f"encode expects (..., K, N) weights, got "
+                         f"{tuple(w.shape)}")
+    basis = basis or basis_for_int8_matmul(w.shape[-2])
+    wq, sw = quantize_int8(w, dim=-2)
+    res = _forward_convert(wq, basis.moduli)            # (C, …, K, N)
+    return RNSTensor(residues=res.movedim(0, -3).contiguous(), scale=sw,
+                     basis=basis)
+
+
+# Which weight leaves the linear datapath consumes, keyed by parent dict.
+ENCODED_LINEAR_LEAVES: Dict[str, Tuple[str, ...]] = {
+    "attn": ("wq", "wk", "wv", "wo"),
+    "mlp": ("w_gate", "w_up", "w_down"),
+}
+
+
+def encode_params(params: Dict[str, Any],
+                  basis: RNSBasis | None = None) -> Dict[str, Any]:
+    """Replace exactly the linear weight leaves (`ENCODED_LINEAR_LEAVES`) of
+    a nested parameter dict with :class:`RNSTensor`s; stacked leaves encode
+    per block.  Already-encoded leaves pass through."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            leaves = ENCODED_LINEAR_LEAVES.get(k)
+            if leaves is not None and isinstance(v, dict):
+                out[k] = {kk: (encode(vv, basis)
+                               if kk in leaves and isinstance(vv, torch.Tensor)
+                               else walk(vv))
+                          for kk, vv in v.items()}
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(params)

@@ -1,0 +1,166 @@
+"""Shared layers of the dense stack, port of `repro/models/layers.py`:
+the linear dispatch, RMSNorm, RoPE, GQA attention and the full KV cache.
+
+Layouts follow the reference: activations (B, S, d), attention heads
+(B, S, H, D), weights (d_in, d_out).
+
+The row reductions that see padding — the attention scores, the softmax
+denominator, the probability-weighted sum of values and the RMSNorm mean —
+accumulate in float64 and round once to the working type.  Left padding only
+adds exact zeros to those sums, and a float64 sum of these terms is exact or
+off by ~2^-53, so the rounded result does not depend on where the real keys
+sit or how many pad slots there are: greedy outputs are batch-invariant by
+construction, on the CPU and on the card alike.  (The reference gets its
+batch invariance from XLA's shape-stable reductions instead.)
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.rns_linear import rns_dense
+from repro_torch.core.rns_tensor import RNSTensor
+
+__all__ = ["linear", "rms_norm", "rope", "apply_rope", "attention",
+           "update_cache_full", "silu"]
+
+NEG_INF = -1e30
+
+
+def linear(x: torch.Tensor, w, spec: str = "bf16") -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out) under the ``linear_backend`` spec:
+    "bf16" is a plain matmul, "rns_int8[:engine]" the RNS datapath
+    (`core/rns_linear.rns_dense`); an encoded :class:`RNSTensor` weight
+    needs the RNS spec."""
+    is_rns = spec.startswith("rns_int8")
+    if isinstance(w, RNSTensor) and not is_rns:
+        raise ValueError(f"encoded (RNSTensor) weights need an rns_int8 "
+                         f"spec, got {spec!r}")
+    if not is_rns:
+        return torch.matmul(x, w)
+    shp = x.shape
+    y = rns_dense(x.reshape(-1, shp[-1]), w)
+    return y.reshape(*shp[:-1], y.shape[-1])
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu as XLA lowers it: x · 1/(1 + exp(−x)), each op rounded
+    to x's dtype (bit-equal in bfloat16; F.silu rounds once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).to(torch.float64).mean(-1, keepdim=True)
+    out = x32 * torch.rsqrt(var.to(torch.float32) + eps) \
+        * (1.0 + gamma.to(torch.float32))
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    # the reference's numpy float32 frequencies, bit for bit; cached per
+    # device so decode steps do not copy (and sync) from the host
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+    return torch.from_numpy(freqs).to(device)
+
+
+def rope(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
+    """positions (...,) int → (cos, sin) of shape (..., head_dim // 2)."""
+    ang = positions.to(torch.float32)[..., None] \
+        * _rope_freqs(head_dim, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D); cos/sin (S, D/2) or (B, S, D/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.ndim == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _mask(qpos, kpos):
+    """Causal mask over valid keys (kpos >= 0): qpos (Bm, Sq), kpos (Bm, Sk)
+    → (Bm, Sq, Sk).  The reference's full-attention window (2^30) never
+    masks, so it is left out."""
+    kp, qp = kpos[:, None, :], qpos[:, :, None]
+    return (kp <= qp) & (kp >= 0)
+
+
+def _scores(qg, kg, scale):
+    """(…, Sq, D) · (…, Sk, D) → float32 scores, summed in float64 and
+    rounded to the operands' dtype as the reference's einsum is."""
+    s = torch.matmul(qg.to(torch.float64),
+                     kg.to(torch.float64).transpose(-1, -2))
+    return s.to(qg.dtype).to(torch.float32) * scale
+
+
+def attention(q, k, v, qpos, kpos, *, block_kv: int = 1024):
+    """GQA attention over absolute positions.
+
+    q (B, Sq, Hq, D); k, v (B, Sk, Hk, D), query head h reads kv head
+    h // (Hq/Hk).  qpos (Sq,) or (B, Sq), kpos (Sk,) or (B, Sk) int
+    positions; a key at a negative position (−1 marks pad) is invalid.  Short keys (or one query) take the direct branch; longer
+    prefills the blocked online softmax, in float32 like the reference's.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G = Hq // Hk
+    scale = float(np.float32(1.0 / np.sqrt(D)))
+    qpos = qpos[None] if qpos.ndim == 1 else qpos
+    kpos = kpos[None] if kpos.ndim == 1 else kpos
+    qg = q.reshape(B, Sq, Hk, G, D).permute(0, 2, 3, 1, 4)   # (B,Hk,G,Sq,D)
+    kg = k.permute(0, 2, 1, 3)[:, :, None]                   # (B,Hk,1,Sk,D)
+    vg = v.permute(0, 2, 1, 3)[:, :, None]
+
+    if Sk <= 2 * block_kv or Sq == 1:
+        s = _scores(qg, kg, scale)
+        m = _mask(qpos, kpos)[:, None, None]
+        s = torch.where(m, s, NEG_INF)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
+        o = torch.matmul(p.to(v.dtype).to(torch.float64),
+                         vg.to(torch.float64)).to(v.dtype)
+    else:
+        m_run = torch.full((B, Hk, G, Sq, 1), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros_like(m_run)
+        acc = torch.zeros((B, Hk, G, Sq, D), dtype=torch.float32,
+                          device=q.device)
+        for start in range(0, Sk, block_kv):
+            sl = slice(start, min(Sk, start + block_kv))
+            s = _scores(qg, kg[..., sl, :], scale)
+            msk = _mask(qpos, kpos[:, sl])
+            s = torch.where(msk[:, None, None], s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p, vg[..., sl, :].to(
+                torch.float32))
+            m_run = m_new
+        l_run = torch.where(l_run == 0.0, 1.0, l_run)
+        o = (acc / l_run).to(v.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+
+
+def update_cache_full(cache_k, cache_v, k, v, pos: int):
+    """Write k, v (B, S, Hk, D) at slot ``pos`` of (B, smax, Hk, D) caches.
+    Updates in place (the reference returns new arrays) and returns them."""
+    S = k.shape[1]
+    if pos + S > cache_k.shape[1]:
+        raise ValueError(f"cache of {cache_k.shape[1]} slots cannot hold "
+                         f"positions {pos}..{pos + S - 1}")
+    cache_k[:, pos:pos + S] = k.to(cache_k.dtype)
+    cache_v[:, pos:pos + S] = v.to(cache_v.dtype)
+    return cache_k, cache_v
