@@ -7,21 +7,28 @@ Phases, each of which must pass:
   1. device  — the card's name and power limit (nvidia-smi), the kernel
      library built from `src/repro_torch/csrc` (build seconds printed);
   2. kernels — each CUDA kernel against its plain PyTorch version, bit for
-     bit, at every launch shape of the serving path, with median times
-     (CUDA events, cold L2), the plain version's time, a one-call PyTorch
-     yardstick and the least time the card could take (bytes over HBM rate
-     or int8 ops over the int8 peak, whichever is larger);
-  3. serve   — the full 30-layer `rns-smollm-135m-fused` (published widths,
-     seeded random weights) served through `serve.Engine`: launch counts of
-     the main path, batch invariance with pinned lanes, prefill and decode
-     times;
-  4. check   — finite logits of the served batch, and the smoke config's
+     bit, at every launch shape of the three serving paths and at an odd
+     shape, with median times (CUDA events; weights read cold from device
+     memory), the plain version's time, a one-call PyTorch yardstick and
+     the least time the card could take (bytes over HBM rate or int8 ops
+     over the int8 peak, whichever is larger);
+  3. serve   — three full 30-layer models (published widths, seeded random
+     weights) served through `serve.Engine`: `rns-smollm-135m-fused`
+     (encoded weights, one fused launch per linear),
+     `rns-smollm-135m-resident` (residue-resident QKV and MLP chains) and
+     `rns-smollm-135m-pallas` (live weights on the staged kernels); each
+     with its launch counts, batch invariance with pinned lanes, prefill
+     and decode times;
+  4. chain   — `rns_chain_linear` on the staged kernels equal bit for bit
+     to the fused kernel at the full-width MLP shapes;
+  5. check   — finite logits of each served batch, and each smoke config's
      logits on the card against the same model on the CPU (plain versions).
-Lines: per-shape kernel rows, a `kernels:` summary, a `serve:` summary, the
-nvidia-smi line, the kernels JSON line and, last, the device JSON line.
-``--record PATH`` also writes every row, the serve numbers and the trace as
-JSON.  Exits non-zero without a CUDA device or without the port's sources
-beside it.
+Lines: per-shape kernel rows, a `kernels:` summary, one `serve:` line per
+model, a `chain:` line, one `check:` line per smoke config, the nvidia-smi
+line, the kernels JSON line and, last, the device JSON line.  ``--record
+PATH`` also writes every row, the serve numbers and the traces as JSON.
+Exits non-zero without a CUDA device or without the port's sources beside
+it.
 """
 import argparse
 import json
@@ -37,9 +44,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 COLD_L2_BYTES = 120 << 20          # > 2x the 50 MB L2: weights read cold
 ARCH = "rns-smollm-135m-fused"
-# Tolerance of the smoke model's logits, card vs CPU: the same bound the CPU
-# tests hold the port to against the JAX reference (tests/test_torch_model).
-LOGIT_ATOL = 0.03
+RESIDENT = "rns-smollm-135m-resident"
+STAGED = "rns-smollm-135m-pallas"
+# Tolerance of each smoke model's logits, card vs CPU: the bound the CPU
+# tests hold the port to against the JAX reference (tests/test_torch_model,
+# tests/test_torch_chain, tests/test_torch_staged).
+LOGIT_ATOL = {ARCH: 0.03, STAGED: 0.03, RESIDENT: 0.15}
 
 
 def bound_ms(nbytes, ops):
@@ -225,16 +235,275 @@ def phase_kernels(layer_shapes, decode_m, prefill_m, dev):
 
 def _sum(rows):
     out = {k: sum(r[k] for r in rows)
-           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+    libs = [r["library_ms"] for r in rows]
+    out["library_ms"] = None if None in libs else sum(libs)
     out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                        else "operations")
     return out
 
 
+def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
+             nbytes, ops, **info):
+    """Compare one launch with its plain version and time kernel, plain
+    version and yardstick; appends the row and returns equality."""
+    import torch
+
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = 0.0 if same else (got.double() - want.double()).abs().max().item()
+    ms = device_ms(launch, pool_n)
+    call = time_ms(lambda i: launch(i % pool_n))
+    plain_ms = time_ms(lambda i: plain(), reps=5, warmup=1)
+    lib_ms = device_ms(lib[0], lib[1]) if lib else None
+    b, by = bound_ms(nbytes, ops)
+    rows.append(dict(kernel=kernel, label=label, equal=same, max_abs_err=err,
+                     ms=ms, call_ms=call, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=b, bound_by=by, **info))
+    libs = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    print(f"  {kernel} {label} equal={same} ms={ms:.4f} call={call:.4f} "
+          f"plain={plain_ms:.3f} library={libs} bound={b:.4f}")
+    return same
+
+
+def _bf16_matmul(x_shape, k, n, g, dev):
+    """The yardstick of an (M, K) × (K, N) integer product: one bf16
+    torch.matmul of the same shape, weights read cold."""
+    import torch
+
+    x = torch.randn(x_shape, generator=g, device=dev).to(torch.bfloat16)
+    wl = _copies(lambda: torch.randn(k, n, generator=g, device=dev)
+                 .to(torch.bfloat16), 2 * k * n)
+    return (lambda i: torch.matmul(x, wl[i]), len(wl))
+
+
+def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
+    """The kernels of the resident and staged paths at their launch shapes:
+    the residue-in fused forms, rns_matmul (broadcast and canonical),
+    rns_reverse, rns_modmul, and rns_forward at its per-step shapes."""
+    import torch
+    from repro_torch.core.conversion_plan import ConversionPlan
+    from repro_torch.core.quant import requant_const
+    from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+    from repro_torch.core.rns_tensor import (RNSTensor, encode,
+                                             encode_activation)
+    from repro_torch.kernels import (ref, rns_forward, rns_fused_matmul,
+                                     rns_matmul, rns_modmul, rns_reverse)
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows, ok = [], True
+    d, F, qkv_n = chain
+    ms_odd = (13, 200, 70)
+
+    def act(m, k, basis):
+        x = torch.randn(m, k, generator=g, device=dev)
+        x[0, :2] = torch.tensor([40.0, -40.0])
+        return encode_activation(x, basis)
+
+    # residue-in fused launches: (label, basis, M, K, N, form)
+    res_cases = []
+    for m in (decode_m, prefill_m):
+        res_cases += [("qkv", basis_for_int8_matmul(d), m, d, qkv_n, "float"),
+                      ("gate", basis_for_chain(F), m, d, F, "float"),
+                      ("up", basis_for_chain(F), m, d, F, "residues"),
+                      ("down", basis_for_chain(F), m, F, d, "gated")]
+    res_cases += [("odd-" + f, basis_for_chain(ms_odd[1]), *ms_odd, f)
+                  for f in ("float", "residues", "gated")]
+    for label, basis, m, k, n, form in res_cases:
+        xa = act(m, k, basis)
+        wt = encode(torch.randn(k, n, generator=g, device=dev) / k ** 0.5,
+                    basis)
+        gate = None
+        if form == "gated":
+            gate = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                                 dtype=torch.int8)
+        emit = "residues" if form == "residues" else "float"
+        C = len(basis.moduli)
+        pool = _copies(lambda: torch.randint(0, 31, (C, k, n),
+                                             dtype=torch.int8, device=dev),
+                       C * k * n)
+
+        def launch(i, xa=xa, wt=wt, gate=gate, emit=emit, pool=pool):
+            w = RNSTensor(pool[i], wt.scale, wt.basis)
+            return rns_fused_matmul(xa, w, scale_row=xa.scale,
+                                    scale_col=wt.scale, gate=gate, emit=emit)
+
+        got = rns_fused_matmul(xa, wt, scale_row=xa.scale, scale_col=wt.scale,
+                               gate=gate, emit=emit)
+        creq = requant_const(wt.scale, k) if emit == "residues" else None
+        want = ref.rns_fused_matmul_ref(xa.residues, wt.residues, basis,
+                                        scale_row=xa.scale,
+                                        scale_col=wt.scale, gate=gate,
+                                        creq=creq)
+        if emit == "residues":
+            got = got.residues
+        out_bytes = C * m * n if emit == "residues" else 4 * m * n
+        nbytes = (C * m * k + C * k * n + (m * k if gate is not None else 0)
+                  + 4 * m + 4 * n + out_bytes)
+        ok &= _measure(
+            rows, "rns_fused_matmul:residue_in", f"{label} M={m} K={k} N={n}",
+            got, want, launch,
+            lambda xa=xa, wt=wt, gate=gate, creq=creq, basis=basis:
+            ref.rns_fused_matmul_ref(xa.residues, wt.residues, basis,
+                                     scale_row=xa.scale, scale_col=wt.scale,
+                                     gate=gate, creq=creq),
+            _bf16_matmul((m, k), k, n, g, dev), len(pool), nbytes,
+            2 * C * m * k * n, leaf=label, M=m, K=k, N=n, C=C, form=form)
+
+    # rns_matmul: broadcast (staged linears) and canonical (staged chain)
+    mm_cases = []
+    for m in (decode_m, prefill_m):
+        mm_cases += [(name, basis_for_int8_matmul(k), m, k, n, True)
+                     for name, k, n in staged_shapes]
+        mm_cases += [("chain-gate/up", basis_for_chain(F), m, d, F, False),
+                     ("chain-down", basis_for_chain(F), m, F, d, False)]
+    mm_cases += [("odd-broadcast", basis_for_int8_matmul(ms_odd[1]),
+                  *ms_odd, True),
+                 ("odd-canonical", basis_for_chain(ms_odd[1]), *ms_odd,
+                  False)]
+    for label, basis, m, k, n, signed in mm_cases:
+        mods = basis.moduli
+        C = len(mods)
+        if signed:
+            a = torch.randint(-128, 128, (1, m, k), generator=g, device=dev,
+                              dtype=torch.int8)
+        else:
+            a = act(m, k, basis).residues
+        w_res = rns_forward(torch.randint(-127, 128, (k, n), generator=g,
+                                          device=dev, dtype=torch.int8),
+                            mods, dtype=torch.int8)
+        pool = _copies(lambda: torch.randint(0, 31, (C, k, n),
+                                             dtype=torch.int8, device=dev),
+                       C * k * n)
+        ok &= _measure(
+            rows, "rns_matmul", f"{label} M={m} K={k} N={n}",
+            rns_matmul(a, w_res, mods, signed_a=signed),
+            ref.rns_matmul_ref(a, w_res, mods, signed_a=signed),
+            lambda i, a=a, pool=pool, mods=mods, signed=signed:
+            rns_matmul(a, pool[i], mods, signed_a=signed),
+            lambda a=a, w=w_res, mods=mods, signed=signed:
+            ref.rns_matmul_ref(a, w, mods, signed_a=signed),
+            _bf16_matmul((m, k), k, n, g, dev), len(pool),
+            a.numel() + C * k * n + 4 * C * m * n, 2 * C * m * k * n,
+            leaf=label, M=m, K=k, N=n, C=C,
+            form="broadcast" if signed else "canonical")
+
+    # rns_reverse: the (C, M·N) residues of every staged linear's output
+    rv_cases = []
+    for m in (decode_m, prefill_m):
+        rv_cases += [(name, basis_for_int8_matmul(k), m, n, False)
+                     for name, k, n in staged_shapes]
+        rv_cases += [("chain-gate/up", basis_for_chain(F), m, F, False),
+                     ("chain-down", basis_for_chain(F), m, d, False)]
+    rv_cases += [("odd-scaled", basis_for_chain(ms_odd[1]), ms_odd[0],
+                  ms_odd[2], True)]
+    for label, basis, m, n, scaled in rv_cases:
+        conv = ConversionPlan.for_basis(basis)
+        half = basis.M // 2
+        v = torch.randint(-half, half, (m, n), generator=g, device=dev)
+        r = torch.stack([torch.remainder(v, mm) for mm in basis.moduli]) \
+            .to(torch.int32)
+        sc = torch.rand((m, 1), generator=g, device=dev) if scaled else None
+        C = len(basis.moduli)
+        ok &= _measure(
+            rows, "rns_reverse", f"{label} M={m} N={n}",
+            rns_reverse(r, conv, scale=sc), ref.rns_reverse_ref(r, conv, sc),
+            lambda i, r=r, conv=conv, sc=sc: rns_reverse(r, conv, scale=sc),
+            lambda r=r, conv=conv, sc=sc: ref.rns_reverse_ref(r, conv, sc),
+            None, 20, 4 * C * m * n + 4 * m * n + (4 * m if scaled else 0),
+            0, leaf=label, M=m, N=n, C=C)
+
+    # rns_modmul: the staged chain's gate multiply, (C, M·F) int8
+    for m, n in ((decode_m, F), (prefill_m, F), (ms_odd[0], ms_odd[1])):
+        basis = basis_for_chain(F if n == F else n)
+        mods = basis.moduli
+        C = len(mods)
+        a = act(m, n, basis).residues
+        b = act(m, n, basis).residues
+        mcol = torch.tensor(mods, dtype=torch.int32,
+                            device=dev).reshape(-1, 1, 1)
+        a32, b32 = a.int(), b.int()
+        ok &= _measure(
+            rows, "rns_modmul", f"M={m} F={n}", rns_modmul(a, b, mods),
+            ref.rns_modmul_ref(a, b, mods),
+            lambda i, a=a, b=b, mods=mods: rns_modmul(a, b, mods),
+            lambda a=a, b=b, mods=mods: ref.rns_modmul_ref(a, b, mods),
+            (lambda i, a32=a32, b32=b32, mcol=mcol:
+             torch.remainder(a32 * b32, mcol), 20),
+            20, 2 * C * m * n + 4 * C * m * n, 0, M=m, N=n, C=C)
+
+    # rns_forward at its per-step shapes: activation encodes, the staged
+    # path's weight conversion, the staged chain's gate and requantized up
+    fw_cases = []
+    for m in (decode_m, prefill_m):
+        fw_cases += [("act-qkv", basis_for_int8_matmul(d), (m, d),
+                      torch.int8),
+                     ("act-mlp", basis_for_chain(F), (m, d), torch.int8),
+                     ("gate", basis_for_chain(F), (m, F), torch.int8),
+                     ("requant-up", basis_for_chain(F), (m, F),
+                      torch.int32)]
+    fw_cases += [(f"weight-{name}", basis_for_int8_matmul(k), (k, n),
+                  torch.int8) for name, k, n in staged_shapes]
+    for label, basis, shape, dtype in fw_cases:
+        mods = basis.moduli
+        q = torch.randint(-127, 128, shape, generator=g, device=dev).to(dtype)
+        ok &= _measure(
+            rows, "rns_forward", f"{label} {shape[0]}x{shape[1]}",
+            rns_forward(q, mods, dtype=torch.int8),
+            ref.rns_forward_ref(q, mods, torch.int8),
+            lambda i, q=q, mods=mods: rns_forward(q, mods, dtype=torch.int8),
+            lambda q=q, mods=mods: ref.rns_forward_ref(q, mods, torch.int8),
+            None, 20, q.numel() * (q.element_size() + len(mods)), 0,
+            leaf=label, shape=list(shape), C=len(mods))
+    return rows, ok
+
+
+COUNTED = ("rns_fused_matmul", "residue_in", "rns_forward", "rns_matmul",
+           "rns_reverse", "rns_modmul")
+
+
+def _counters():
+    from repro_torch.kernels import (rns_forward, rns_fused_matmul,
+                                     rns_matmul, rns_modmul, rns_reverse)
+
+    return (rns_fused_matmul, rns_forward, rns_matmul, rns_modmul,
+            rns_reverse)
+
+
+def reset_launches():
+    for f in _counters():
+        f.launches = 0
+    _counters()[0].residue_in_launches = 0
+
+
+def read_launches():
+    fused, fwd, mm, mod, rev = _counters()
+    return {"rns_fused_matmul": fused.launches,
+            "residue_in": fused.residue_in_launches,
+            "rns_forward": fwd.launches, "rns_matmul": mm.launches,
+            "rns_reverse": rev.launches, "rns_modmul": mod.launches}
+
+
+def expected_launches(cfg, steps):
+    """Launches of a ``steps``-step generate (prefill + steps−1 decode
+    steps) including the weight encodes at Engine init."""
+    spec, L = cfg.linear_spec, cfg.num_layers
+    want = dict.fromkeys(COUNTED, 0)
+    if not spec.encode_weights:               # staged, live weights
+        for k in ("rns_forward", "rns_matmul", "rns_reverse"):
+            want[k] = 7 * L * steps
+    elif spec.domain == "residue":            # QKV + wo + gate/up/down
+        want.update(rns_fused_matmul=5 * L * steps,
+                    residue_in=4 * L * steps,
+                    rns_forward=7 + 2 * L * steps)
+    else:
+        want.update(rns_fused_matmul=7 * L * steps, rns_forward=7)
+    return want
+
+
 def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     import numpy as np
     import torch
-    from repro_torch.kernels import rns_forward, rns_fused_matmul
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import Engine
 
@@ -244,9 +513,9 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     lens = [5, 17, 38, 60][:n_prompts]
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
 
-    # the main path: encode at init, then one batched generate
-    rns_fused_matmul.launches = 0
-    rns_forward.launches = 0
+    # the path: encode at init (if the config encodes), then one batched
+    # generate, with every launch count set to 0 just before
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = Engine(cfg, params, smax=smax, lanes=lanes, device=dev)
@@ -254,13 +523,12 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     init_s = time.perf_counter() - t0
     out = eng.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
-    launches = {"rns_fused_matmul": rns_fused_matmul.launches,
-                "rns_forward": rns_forward.launches}
-    per_step = 7 * cfg.num_layers
-    want = {"rns_fused_matmul": per_step * new_tokens, "rns_forward": 7}
+    launches = read_launches()
+    want = expected_launches(cfg, new_tokens)
     if launches != want:
-        raise AssertionError(f"main-path launches {launches}, expected "
-                             f"{want} ({per_step} per prefill/decode step)")
+        raise AssertionError(f"{cfg.name} launches {launches}, expected "
+                             f"{want} over {new_tokens} prefill/decode "
+                             "steps")
     for p, o in zip(prompts, out):
         gen = o[len(p):]
         if o[:len(p)] != p or len(gen) != new_tokens or \
@@ -320,7 +588,10 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     if not (logits.shape == (lanes, cfg.vocab_size)
             and torch.isfinite(logits).all()):
         raise AssertionError("prefill logits not finite / wrong shape")
-    return {"launches": launches, "launches_per_step": per_step,
+    per_step = {k: (v - expected_launches(cfg, 0)[k]) // new_tokens
+                for k, v in want.items()}
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "launches": launches, "launches_per_step": per_step,
             "init_s": init_s, "prefill_ms": 1e3 * pre_s,
             "decode_ms_per_token": dec_ms,
             "decode_tokens_per_s": n_prompts * 1e3 / dec_ms,
@@ -329,11 +600,12 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
 
 
 def phase_check(smoke_cfg, dev):
-    """Smoke model on the card (kernels) vs the CPU (plain versions)."""
+    """Smoke model on the card (kernels) vs the CPU (plain versions), each
+    through an Engine on its device (which encodes as the config says)."""
     import numpy as np
     import torch
-    from repro_torch.core.rns_tensor import encode_params
     from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
 
     params = T.make_params(smoke_cfg, torch.Generator().manual_seed(1),
                            device="cpu")
@@ -342,15 +614,57 @@ def phase_check(smoke_cfg, dev):
     pad = torch.tensor([0, 5, 11], dtype=torch.int32)
     out = {}
     for d in ("cpu", dev):
-        p = encode_params(_to(params, d))
+        eng = Engine(smoke_cfg, params, smax=24, device=d)
         with torch.inference_mode():
-            lg, _, _ = T.prefill(smoke_cfg, p, {"tokens": toks.to(d),
-                                                "pad": pad.to(d)}, 24)
+            lg, _, _ = T.prefill(smoke_cfg, eng.params,
+                                 {"tokens": toks.to(d), "pad": pad.to(d)},
+                                 24)
         out[str(d)] = lg.float().cpu()
     err = (out["cpu"] - out[str(dev)]).abs().max().item()
-    if not (torch.isfinite(out[str(dev)]).all() and err <= LOGIT_ATOL):
-        raise AssertionError(f"smoke logits card vs CPU differ by {err}")
-    return err
+    return err, bool(torch.isfinite(out[str(dev)]).all())
+
+
+def phase_chain(d, F, ms, dev):
+    """rns_chain_linear on the staged kernels ("pallas") against the fused
+    kernel ("pallas_fused") at the full-width MLP shapes, bit for bit; the
+    staged run's launches are counted."""
+    import torch
+    from repro_torch.core.quant import quantize_int8
+    from repro_torch.core.rns import basis_for_chain
+    from repro_torch.core.rns_linear import rns_chain_linear
+    from repro_torch.core.rns_tensor import encode, encode_activation
+    from repro_torch.models.layers import silu
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    basis = basis_for_chain(F)
+    wg, wu = (encode(torch.randn(d, F, generator=g, device=dev) / d ** 0.5,
+                     basis) for _ in range(2))
+    wd = encode(torch.randn(F, d, generator=g, device=dev) / F ** 0.5, basis)
+    res = {"equal": True, "launches": None, "shapes": []}
+    for m in ms:
+        x = torch.randn(m, d, generator=g, device=dev)
+        outs = []
+        for backend in ("pallas", "pallas_fused"):
+            if backend == "pallas" and res["launches"] is None:
+                reset_launches()
+            xa = encode_activation(x, basis)
+            gf = rns_chain_linear(xa, wg, backend=backend)
+            up = rns_chain_linear(xa, wu, emit="residues", backend=backend)
+            gq, sg = quantize_int8(silu(gf), dim=-1)
+            outs.append(rns_chain_linear(up, wd, gate=gq, gate_scale=sg,
+                                         backend=backend))
+            torch.cuda.synchronize()
+            if backend == "pallas" and res["launches"] is None:
+                res["launches"] = read_launches()
+        same = torch.equal(outs[0], outs[1])
+        res["equal"] &= same
+        res["shapes"].append({"M": m, "K": d, "F": F, "equal": same})
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(rns_forward=3, rns_matmul=3, rns_reverse=3, rns_modmul=1)
+    if res["launches"] != want:
+        raise AssertionError(f"staged chain launches {res['launches']}, "
+                             f"expected {want}")
+    return res
 
 
 def _to(node, dev):
@@ -390,66 +704,136 @@ def main() -> int:
     lanes, bucket = 8, 64
 
     dev_info = phase_device()
+    dev = torch.device("cuda")
     print("phase kernels:")
     rows, fused_ok, fwd_ok, max_err = phase_kernels(
-        layer_shapes, lanes, lanes * bucket, torch.device("cuda"))
+        layer_shapes, lanes, lanes * bucket, dev)
     # one decode step of one layer: the 7 encoded launches at M = lanes
     fused = _sum([next(r for r in rows if r["kernel"] == "rns_fused_matmul"
                        and r["weights"] == "encoded" and r["M"] == lanes
                        and (r["K"], r["N"]) == (k, n))
                   for _, k, n, _ in layer_shapes])
     fwd = _sum([r for r in rows if r["kernel"] == "rns_forward"])
-    print(f'kernels: ["rns_fused_matmul", "rns_forward"] '
-          f'pass=[{str(fused_ok).lower()}, {str(fwd_ok).lower()}] '
-          f'median_ms=[{fused["ms"]:.4f}, {fwd["ms"]:.4f}] '
-          f'(the 7 launches of one layer at decode; the 7 encodes at init)')
-    if not (fused_ok and fwd_ok):
+    staged_shapes = [(name, k, n) for name, k, n, _ in layer_shapes]
+    rows2, ok2 = phase_kernels_slice2(staged_shapes, (d, f, qd + 2 * kvd),
+                                      lanes, lanes * bucket, dev)
+
+    def pick(kernel, labels):
+        return _sum([next(r for r in rows2 if r["kernel"] == kernel
+                          and r["label"].startswith(lab + " ")
+                          and r.get("M", lanes) == lanes)
+                     for lab in labels])
+
+    # per kernel: the launches of one decode step of one layer on its path
+    resid = pick("rns_fused_matmul:residue_in", ["qkv", "gate", "up", "down"])
+    names = [name for name, _, _ in staged_shapes]
+    matmul = pick("rns_matmul", names)
+    reverse = pick("rns_reverse", names)
+    modmul = pick("rns_modmul", [f"M={lanes}"])
+    print(f'kernels: ["rns_fused_matmul", "rns_forward", '
+          f'"rns_fused_matmul:residue_in", "rns_matmul", "rns_reverse", '
+          f'"rns_modmul"] pass=[{str(fused_ok).lower()}, '
+          f'{str(fwd_ok).lower()}, {str(ok2).lower()}] median_ms='
+          f'[{fused["ms"]:.4f}, {fwd["ms"]:.4f}, {resid["ms"]:.4f}, '
+          f'{matmul["ms"]:.4f}, {reverse["ms"]:.4f}, {modmul["ms"]:.4f}] '
+          f'(one layer at decode on its path; rns_forward: the 7 encodes '
+          f'at init)')
+    if not (fused_ok and fwd_ok and ok2):
         raise AssertionError("a kernel disagrees with its plain version")
 
-    print("phase serve:")
-    serve = phase_serve(cfg, torch.device("cuda"), lanes)
     smi = dev_info["smi"]
-    print(f"serve: {ARCH} {L} layers, {len(serve['prompt_lens'])} prompts "
-          f"(lens {serve['prompt_lens']}, lanes {lanes}), "
-          f"{serve['new_tokens']} greedy tokens | prefill "
-          f"{serve['prefill_ms']:.1f} ms | decode "
-          f"{serve['decode_ms_per_token']:.2f} ms/token | "
-          f"{serve['decode_tokens_per_s']:.1f} tokens/s | launches "
-          f"{serve['launches']} | batch-invariant | on {smi}")
-    tr = serve["trace"]
-    print(f"trace: generate(4 tokens) {tr['wall_ms']:.1f} ms wall, device "
-          f"busy {tr['device_busy_ms']:.2f} ms "
-          f"({100 * tr['device_busy_share']:.1f}%); top: "
-          + "; ".join(f"{t['name']} {t['us']:.0f} us x{t['count']}"
-                      for t in tr["top_device"][:4]))
-    check_err = phase_check(get_smoke_config(ARCH), torch.device("cuda"))
-    print(f"check: smoke logits card vs CPU max |diff| {check_err:.5f} "
-          f"<= {LOGIT_ATOL}")
+    print("phase serve:")
+    serves = {}
+    for arch in (ARCH, RESIDENT, STAGED):
+        serve = phase_serve(get_config(arch), dev, lanes)
+        serves[arch] = serve
+        print(f"serve: {arch} {serve['layers']} layers, "
+              f"{len(serve['prompt_lens'])} prompts (lens "
+              f"{serve['prompt_lens']}, lanes {lanes}), "
+              f"{serve['new_tokens']} greedy tokens | prefill "
+              f"{serve['prefill_ms']:.1f} ms | decode "
+              f"{serve['decode_ms_per_token']:.2f} ms/token | "
+              f"{serve['decode_tokens_per_s']:.1f} tokens/s | launches "
+              f"{serve['launches']} | batch-invariant | on {smi}")
+        tr = serve["trace"]
+        print(f"trace: {arch} generate(4 tokens) {tr['wall_ms']:.1f} ms "
+              f"wall, device busy {tr['device_busy_ms']:.2f} ms "
+              f"({100 * tr['device_busy_share']:.1f}%); top: "
+              + "; ".join(f"{t['name']} {t['us']:.0f} us x{t['count']}"
+                          for t in tr["top_device"][:4]))
+
+    chain = phase_chain(d, f, (lanes, lanes * bucket), dev)
+    print(f"chain: rns_chain_linear staged == fused bit for bit at "
+          f"{[(c['M'], c['K'], c['F']) for c in chain['shapes']]}: "
+          f"{chain['equal']} | staged launches {chain['launches']}")
+    if not chain["equal"]:
+        raise AssertionError("staged chain differs from the fused chain")
+
+    checks = {}
+    for arch in (ARCH, RESIDENT, STAGED):
+        err, finite = phase_check(get_smoke_config(arch), dev)
+        checks[arch] = err
+        print(f"check: {arch} smoke logits card vs CPU max |diff| "
+              f"{err:.5f} <= {LOGIT_ATOL[arch]}")
+        if not (finite and err <= LOGIT_ATOL[arch]):
+            raise AssertionError(f"{arch} smoke logits card vs CPU differ "
+                                 f"by {err}")
+
+    def by_path(key):
+        out = {arch: sv["launches"][key] for arch, sv in serves.items()
+               if sv["launches"][key]}
+        if chain["launches"][key]:
+            out["rns_chain_linear:pallas"] = chain["launches"][key]
+        return out
+
+    quantize = {a: n - serves[a]["launches"]["residue_in"]
+                for a, n in by_path("rns_fused_matmul").items()}
+    src = "src/repro_torch/csrc/"
+
+    def entry(name, source, replaces, launches, agg, rows_of):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows_of),
+                "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+                "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
+                "library_ms": agg["library_ms"]}
+
+    def rows_of(kernel, table):
+        return [r for r in table if r["kernel"] == kernel]
 
     kernels = [
-        {"name": "rns_fused_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/rns_kernels.cu",
-         "replaces": "src/repro/kernels/rns_fused.py:352",
-         "launches": serve["launches"]["rns_fused_matmul"],
-         "max_abs_err": max_err, "ms": fused["ms"],
-         "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
-         "bound_by": fused["bound_by"], "library_ms": fused["library_ms"]},
-        {"name": "rns_forward", "route": "cuda",
-         "source": "src/repro_torch/csrc/rns_kernels.cu",
-         "replaces": "src/repro/kernels/rns_convert.py:54",
-         "launches": serve["launches"]["rns_forward"],
-         "max_abs_err": max(r["max_abs_err"] for r in rows
-                            if r["kernel"] == "rns_forward"),
-         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
-         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-         "library_ms": fwd["library_ms"]},
+        entry("rns_fused_matmul", src + "rns_common.cuh",
+              "src/repro/kernels/rns_fused.py:352", quantize, fused,
+              [{"max_abs_err": max_err}]),
+        entry("rns_forward", src + "rns_kernels.cu",
+              "src/repro/kernels/rns_convert.py:54", by_path("rns_forward"),
+              fwd, rows_of("rns_forward", rows) + rows_of("rns_forward",
+                                                          rows2)),
+        entry("rns_fused_matmul:residue_in", src + "rns_common.cuh",
+              "src/repro/kernels/rns_fused.py:352", by_path("residue_in"),
+              resid, rows_of("rns_fused_matmul:residue_in", rows2)),
+        entry("rns_matmul", src + "rns_common.cuh",
+              "src/repro/kernels/rns_matmul.py:84", by_path("rns_matmul"),
+              matmul, rows_of("rns_matmul", rows2)),
+        entry("rns_reverse", src + "rns_kernels.cu",
+              "src/repro/kernels/rns_convert.py:164",
+              by_path("rns_reverse"), reverse, rows_of("rns_reverse", rows2)),
+        entry("rns_modmul", src + "rns_kernels.cu",
+              "src/repro/kernels/rns_modmul.py:29", by_path("rns_modmul"),
+              modmul, rows_of("rns_modmul", rows2)),
     ]
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was never launched on its "
+                                 "path")
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                     exist_ok=True)
         with open(args.record, "w") as fh:
-            json.dump({"device": dev_info, "rows": rows, "serve": serve,
-                       "check_logit_err": check_err, "kernels": kernels},
+            json.dump({"device": dev_info, "rows": rows + rows2,
+                       "serve": serves, "chain": chain,
+                       "check_logit_err": checks, "kernels": kernels},
                       fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,11 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 from typing import Callable, Dict
+
+from repro_torch.core.linear_spec import LinearSpec
 
 __all__ = ["ModelConfig", "register", "get_config", "get_smoke_config"]
 
@@ -24,18 +27,23 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    # "bf16" or "rns_int8[:engine]": every projection through
-    # `core/rns_linear.rns_dense` (the engine suffix names the reference's
-    # backend; the port has one datapath, the fused kernel).
+    # "bf16" or "rns_int8[:auto|pallas|pallas_fused]": every projection
+    # through `core/rns_linear` on the fused kernel or the staged kernels.
     linear_backend: str = "bf16"
     # Encode the linear weights to residues once at Engine init.
     encode_weights: bool = False
+    # "float" or "residue": stacked QKV and the GLU MLP stay in the residue
+    # domain between launches (needs encode_weights).
+    linear_domain: str = "float"
     param_dtype: str = "bfloat16"
     attn_block_kv: int = 1024         # key block of the online softmax
 
-    @property
-    def is_rns(self) -> bool:
-        return self.linear_backend.startswith("rns_int8")
+    @functools.cached_property
+    def linear_spec(self) -> LinearSpec:
+        """The structured datapath of every projection (built once)."""
+        return dataclasses.replace(LinearSpec.parse(self.linear_backend),
+                                   encode_weights=self.encode_weights,
+                                   domain=self.linear_domain)
 
     @property
     def n_blocks(self) -> int:

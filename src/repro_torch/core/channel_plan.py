@@ -7,6 +7,11 @@ signedness of the accumulator.  ``sched``/``mods``/``n_sub`` are what the
 CUDA epilogue receives (`kernels/rns_fused.py`); `apply_ladder`,
 `fold_signed` and `fold` are the same ladder on torch int32 tensors, used by
 the plain versions in `kernels/ref.py`.
+
+`matmul`, `matmul_broadcast` and `modmul` are the staged datapath's channel
+ops.  Each goes to its kernel wrapper (`kernels/rns_matmul.py`,
+`kernels/rns_modmul.py`), which launches the CUDA kernel on a CUDA tensor
+and runs the plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 from .folding import INT32_SAFE, fold_schedule, max_subtracts
 from .twit import Modulus, is_power_of_two
 
-__all__ = ["ChannelPlan", "residue_dtype_for"]
+__all__ = ["ChannelPlan", "residue_dtype_for", "matmul", "matmul_broadcast",
+           "modmul"]
 
 # Every post-ladder value is < 4m < 2^30, so ``v & (2^30 - 1)`` keeps it and
 # the hi term adds 0: a pad rung changes nothing.
@@ -62,6 +68,12 @@ class ChannelPlan:
         int8 activations against canonical weight residues."""
         return _for_matmul(tuple(int(m) for m in moduli), int(k),
                            bool(signed))
+
+    @classmethod
+    def for_product(cls, moduli: Sequence[int]) -> "ChannelPlan":
+        """Plan for one elementwise residue product: bound max(m−1)²."""
+        mods = tuple(int(m) for m in moduli)
+        return cls.build(mods, max((m - 1) ** 2 for m in mods))
 
     @property
     def k(self) -> int:
@@ -141,3 +153,40 @@ def _build_plan(moduli: Tuple[int, ...],
     rungs = tuple(tuple(s) + (_PAD_RUNG,) * (R - len(s)) for s in scheds)
     return ChannelPlan(moduli=moduli, channels=channels, bound=bound,
                        rungs=rungs, n_sub=n_sub, signed=signed)
+
+
+def matmul(a_res: torch.Tensor, b_res: torch.Tensor, moduli: Sequence[int],
+           *, plan: ChannelPlan | None = None) -> torch.Tensor:
+    """|A·B|_{m_c} per channel: (C, M, K) × (C, K, N) residues → (C, M, N)
+    int32 canonical residues."""
+    from repro_torch.kernels.rns_matmul import rns_matmul
+
+    return rns_matmul(a_res, b_res, moduli, plan=plan,
+                      signed_a=plan.signed if plan is not None else False)
+
+
+def matmul_broadcast(x: torch.Tensor, w: torch.Tensor, moduli: Sequence[int],
+                     *, encoded: bool = False) -> torch.Tensor:
+    """(M, K) raw signed int8 × (K, N) int8 weights → (C, M, N) canonical
+    residues: Σ x·w ≡ Σ x·|w|_m, so only the weights are forward-converted
+    (not even those when ``encoded``: ``w`` is then the (C, K, N) residue
+    stack) and the activation block is shared by every channel."""
+    from repro_torch.kernels.rns_matmul import rns_matmul
+
+    from .conversion_plan import forward
+
+    mods = tuple(int(m) for m in moduli)
+    if encoded and (w.ndim != 3 or w.shape[0] != len(mods)):
+        raise ValueError(f"encoded weights must be (C, K, N) residues with "
+                         f"C={len(mods)}, got {tuple(w.shape)}")
+    plan = ChannelPlan.for_matmul(mods, w.shape[-2], signed=True)
+    w_res = w if encoded else forward(w, mods, plan.residue_dtype)
+    return rns_matmul(x[None], w_res, mods, signed_a=True, plan=plan)
+
+
+def modmul(a_res: torch.Tensor, b_res: torch.Tensor,
+           moduli: Sequence[int]) -> torch.Tensor:
+    """|a·b|_{m_c} elementwise over (C, …) residue planes → int32."""
+    from repro_torch.kernels.rns_modmul import rns_modmul
+
+    return rns_modmul(a_res, b_res, moduli)

@@ -5,10 +5,11 @@ For one basis the plan holds the dense (k, k) MRC inverse table, the
 dynamic range ``M``, the signed split ``half = ⌈M/2⌉`` and the limb count
 covering M.  These tables are what the fused CUDA epilogue receives.
 
-`forward` is THE forward converter (binary → canonical residues); on a CUDA
-tensor it launches the `kernels/rns_convert.rns_forward` kernel, on a CPU
-tensor it runs that kernel's plain version.  `ConversionPlan.reverse` is the
-plain torch MRC reverse the plain fused matmul ends with.
+`forward` is THE forward converter (binary → canonical residues) and
+`ConversionPlan.reverse` THE MRC reverse converter; on a CUDA tensor they
+launch the `kernels/rns_convert` kernels `rns_forward` / `rns_reverse`, on a
+CPU tensor they run those kernels' plain versions.
+`ConversionPlan.reverse_plain` is the plain torch MRC reverse itself.
 """
 from __future__ import annotations
 
@@ -72,10 +73,20 @@ class ConversionPlan:
     def residue_dtype(self) -> torch.dtype:
         return residue_dtype_for(self.moduli)
 
-    def reverse(self, residues: torch.Tensor) -> torch.Tensor:
-        """(k, …) canonical residues → signed value as float32, in plain
-        torch with the reference's op order: MRC digits (floored mod on a
-        possibly negative product), limb Horner, signed fix, f32 Horner."""
+    def reverse(self, residues: torch.Tensor,
+                scale: torch.Tensor | None = None) -> torch.Tensor:
+        """(k, …) canonical residues → signed value as float32, times
+        ``scale`` (broadcast against the output) when given."""
+        # deferred: the kernel modules import this one
+        from repro_torch.kernels.rns_convert import rns_reverse
+
+        return rns_reverse(residues, self, scale=scale)
+
+    def reverse_plain(self, residues: torch.Tensor,
+                      scale: torch.Tensor | None = None) -> torch.Tensor:
+        """`reverse` in plain torch with the reference's op order: MRC
+        digits (floored mod on a possibly negative product), limb Horner,
+        signed fix, f32 Horner, then the optional scale multiply."""
         if not self.device_reversible:
             raise ValueError(
                 f"moduli {self.moduli} exceed the int32 limb-Horner bound "
@@ -97,7 +108,8 @@ class ConversionPlan:
         is_neg = mw.limbs_ge_const(acc, self.half)
         pos = mw.limbs_to_float(acc)
         neg = mw.limbs_to_float(mw.limbs_const_minus(self.M, acc))
-        return torch.where(is_neg, -neg, pos)
+        out = torch.where(is_neg, -neg, pos)
+        return out if scale is None else out * scale
 
 
 @functools.lru_cache(maxsize=256)

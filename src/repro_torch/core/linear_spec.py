@@ -1,0 +1,83 @@
+"""LinearSpec: the structured description of a linear layer's datapath,
+port of `repro/core/linear_spec.py`.
+
+  * ``mode``           — "bf16" (plain matmul) or "rns_int8" (the residue
+                         channel integer matmul);
+  * ``backend``        — "pallas_fused" (one fused-kernel launch per linear,
+                         `kernels/rns_fused.py`), "pallas" (the staged
+                         kernels: forward conversion, channel matmul, MRC
+                         reverse) or "auto", which is "pallas_fused";
+  * ``broadcast``      — broadcast-operand datapath (raw signed int8
+                         activations against weight residues); the
+                         per-channel form (False) is not ported;
+  * ``encode_weights`` — the weights are encoded to residues once at load;
+  * ``domain``         — "float" (each linear enters and leaves the residue
+                         domain) or "residue" (stacked QKV and the GLU MLP
+                         hand residues from launch to launch; needs encoded
+                         weights).
+
+The reference's "jnp" backend (plain XLA ops) has no counterpart: the port's
+plain versions run only on CPU tensors.  Multi-device layouts (the
+reference's ``dist``) are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+__all__ = ["LinearSpec", "BACKENDS"]
+
+_MODES = ("bf16", "rns_int8")
+BACKENDS = ("auto", "pallas", "pallas_fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSpec:
+    mode: str = "bf16"
+    backend: str = "auto"
+    broadcast: bool = True
+    encode_weights: bool = False
+    domain: str = "float"
+
+    def __post_init__(self):
+        if self.mode not in _MODES:
+            raise ValueError(f"unknown linear mode {self.mode!r} "
+                             f"(expected one of {_MODES})")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, "
+                             f"got {self.backend!r}")
+        if self.domain not in ("float", "residue"):
+            raise ValueError(f"domain must be 'float' or 'residue', "
+                             f"got {self.domain!r}")
+        if self.domain == "residue" and not (self.is_rns
+                                             and self.encode_weights):
+            raise ValueError("domain='residue' needs mode='rns_int8' with "
+                             "encode_weights=True: residue-resident chains "
+                             "consume weights encoded in the chain basis")
+
+    @classmethod
+    def parse(cls, spec) -> "LinearSpec":
+        """A LinearSpec passes through; "bf16" and
+        "rns_int8[:auto|pallas|pallas_fused]" map onto specs."""
+        if isinstance(spec, cls):
+            return spec
+        if isinstance(spec, str):
+            return _parse_str(spec)
+        raise ValueError(f"unknown linear backend {spec!r} "
+                         "(expected a LinearSpec or a backend string)")
+
+    @property
+    def is_rns(self) -> bool:
+        return self.mode == "rns_int8"
+
+
+
+@functools.lru_cache(maxsize=64)
+def _parse_str(spec: str) -> LinearSpec:
+    name, _, backend = spec.partition(":")
+    if name == "rns_int8":
+        return LinearSpec(mode="rns_int8", backend=backend or "auto")
+    if name != "bf16" or backend:
+        raise ValueError(f"unknown linear backend {spec!r} (expected bf16 | "
+                         f"rns_int8[:{'|'.join(BACKENDS)}])")
+    return LinearSpec()

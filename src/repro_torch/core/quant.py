@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["QMAX", "quant_scale", "quantize_int8"]
+__all__ = ["QMAX", "quant_scale", "quantize_int8", "requant_const",
+           "requant_scale"]
 
 # Symmetric clip point: ±127 (−128 is never emitted).
 QMAX = 127.0
@@ -32,3 +33,17 @@ def quantize_int8(x: torch.Tensor, dim: int = -1):
     scale = quant_scale(x, dim)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -QMAX, QMAX)
     return q.to(torch.int8), scale
+
+
+def requant_const(scale_col: torch.Tensor, k: int) -> torch.Tensor:
+    """c = max(s_w)·K·127, the row-independent factor of the in-domain
+    requantize: a K-deep product of ±127 operands scaled by its column
+    scale satisfies |t| <= c·127, so clip(round(t / c), ±127) saturates by
+    bound, which a tile-local kernel epilogue can apply.  0-d float32."""
+    return torch.amax(scale_col.to(torch.float32)) * (float(k) * QMAX)
+
+
+def requant_scale(scale_row: torch.Tensor, scale_col: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Dequant scale s_row·c of an in-domain requantized activation."""
+    return scale_row.to(torch.float32) * requant_const(scale_col, k)

@@ -1,5 +1,6 @@
 """RNS bases, port of `repro/core/rns.py`: moduli sets, the dynamic range,
-the Mixed-Radix inverse table, and the basis-sizing rules of the int8 matmul.
+the Mixed-Radix inverse table, and the basis-sizing rules of the int8 matmul
+and of the residue-resident chain.
 """
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import math
 from typing import List, Tuple
 
 __all__ = ["RNSBasis", "PAPER_N5_MODULI", "basis_for_accumulation",
-           "basis_for_int8_matmul"]
+           "basis_for_chain", "basis_for_int8_matmul"]
 
 # The paper's Section IV-D case-study set (order as printed).
 PAPER_N5_MODULI: Tuple[int, ...] = (17, 19, 23, 29, 31, 1024, 35, 37, 39, 41,
@@ -81,6 +82,15 @@ def basis_for_accumulation(max_abs: int, name: str | None = None) -> RNSBasis:
                             moduli=tuple(chosen))
     raise ValueError(
         f"paper n=5 set (M={prod}) cannot cover max_abs={max_abs}")
+
+
+@functools.lru_cache(maxsize=64)
+def basis_for_chain(k: int) -> RNSBasis:
+    """THE basis of a residue-resident linear chain whose widest contraction
+    is ``k`` deep (d_ff for a GLU MLP): the gated down projection multiplies
+    three int8 factors per term, so the range covers K·128³.  Every launch
+    of the chain shares it, so residues pass between launches unchanged."""
+    return basis_for_accumulation(k * 128 * 128 * 128, name=f"rns-chain-k{k}")
 
 
 @functools.lru_cache(maxsize=64)

@@ -7,6 +7,11 @@ tensor by layer gives a contiguous ``(C, K, N)`` weight.  ``scale`` is the
 per-column dequant scale ``(…, 1, N)``.  `encode`/`encode_params` run the
 weight's quantize + forward conversion ONCE; the linear layer then consumes
 the residues directly (`core/rns_linear.rns_dense`).
+
+An *activation* RNSTensor (`encode_activation`, or a fused launch with
+``emit="residues"``) holds ``(C, M, K)`` residues quantized per row, with
+the ``(M, 1)`` row scale: the operand of a residue-resident chain
+(`core/rns_linear.rns_chain_linear`).
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from .conversion_plan import forward as _forward_convert
 from .quant import quantize_int8
 from .rns import RNSBasis, basis_for_int8_matmul
 
-__all__ = ["RNSTensor", "encode", "encode_params", "ENCODED_LINEAR_LEAVES"]
+__all__ = ["RNSTensor", "encode", "encode_activation", "encode_params",
+           "ENCODED_LINEAR_LEAVES"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -34,6 +40,12 @@ class RNSTensor:
     @property
     def moduli(self) -> Tuple[int, ...]:
         return tuple(int(m) for m in self.basis.moduli)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The logical shape: the residues' without the channel axis."""
+        shp = tuple(self.residues.shape)
+        return shp[:-3] + shp[-2:]
 
     def __getitem__(self, i: int) -> "RNSTensor":
         """Layer ``i`` of a stacked tensor (a view, no copy)."""
@@ -55,6 +67,19 @@ def encode(w: torch.Tensor, basis: RNSBasis | None = None) -> RNSTensor:
                      basis=basis)
 
 
+def encode_activation(x: torch.Tensor, basis: RNSBasis) -> RNSTensor:
+    """Quantize (per row, over K) + forward-convert a float activation
+    ``(M, K)`` once: the entry of a residue-resident chain, its one
+    standalone forward conversion.  ``basis`` is the chain's, shared by
+    every launch of the chain."""
+    if x.ndim != 2:
+        raise ValueError(f"encode_activation expects (M, K) activations, "
+                         f"got {tuple(x.shape)}")
+    xq, sx = quantize_int8(x, dim=-1)
+    return RNSTensor(residues=_forward_convert(xq, basis.moduli), scale=sx,
+                     basis=basis)
+
+
 # Which weight leaves the linear datapath consumes, keyed by parent dict.
 ENCODED_LINEAR_LEAVES: Dict[str, Tuple[str, ...]] = {
     "attn": ("wq", "wk", "wv", "wo"),
@@ -62,11 +87,14 @@ ENCODED_LINEAR_LEAVES: Dict[str, Tuple[str, ...]] = {
 }
 
 
-def encode_params(params: Dict[str, Any],
-                  basis: RNSBasis | None = None) -> Dict[str, Any]:
+def encode_params(params: Dict[str, Any], basis: RNSBasis | None = None, *,
+                  group_basis: Dict[str, RNSBasis] | None = None
+                  ) -> Dict[str, Any]:
     """Replace exactly the linear weight leaves (`ENCODED_LINEAR_LEAVES`) of
     a nested parameter dict with :class:`RNSTensor`s; stacked leaves encode
-    per block.  Already-encoded leaves pass through."""
+    per block.  Already-encoded leaves pass through.  ``group_basis``
+    overrides the basis per parent group (``{"mlp":
+    basis_for_chain(d_ff)}`` for a residue-resident MLP)."""
     def walk(node):
         if not isinstance(node, dict):
             return node
@@ -74,7 +102,8 @@ def encode_params(params: Dict[str, Any],
         for k, v in node.items():
             leaves = ENCODED_LINEAR_LEAVES.get(k)
             if leaves is not None and isinstance(v, dict):
-                out[k] = {kk: (encode(vv, basis)
+                b = (group_basis or {}).get(k, basis)
+                out[k] = {kk: (encode(vv, b)
                                if kk in leaves and isinstance(vv, torch.Tensor)
                                else walk(vv))
                           for kk, vv in v.items()}

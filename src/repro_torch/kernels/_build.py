@@ -1,11 +1,16 @@
-"""Build and load the port's CUDA kernels (`csrc/rns_kernels.cu`).
+"""Build and load the port's CUDA kernels (`csrc/*.cu`, `csrc/*.cuh`).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ctypes.  The library lands in
-``build/torch_ext/`` at the root of the checkout, named by a hash of the
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused.  The build happens at first use — the first launch on a CUDA tensor
-— never at import.  A failed build raises; nothing falls back.
+Each ``.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into an object,
+all of them at once in parallel processes, and the objects are linked into
+one shared library with a plain C interface, loaded with ctypes.  The
+library lands in ``build/torch_ext/`` at the root of the checkout, named by
+a hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused.  The build happens at first use — the first
+launch on a CUDA tensor — never at import.  A failed build raises; nothing
+falls back.
+
+`Plan` and `TileArgs` mirror the structs of `csrc/rns_common.cuh` field for
+field; `plan_struct` fills a `Plan` from a fold plan and a conversion plan.
 """
 from __future__ import annotations
 
@@ -17,14 +22,77 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "library", "check", "BUILD_DIR", "SOURCE"]
+from repro_torch.core import multiword as mw
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rns_kernels.cu"
+__all__ = ["build", "library", "check", "plan_struct", "Plan", "TileArgs",
+           "BUILD_DIR", "SOURCES"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-# No --use_fast_math: the float epilogue needs IEEE divides and no FMA
+# No --use_fast_math: the float epilogues need IEEE divides and no FMA
 # contraction to stay bit-equal to the reference.
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+MAXC, MAXR, MAXL = 12, 8, 6
+
+
+class Plan(ctypes.Structure):
+    _fields_ = [("C", ctypes.c_int), ("R", ctypes.c_int),
+                ("n_sub", ctypes.c_int), ("L", ctypes.c_int),
+                ("is_signed", ctypes.c_int),
+                ("mods", ctypes.c_int * MAXC),
+                ("sched_s", (ctypes.c_int * MAXR) * MAXC),
+                ("sched_c", (ctypes.c_int * MAXR) * MAXC),
+                ("inv", (ctypes.c_int * MAXC) * MAXC),
+                ("M_limbs", ctypes.c_int * MAXL),
+                ("half_limbs", ctypes.c_int * MAXL)]
+
+
+class TileArgs(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("srow", ctypes.c_void_p),
+                ("gate", ctypes.c_void_p), ("w", ctypes.c_void_p),
+                ("scol", ctypes.c_void_p), ("creq", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("ws", ctypes.c_void_p),
+                ("counters", ctypes.c_void_p),
+                ("M", ctypes.c_int), ("K", ctypes.c_int),
+                ("N", ctypes.c_int), ("splits", ctypes.c_int),
+                ("k_per_split", ctypes.c_int), ("vec", ctypes.c_int),
+                ("encoded", ctypes.c_int), ("emit", ctypes.c_int)]
+
+
+def plan_struct(plan, conv) -> Plan:
+    """The kernel's plan tables from a `ChannelPlan` (fold ladder; None for
+    the reverse kernel, which does not fold) and a `ConversionPlan` (MRC
+    inverses, limb constants; None for a kernel that only folds)."""
+    ref = plan if plan is not None else conv
+    C = len(ref.moduli)
+    R = plan.num_rungs if plan is not None else 0
+    L = conv.nlimbs if conv is not None else 0
+    if not 1 <= C <= MAXC or R > MAXR or L > MAXL:
+        raise ValueError(f"plan (C={C}, R={R}, L={L}) is outside the "
+                         "kernels' tables")
+    st = Plan()
+    st.C, st.R, st.L = C, R, L
+    if plan is not None:
+        st.n_sub, st.is_signed = plan.n_sub, int(plan.signed)
+    for j, m in enumerate(ref.moduli):
+        st.mods[j] = m
+        if plan is not None:
+            for r, (s, c) in enumerate(plan.rungs[j]):
+                st.sched_s[j][r] = s
+                st.sched_c[j][r] = c
+        if conv is not None:
+            for i in range(C):
+                st.inv[j][i] = conv.inv_rows[j][i]
+    if conv is not None:
+        for l, v in enumerate(mw.to_limbs_const(conv.M, L)):
+            st.M_limbs[l] = v
+        for l, v in enumerate(mw.to_limbs_const(conv.half, L)):
+            st.half_limbs[l] = v
+    return st
 
 
 def _nvcc() -> str:
@@ -40,19 +108,38 @@ def _nvcc() -> str:
 
 def build() -> tuple[Path, str]:
     """Compile the library if needed; returns (path, compiler output)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"librns_kernels_{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in SOURCES + HEADERS:
+        digest.update(path.name.encode() + path.read_bytes())
+    so = BUILD_DIR / f"librns_kernels_{digest.hexdigest()[:16]}.so"
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = []
+    failed = []
+    for src, proc in zip(SOURCES, procs):
+        out, err = proc.communicate()
+        logs.append(f"== {src.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = so.with_suffix(f".{tag}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
     os.replace(tmp, so)                 # atomic: concurrent builders agree
-    return so, proc.stderr
+    return so, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,18 +148,27 @@ def library() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rns_fused_matmul_launch.argtypes = [p, i, p, p, i, p, p, p, p, i, i,
-                                            i, i, i, i, p, p]
-    lib.rns_fused_matmul_launch.restype = i
+    lib.rns_tile_launch.argtypes = [i, p, p, p]
     lib.rns_forward_launch.argtypes = [p, i, p, i, ll, p, i, p]
-    lib.rns_forward_launch.restype = i
+    lib.rns_reverse_launch.argtypes = [p, p, p, ll, p, i, p]
+    lib.rns_modmul_launch.argtypes = [p, p, i, p, ll, p, i, p]
+    for fn in (lib.rns_tile_launch, lib.rns_forward_launch,
+               lib.rns_reverse_launch, lib.rns_modmul_launch):
+        fn.restype = i
     return lib
 
 
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned an error code."""
     if rc == -1:
-        raise ValueError(f"{name}: channel count not compiled into the "
-                         "kernel library")
+        raise ValueError(f"{name}: channel count or mode not compiled into "
+                         "the kernel library")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+@functools.lru_cache(maxsize=16)
+def num_sms(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -1,14 +1,20 @@
 """The fused RNS linear kernel wrapper: port of
-`repro/kernels/rns_fused.py::rns_fused_matmul`, quantize + float-emit
-variant (the serving path of ``rns_dense``).
+`repro/kernels/rns_fused.py::rns_fused_matmul`.
 
-One launch does Stage ②–⑤: round/clip of the float activations by the row
-scale, C per-channel int8 products into int32, the signed fold ladder, MRC
-digits, 15-bit limb Horner, the signed fix, the float32 recombination and
-``(y·s_row)·s_col``.  The CUDA source is `csrc/rns_kernels.cu`; its header
-says what bounds the kernel on an H100 and how the design answers it.  The
-residue-in / gate / ``emit="residues"`` and CRT-partial variants are not
-ported yet.
+One launch does Stage ②–⑤.  The A operand is either float activations,
+which the kernel rounds/clips by the row scale itself (the quantize form of
+``rns_dense``), or an activation :class:`RNSTensor` whose (C, M, K)
+canonical residues are used as they are (the residue-in form of the
+residue-resident chain), optionally multiplied per channel by ``|gate|_m``
+of a raw int8 gate.  Then C per-channel int8 products into int32, the fold
+ladder (signed for the quantize form, unsigned for canonical residues), MRC
+digits, 15-bit limb Horner, the signed fix and the float32 recombination.
+The epilogue writes ``(y·s_row)·s_col`` (``emit="float"``) or requantizes
+in the domain, clip(round(y·s_col / c), ±127) with c =
+`quant.requant_const`, and writes the C residue planes of the result
+(``emit="residues"``).  The CUDA source is `csrc/rns_common.cuh`; its
+header says what bounds the kernel on an H100 and how the design answers
+it.  The CRT-partial variant is not ported.
 """
 from __future__ import annotations
 
@@ -17,9 +23,9 @@ import functools
 
 import torch
 
-from repro_torch.core import multiword as mw
 from repro_torch.core.channel_plan import ChannelPlan
 from repro_torch.core.conversion_plan import ConversionPlan
+from repro_torch.core.quant import requant_const
 from repro_torch.core.rns import basis_for_int8_matmul
 from repro_torch.core.rns_tensor import RNSTensor
 
@@ -28,59 +34,25 @@ from .ref import rns_fused_matmul_ref
 
 __all__ = ["rns_fused_matmul"]
 
-_MAXC, _MAXR, _MAXL = 12, 8, 6
 _TM, _TN, _TK = 16, 64, 32          # tile shape compiled into the kernel
 _MIN_KTILES_PER_SPLIT = 1
-
-
-class _FusedPlan(ctypes.Structure):
-    _fields_ = [("C", ctypes.c_int), ("R", ctypes.c_int),
-                ("n_sub", ctypes.c_int), ("L", ctypes.c_int),
-                ("mods", ctypes.c_int * _MAXC),
-                ("sched_s", (ctypes.c_int * _MAXR) * _MAXC),
-                ("sched_c", (ctypes.c_int * _MAXR) * _MAXC),
-                ("inv", (ctypes.c_int * _MAXC) * _MAXC),
-                ("M_limbs", ctypes.c_int * _MAXL),
-                ("half_limbs", ctypes.c_int * _MAXL)]
+# rns::AMode and rns::Emit of csrc/rns_common.cuh
+A_F32, A_BF16, A_SHARED, A_PLANES = 0, 1, 2, 3
+EMIT_FLOAT, EMIT_RESIDUES, EMIT_CANONICAL = 0, 1, 2
 
 
 @functools.lru_cache(maxsize=256)
-def _kernel_plan(basis, K: int):
-    """(plan, conv, argument struct) of the K-deep launch in ``basis``,
-    built once per (basis, K): the hot path does no plan work."""
+def _kernel_plan(basis, K: int, signed: bool):
+    """(plan, conv, argument struct) of the K-deep launch in ``basis`` with
+    a signed or unsigned fold plan, built once: the hot path does no plan
+    work."""
     moduli = tuple(int(m) for m in basis.moduli)
-    plan = ChannelPlan.for_matmul(moduli, K, signed=True)
+    plan = ChannelPlan.for_matmul(moduli, K, signed=signed)
     conv = ConversionPlan.for_basis(basis)
     if plan.residue_dtype != torch.int8 or not conv.device_reversible:
         raise ValueError(f"basis {moduli} needs residues or Horner steps "
                          "beyond the kernel's int8/int32 datapath")
-    return plan, conv, _plan_struct(plan, conv)
-
-
-def _plan_struct(plan: ChannelPlan, conv: ConversionPlan) -> _FusedPlan:
-    if plan.k > 11 or plan.num_rungs > _MAXR or conv.nlimbs > _MAXL:
-        raise ValueError(f"plan (C={plan.k}, R={plan.num_rungs}, "
-                         f"L={conv.nlimbs}) exceeds the kernel's tables")
-    st = _FusedPlan()
-    st.C, st.R, st.n_sub, st.L = plan.k, plan.num_rungs, plan.n_sub, \
-        conv.nlimbs
-    for j, m in enumerate(plan.moduli):
-        st.mods[j] = m
-        for r, (s, c) in enumerate(plan.rungs[j]):
-            st.sched_s[j][r] = s
-            st.sched_c[j][r] = c
-        for i in range(plan.k):
-            st.inv[j][i] = conv.inv_rows[j][i]
-    for l, v in enumerate(mw.to_limbs_const(conv.M, conv.nlimbs)):
-        st.M_limbs[l] = v
-    for l, v in enumerate(mw.to_limbs_const(conv.half, conv.nlimbs)):
-        st.half_limbs[l] = v
-    return st
-
-
-@functools.lru_cache(maxsize=16)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return plan, conv, _build.plan_struct(plan, conv)
 
 
 def _split_k(M: int, K: int, N: int, sms: int) -> tuple[int, int]:
@@ -97,18 +69,55 @@ def _split_k(M: int, K: int, N: int, sms: int) -> tuple[int, int]:
     return -(-K // k_per_split), k_per_split
 
 
-def rns_fused_matmul(x: torch.Tensor, w, basis=None, *,
-                     scale_row: torch.Tensor,
-                     scale_col: torch.Tensor) -> torch.Tensor:
-    """One-launch Stage ②–⑤ pipeline: (M, K) float × weight → (M, N) f32.
+def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
+                M: int, K: int, N: int, C: int, srow=None, scol=None,
+                gate=None, creq=None, name: str) -> None:
+    """One launch of the tile kernel on contiguous CUDA tensors; the split-K
+    workspace is allocated here."""
+    splits, kps = _split_k(M, K, N, _build.num_sms(x.device.index or 0))
+    ws = None
+    args = _build.TileArgs()
+    if splits > 1:
+        n_acc = C * M * N
+        ws = torch.zeros(n_acc + -(-N // _TN) * -(-M // _TM),
+                         dtype=torch.int32, device=x.device)
+        args.ws, args.counters = ws.data_ptr(), ws[n_acc:].data_ptr()
+    for field, t in (("x", x), ("w", w), ("out", out), ("srow", srow),
+                     ("scol", scol), ("gate", gate), ("creq", creq)):
+        if t is not None:
+            setattr(args, field, t.data_ptr())
+    args.M, args.K, args.N, args.splits, args.k_per_split = M, K, N, \
+        splits, kps
+    args.vec = int(N % 4 == 0 and w.data_ptr() % 4 == 0)
+    args.encoded, args.emit = int(w.ndim == 3), emit
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _build.library().rns_tile_launch(amode, ctypes.byref(args),
+                                          ctypes.byref(st), stream)
+    _build.check(rc, name)
 
-    ``x`` holds the float32/bfloat16 activations; the kernel rounds/clips
-    them by ``scale_row`` (M, 1) itself.  ``w`` is an encoded
+
+def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
+                     scale_col: torch.Tensor, gate: torch.Tensor | None = None,
+                     emit: str = "float"):
+    """One-launch Stage ②–⑤ pipeline: (M, K) × weight → (M, N).
+
+    ``x`` holds the float32/bfloat16 activations (quantized in the kernel by
+    ``scale_row`` (M, 1)), or is an activation :class:`RNSTensor` with
+    (C, M, K) canonical residues in the weight's basis (residue-in; its
+    ``scale_row`` is passed explicitly, the reference's
+    ``x.scale·gate_scale`` when gated).  ``gate`` (M, K) raw int8 multiplies
+    a residue-in operand per channel.  ``w`` is an encoded
     :class:`RNSTensor`, its raw (C, K, N) residue stack (then ``basis`` is
-    required), or a raw (K, N) int8 weight converted per tile.  The dequant
-    is ``(y·s_row)·s_col`` with ``scale_col`` (1, N).  A CPU tensor runs
-    the plain version; a CUDA tensor launches the kernel.
+    required), or a raw (K, N) int8 weight converted per tile.
+    ``scale_col`` is (1, N).
+
+    ``emit="float"`` returns (M, N) float32 ``(y·s_row)·s_col``;
+    ``emit="residues"`` returns the activation :class:`RNSTensor` of the
+    in-domain requantized product, scale ``s_row·requant_const(s_col, K)``.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
     """
+    if emit not in ("float", "residues"):
+        raise ValueError(f"emit must be 'float' or 'residues', got {emit!r}")
     if isinstance(w, RNSTensor):
         if w.residues.ndim != 3:
             raise ValueError("rns_fused_matmul needs an unbatched (C, K, N) "
@@ -117,14 +126,39 @@ def rns_fused_matmul(x: torch.Tensor, w, basis=None, *,
             raise ValueError(f"basis {basis.moduli} does not match encoded "
                              f"weight channels {w.moduli}")
         basis, w = w.basis, w.residues
-    if x.ndim != 2 or w.ndim not in (2, 3):
-        raise ValueError(f"need x (M, K) and w (K, N) or (C, K, N), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    residue_in = isinstance(x, RNSTensor)
+    if residue_in:
+        if x.residues.ndim != 3:
+            raise ValueError("rns_fused_matmul needs an unbatched (C, M, K) "
+                             "activation RNSTensor, got "
+                             f"{tuple(x.residues.shape)}")
+        if basis is not None and tuple(basis.moduli) != x.moduli:
+            raise ValueError(f"basis {basis.moduli} does not match activation"
+                             f" channels {x.moduli}")
+        basis, x = x.basis, x.residues
+        if x.dtype != torch.int8:
+            raise ValueError(f"activation residues must be int8, got "
+                             f"{x.dtype}")
+    elif x.ndim != 2:
+        raise ValueError(f"need x (M, K), got {tuple(x.shape)}")
+    elif x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if gate is not None:
+        if not residue_in:
+            raise ValueError("gate= fuses into the residue-in prologue; "
+                             "float activations gate before quantize")
+        if emit == "residues":
+            raise ValueError("gate= with emit='residues' is unsupported: the "
+                             "requantize bound is sized for K·127², not the "
+                             "gated K·127³ product")
+        if gate.shape != x.shape[-2:] or gate.dtype != torch.int8:
+            raise ValueError(f"gate must be int8 {tuple(x.shape[-2:])}, got "
+                             f"{gate.dtype} {tuple(gate.shape)}")
+    if w.ndim not in (2, 3):
+        raise ValueError(f"need w (K, N) or (C, K, N), got {tuple(w.shape)}")
     if w.dtype != torch.int8:
         raise ValueError(f"weights must be int8 (residues), got {w.dtype}")
-    M, K = x.shape
+    M, K = x.shape[-2:]
     N = w.shape[-1]
     if w.shape[-2] != K or K == 0:
         raise ValueError(f"contraction mismatch: x K={K}, w K={w.shape[-2]}")
@@ -132,42 +166,56 @@ def rns_fused_matmul(x: torch.Tensor, w, basis=None, *,
         if w.ndim == 3:
             raise ValueError("raw (C, K, N) residues need an explicit basis")
         basis = basis_for_int8_matmul(K)
-    plan, conv, st = _kernel_plan(basis, K)
-    if w.ndim == 3 and w.shape[0] != plan.k:
-        raise ValueError(f"residue stack has {w.shape[0]} channels, basis "
-                         f"has {plan.k}")
+    plan, conv, st = _kernel_plan(basis, K, not residue_in)
+    for name, t in (("residue stack", w), ("activation", x)):
+        if t.ndim == 3 and t.shape[0] != plan.k:
+            raise ValueError(f"{name} has {t.shape[0]} channels, basis has "
+                             f"{plan.k}")
+    if residue_in and w.ndim != 3:
+        raise ValueError("a residue-in launch needs encoded weights")
     srow = scale_row.to(torch.float32).reshape(M, 1)
     scol = scale_col.to(torch.float32).reshape(1, N)
+    creq = requant_const(scol, K) if emit == "residues" else None
     if x.device.type == "cpu":
-        return rns_fused_matmul_ref(x, w, basis, scale_row=srow,
-                                    scale_col=scol)
-    if x.device.type != "cuda":
+        out = rns_fused_matmul_ref(x, w, basis, scale_row=srow,
+                                   scale_col=scol, gate=gate, creq=creq)
+    elif x.device.type != "cuda":
         raise ValueError(f"rns_fused_matmul runs on cuda or cpu, not "
                          f"{x.device}")
-    for name, t in (("w", w), ("scale_row", srow), ("scale_col", scol)):
-        if t.device != x.device:
-            raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    x, w = x.contiguous(), w.contiguous()
-    srow, scol = srow.contiguous(), scol.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if M == 0 or N == 0:
-        return out
-    splits, kps = _split_k(M, K, N, _num_sms(x.device.index or 0))
-    ws_ptr = counters_ptr = None         # read by the kernel only if split
-    if splits > 1:
-        n_acc = plan.k * M * N
-        ws = torch.zeros(n_acc + -(-N // _TN) * -(-M // _TM),
-                         dtype=torch.int32, device=x.device)
-        ws_ptr, counters_ptr = ws.data_ptr(), ws[n_acc:].data_ptr()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.library().rns_fused_matmul_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), srow.data_ptr(),
-        w.data_ptr(), int(w.ndim == 3), scol.data_ptr(), out.data_ptr(),
-        ws_ptr, counters_ptr, M, K, N, splits, kps,
-        int(N % 4 == 0 and w.data_ptr() % 4 == 0), ctypes.byref(st), stream)
-    _build.check(rc, "rns_fused_matmul")
-    rns_fused_matmul.launches += 1
+    else:
+        out = _launch(x, w, srow, scol, gate, creq, plan.k, st, residue_in)
+    if creq is not None:
+        return RNSTensor(residues=out, scale=srow * creq, basis=basis)
     return out
 
 
-rns_fused_matmul.launches = 0
+def _launch(x, w, srow, scol, gate, creq, C, st, residue_in):
+    for name, t in (("w", w), ("scale_row", srow), ("scale_col", scol),
+                    ("gate", gate)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    M, K = x.shape[-2:]
+    N = w.shape[-1]
+    x, w = x.contiguous(), w.contiguous()
+    gate = gate.contiguous() if gate is not None else None
+    if creq is not None:
+        out = torch.empty((C, M, N), dtype=torch.int8, device=x.device)
+    else:
+        out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    amode = (A_PLANES if residue_in
+             else A_BF16 if x.dtype == torch.bfloat16 else A_F32)
+    launch_tile(amode, EMIT_RESIDUES if creq is not None else EMIT_FLOAT, st,
+                x=x, w=w, out=out, M=M, K=K, N=N, C=C,
+                srow=srow.contiguous(), scol=scol.contiguous(), gate=gate,
+                creq=creq.reshape(1) if creq is not None else None,
+                name="rns_fused_matmul")
+    rns_fused_matmul.launches += 1
+    if residue_in:
+        rns_fused_matmul.residue_in_launches += 1
+    return out
+
+
+rns_fused_matmul.launches = 0              # every launch
+rns_fused_matmul.residue_in_launches = 0   # of which residue-in

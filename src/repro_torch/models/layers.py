@@ -1,5 +1,6 @@
 """Shared layers of the dense stack, port of `repro/models/layers.py`:
-the linear dispatch, RMSNorm, RoPE, GQA attention and the full KV cache.
+the linear dispatch (with the residue-resident chains `linear_qkv` and
+`mlp_chain`), RMSNorm, RoPE, GQA attention and the full KV cache.
 
 Layouts follow the reference: activations (B, S, d), attention heads
 (B, S, H, D), weights (d_in, d_out).
@@ -20,29 +21,94 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.rns_linear import rns_dense
-from repro_torch.core.rns_tensor import RNSTensor
+from repro_torch.core.linear_spec import LinearSpec
+from repro_torch.core.quant import quantize_int8
+from repro_torch.core.rns_linear import rns_chain_linear, rns_dense
+from repro_torch.core.rns_tensor import RNSTensor, encode_activation
 
-__all__ = ["linear", "rms_norm", "rope", "apply_rope", "attention",
-           "update_cache_full", "silu"]
+__all__ = ["linear", "linear_qkv", "mlp_chain", "rms_norm", "rope",
+           "apply_rope", "attention", "update_cache_full", "silu"]
 
 NEG_INF = -1e30
 
 
-def linear(x: torch.Tensor, w, spec: str = "bf16") -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out) under the ``linear_backend`` spec:
-    "bf16" is a plain matmul, "rns_int8[:engine]" the RNS datapath
-    (`core/rns_linear.rns_dense`); an encoded :class:`RNSTensor` weight
-    needs the RNS spec."""
-    is_rns = spec.startswith("rns_int8")
-    if isinstance(w, RNSTensor) and not is_rns:
-        raise ValueError(f"encoded (RNSTensor) weights need an rns_int8 "
-                         f"spec, got {spec!r}")
-    if not is_rns:
+def linear(x: torch.Tensor, w, spec="bf16") -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out) under ``spec`` (a
+    :class:`LinearSpec` or its string): mode "bf16" is a plain matmul,
+    "rns_int8" the RNS datapath (`core/rns_linear.rns_dense`) on the spec's
+    backend; an encoded :class:`RNSTensor` weight needs the RNS mode."""
+    spec = LinearSpec.parse(spec)
+    if isinstance(w, RNSTensor) and not spec.is_rns:
+        raise ValueError(f"encoded (RNSTensor) weights need mode "
+                         f"'rns_int8', got {spec}")
+    if not spec.is_rns:
         return torch.matmul(x, w)
     shp = x.shape
-    y = rns_dense(x.reshape(-1, shp[-1]), w)
+    y = rns_dense(x.reshape(-1, shp[-1]), w, spec.backend,
+                  broadcast=spec.broadcast)
     return y.reshape(*shp[:-1], y.shape[-1])
+
+
+def _chain_basis_of(*ws):
+    """The shared basis of a chain's weights, which must all be
+    :class:`RNSTensor`s encoded in one basis."""
+    if not all(isinstance(w, RNSTensor) for w in ws):
+        raise ValueError("a residue-resident chain needs all its weights "
+                         "encoded (encode_params with group_basis)")
+    b = ws[0].basis
+    for w in ws[1:]:
+        if w.moduli != tuple(b.moduli):
+            raise ValueError(f"chain weights encoded in different bases "
+                             f"({b.moduli} vs {w.moduli}); encode them with "
+                             "a shared group_basis")
+    return b
+
+
+def mlp_chain(x: torch.Tensor, w_gate, w_up, w_down, spec, act):
+    """Residue-resident GLU MLP, act(x·Wg) ⊙ (x·Wu) · Wd, in one trip
+    through the domain: the activation is encoded once, gate and up run as
+    residue-in launches (the up exit requantizes in the domain, no MRC), and
+    the down launch multiplies the re-quantized gate in per channel and
+    takes the chain's one MRC exit.  The gate branch leaves the domain at its
+    own boundary (the nonlinearity is not residue-safe).  Weights are
+    RNSTensors in the chain basis (`basis_for_chain(d_ff)`)."""
+    spec = LinearSpec.parse(spec)
+    shp = x.shape
+    xf = x.reshape(-1, shp[-1]).to(torch.float32)
+    F = w_down.shape[-2]
+    basis = _chain_basis_of(w_gate, w_up, w_down)
+    if basis.M <= 2 * F * 127 ** 3:
+        raise ValueError(
+            f"basis {tuple(basis.moduli)} (M={basis.M}) cannot hold the "
+            f"chained down-projection bound 2·{F}·127³; encode the MLP "
+            "weights in basis_for_chain(d_ff)")
+    xa = encode_activation(xf, basis)
+    gate_f = rns_chain_linear(xa, w_gate, backend=spec.backend)
+    up = rns_chain_linear(xa, w_up, emit="residues", backend=spec.backend)
+    gq, sg = quantize_int8(act(gate_f), dim=-1)
+    o = rns_chain_linear(up, w_down, gate=gq, gate_scale=sg,
+                         backend=spec.backend)
+    return o.reshape(*shp[:-1], o.shape[-1]).to(x.dtype)
+
+
+def linear_qkv(x: torch.Tensor, ws, spec):
+    """Stacked Q/K/V projection: the three shared-operand projections
+    concatenated along the output axis and run as ONE residue-in launch
+    after one activation encode.  Bit-identical to three separate linears:
+    per-column weight quantization and the per-column epilogue do not mix
+    columns.  ``ws`` is (wq, wk, wv), RNSTensors in one basis; returns
+    (q, k, v) with x's leading dims."""
+    spec = LinearSpec.parse(spec)
+    shp = x.shape
+    xf = x.reshape(-1, shp[-1]).to(torch.float32)
+    basis = _chain_basis_of(*ws)
+    w_cat = RNSTensor(residues=torch.cat([w.residues for w in ws], -1),
+                      scale=torch.cat([w.scale for w in ws], -1),
+                      basis=basis)
+    xa = encode_activation(xf, basis)
+    y = rns_chain_linear(xa, w_cat, backend=spec.backend)
+    y = y.reshape(*shp[:-1], y.shape[-1]).to(x.dtype)
+    return tuple(torch.split(y, [w.shape[-1] for w in ws], dim=-1))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import (apply_rope, attention, linear, rms_norm, rope, silu,
-                     update_cache_full)
+from .layers import (apply_rope, attention, linear, linear_qkv, mlp_chain,
+                     rms_norm, rope, silu, update_cache_full)
 
 __all__ = ["make_params", "init_cache", "prefill", "decode_step"]
 
@@ -82,15 +82,25 @@ def _embed(params, batch):
     return h, positions
 
 
+def _qkv(p, x, spec):
+    """Q, K and V projections: one stacked residue-in launch when the spec
+    keeps activations in the residue domain, three linears otherwise."""
+    ws = (p["attn"]["wq"], p["attn"]["wk"], p["attn"]["wv"])
+    if spec.is_rns and spec.domain == "residue":
+        return linear_qkv(x, ws, spec)
+    return tuple(linear(x, w, spec) for w in ws)
+
+
 def _attn_full(p, h, cfg: ModelConfig, positions):
     """Full-sequence attention sublayer; returns (out, (k, v))."""
     B, S, _ = h.shape
     H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = rms_norm(h, p["norm_mix"], cfg.norm_eps)
-    spec = cfg.linear_backend
-    q = linear(x, p["attn"]["wq"], spec).reshape(B, S, H, dh)
-    k = linear(x, p["attn"]["wk"], spec).reshape(B, S, Hk, dh)
-    v = linear(x, p["attn"]["wv"], spec).reshape(B, S, Hk, dh)
+    spec = cfg.linear_spec
+    q, k, v = _qkv(p, x, spec)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, Hk, dh)
+    v = v.reshape(B, S, Hk, dh)
     cos, sin = rope(positions, dh, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     o = attention(q, k, v, positions, positions, block_kv=cfg.attn_block_kv)
@@ -107,10 +117,11 @@ def _attn_decode(p, h, cfg: ModelConfig, pos: int, cache_k, cache_v,
     B = h.shape[0]
     H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = rms_norm(h, p["norm_mix"], cfg.norm_eps)
-    spec = cfg.linear_backend
-    q = linear(x, p["attn"]["wq"], spec).reshape(B, 1, H, dh)
-    k = linear(x, p["attn"]["wk"], spec).reshape(B, 1, Hk, dh)
-    v = linear(x, p["attn"]["wv"], spec).reshape(B, 1, Hk, dh)
+    spec = cfg.linear_spec
+    q, k, v = _qkv(p, x, spec)
+    q = q.reshape(B, 1, H, dh)
+    k = k.reshape(B, 1, Hk, dh)
+    v = v.reshape(B, 1, Hk, dh)
     kpad = torch.arange(cache_k.shape[1], dtype=torch.int32,
                         device=h.device)
     if positions is None:
@@ -131,7 +142,10 @@ def _attn_decode(p, h, cfg: ModelConfig, pos: int, cache_k, cache_v,
 
 def _mlp(p, h, cfg: ModelConfig):
     x = rms_norm(h, p["norm_mlp"], cfg.norm_eps)
-    spec = cfg.linear_backend
+    spec = cfg.linear_spec
+    if spec.is_rns and spec.domain == "residue":
+        return mlp_chain(x, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                         p["mlp"]["w_down"], spec, silu)
     g = silu(linear(x, p["mlp"]["w_gate"], spec))
     g = g * linear(x, p["mlp"]["w_up"], spec)
     return linear(g, p["mlp"]["w_down"], spec)

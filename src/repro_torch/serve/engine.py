@@ -11,7 +11,10 @@ the host once, at the end.
 
 The linear weights are encoded to residues once at construction when the
 config asks for it (``encode_weights``), so decode does no per-step weight
-quantization or conversion.
+quantization or conversion; a residue-resident config (``linear_domain=
+"residue"``) encodes its MLP weights in the chain basis.  Without
+``encode_weights`` the weights stay float and every linear quantizes and
+converts its weight per call (the staged ``rns_int8:pallas`` datapath).
 
 Sampling is greedy (``temperature <= 0``) or Gumbel-max at the given
 temperature from a ``torch.Generator`` seeded with ``seed`` on the engine's
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.rns import basis_for_chain
 from repro_torch.core.rns_tensor import encode_params
 from repro_torch.models import transformer as T
 
@@ -78,9 +82,14 @@ class Engine:
         self.lanes = None if lanes is None else int(lanes)
         self.smax = int(smax)
         params = _to_device(params, self.device)
-        if cfg.is_rns and cfg.encode_weights:
+        spec = cfg.linear_spec
+        if spec.is_rns and spec.encode_weights:
+            # a residue-resident MLP needs its weights in the chain basis,
+            # sized for the gated down product d_ff·127³
+            gb = ({"mlp": basis_for_chain(cfg.d_ff)}
+                  if spec.domain == "residue" else None)
             with torch.inference_mode():
-                params = encode_params(params)
+                params = encode_params(params, group_basis=gb)
         self.params = params
 
     def _pack(self, prompts: List[List[int]]):

@@ -1,0 +1,401 @@
+"""The port's residue-resident chain against the JAX reference, on the CPU.
+
+On CPU tensors the wrappers run their plain versions, which must be
+bit-equal to the reference: the chain basis and its plans, the requantize
+rule, `encode_activation`, the residue-in / gated / ``emit="residues"``
+forms of the fused kernel (against the jitted reference's staged jnp twin,
+and against the Pallas megakernel itself in interpret mode at one tiny
+shape), `rns_chain_linear` fused against staged, `mlp_chain` against the
+unchained oracle, and `linear_qkv` against three separate linears.  The
+whole smoke `rns-smollm-135m-resident` model is held within
+RESIDENT_LOGIT_ATOL of the reference, greedy tokens equal at every decisive
+step, and bit-equal to the reference compiled without excess precision.  The reference
+runs on its jnp backend where `tests/test_chain.py` proves jnp equal to
+the Pallas megakernel.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_compare as cmp
+from repro.configs.base import get_smoke_config as jax_smoke_config
+from repro.core import quant as jquant
+from repro.core import rns as jrns
+from repro.core import rns_linear as jlin
+from repro.core import rns_tensor as jrt
+from repro.core.channel_plan import ChannelPlan as JPlan
+from repro.core.conversion_plan import ConversionPlan as JConv
+from repro.kernels import ref as jref
+from repro.kernels.rns_fused import rns_fused_matmul as jfused
+from repro.models import layers as JL
+from repro_torch.configs.base import get_smoke_config
+from repro_torch.core import quant as tquant
+from repro_torch.core import rns as trns
+from repro_torch.core import rns_tensor as trt
+from repro_torch.core.channel_plan import ChannelPlan as TPlan
+from repro_torch.core.conversion_plan import ConversionPlan as TConv
+from repro_torch.core.linear_spec import LinearSpec
+from repro_torch.core.rns_linear import rns_chain_linear
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rns_convert
+from repro_torch.kernels.rns_fused import rns_fused_matmul
+from repro_torch.models import layers as TL
+
+NAME = "rns-smollm-135m-resident"
+# Whole-model tolerance of the resident config against the reference.  The
+# port is bit-equal to the reference compiled without excess precision
+# (test_whole_model_bit_equal_without_excess_precision).  Compiled as it
+# serves, XLA skips intermediate bfloat16 roundings; the fused config's
+# logits then move by <= 0.0112 (tests/test_torch_model.py), the resident
+# config's by <= 0.0684 over four token batches: its chain requantizes the
+# up projection by bound (fewer of the 8 bits used than a per-row scale) and
+# quantizes the activated gate once more, so a last-bit difference at the
+# MLP input crosses coarser int8 steps.  The tolerance is about twice the
+# measured difference.
+RESIDENT_LOGIT_ATOL = 0.15
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _bits(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor)
+                      else _np(x)).tobytes()
+
+
+def _tensor_pair(j, basis):
+    """A reference RNSTensor and the port's with the same values."""
+    return trt.RNSTensor(residues=cmp.t(j.residues), scale=cmp.t(j.scale),
+                         basis=basis)
+
+
+def _operands(M, K, N, seed, F=None):
+    """Float x (M, K) with ±127 corners, float w (K, N) with a zero column,
+    both encoded on both sides in the chain basis of ``F`` (default K)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x[0, :3] = [0.0, 40.0, -40.0]
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    w[:, 0] = 0.0
+    F = F or K
+    jb, tb = jrns.basis_for_chain(F), trns.basis_for_chain(F)
+    jxa = jrt.encode_activation(jnp.asarray(x), jb, backend="jnp")
+    jw = jrt.encode(jnp.asarray(w), jb)
+    return (jxa, jw), (_tensor_pair(jxa, tb), _tensor_pair(jw, tb)), rng
+
+
+@pytest.mark.parametrize("F", [64, 128, 1536])
+def test_chain_basis_and_plans_match(F):
+    jb, tb = jrns.basis_for_chain(F), trns.basis_for_chain(F)
+    assert tb.moduli == jb.moduli and tb.M == jb.M
+    assert tb.mrc_inverses == jb.mrc_inverses
+    for K in (64, 576, F):
+        jp = JPlan.for_matmul(jb.moduli, K, signed=False)
+        tp = TPlan.for_matmul(tb.moduli, K, signed=False)
+        assert np.array_equal(tp.sched, jp.sched)
+        assert (tp.n_sub, tp.bound, tp.signed) == (jp.n_sub, jp.bound, False)
+    jpp, tpp = JPlan.for_product(jb.moduli), TPlan.for_product(tb.moduli)
+    assert np.array_equal(tpp.sched, jpp.sched) and tpp.n_sub == jpp.n_sub
+    jc, tc = JConv.for_basis(jb), TConv.for_basis(tb)
+    assert np.array_equal(tc.inv, jc.inv) and tc.nlimbs == jc.nlimbs
+    assert tc.device_reversible and tp.residue_dtype == torch.int8
+
+
+def test_requant_rule_matches_jitted_reference():
+    rng = np.random.default_rng(0)
+    for K in (64, 576, 1536):
+        scol = (rng.random((1, 96)) * 1e-2).astype(np.float32)
+        srow = (rng.random((7, 1)) * 3).astype(np.float32)
+        want_c = jax.jit(lambda s: jquant.requant_const(s, K))(scol)
+        want_s = jax.jit(lambda r, s: jquant.requant_scale(r, s, K))(srow,
+                                                                     scol)
+        got_c = tquant.requant_const(torch.from_numpy(scol), K)
+        got_s = tquant.requant_scale(torch.from_numpy(srow),
+                                     torch.from_numpy(scol), K)
+        assert _bits(got_c) == _bits(want_c)
+        assert _bits(got_s) == _bits(want_s)
+
+
+def test_encode_activation_matches_reference():
+    (jxa, _), (txa, _), _ = _operands(9, 96, 8, 1)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((9, 96)).astype(np.float32)
+    x[1, :2] = [1e-30, -5.0]
+    want = jax.jit(lambda a: jrt.encode_activation(
+        a, jrns.basis_for_chain(96), backend="jnp"))(jnp.asarray(x))
+    got = trt.encode_activation(torch.from_numpy(x), trns.basis_for_chain(96))
+    assert np.array_equal(got.residues.numpy(), np.asarray(want.residues))
+    assert got.residues.dtype == torch.int8
+    assert _bits(got.scale) == _bits(want.scale)
+
+
+def _jax_chain(xa, w, **kw):
+    """The reference's jnp chain launch, jitted with every operand traced."""
+    gate, gate_scale = kw.pop("gate", None), kw.pop("gate_scale", None)
+
+    def f(res, sc, wres, wsc, g, gs):
+        x = jrt.RNSTensor(residues=res, scale=sc, basis=xa.basis, bound=127,
+                          signed=True)
+        wt = jrt.RNSTensor(residues=wres, scale=wsc, basis=w.basis,
+                           bound=127, signed=True)
+        out = jlin.rns_chain_linear(x, wt, gate=g, gate_scale=gs,
+                                    backend="jnp", **kw)
+        return (out.residues, out.scale) if kw.get("emit") else out
+
+    return jax.jit(f)(xa.residues, xa.scale, w.residues, w.scale, gate,
+                      gate_scale)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (5, 1536, 576),
+                                   (8, 576, 960)])
+@pytest.mark.parametrize("form", ["float", "residues", "gated"])
+def test_residue_in_matches_jitted_reference(M, K, N, form):
+    (jxa, jw), (txa, tw), rng = _operands(M, K, N, M + K + N, F=1536)
+    kw, tkw = {}, {}
+    if form == "gated":
+        g = rng.integers(-127, 128, (M, K)).astype(np.int8)
+        g[0, :3] = [-128, 127, 0]
+        gs = (rng.random((M, 1)) * 0.1).astype(np.float32)
+        kw = {"gate": jnp.asarray(g), "gate_scale": jnp.asarray(gs)}
+        tkw = {"gate": torch.from_numpy(g), "gate_scale": torch.from_numpy(gs)}
+    if form == "residues":
+        kw = tkw = {"emit": "residues"}
+    want = _jax_chain(jxa, jw, **kw)
+    got = rns_chain_linear(txa, tw, backend="pallas_fused", **tkw)
+    staged = rns_chain_linear(txa, tw, backend="pallas", **tkw)
+    if form == "residues":
+        assert np.array_equal(got.residues.numpy(), np.asarray(want[0]))
+        assert _bits(got.scale) == _bits(want[1])
+        assert torch.equal(staged.residues, got.residues)
+        assert torch.equal(staged.scale, got.scale)
+    else:
+        assert _bits(got) == _bits(want)
+        assert _bits(staged) == _bits(got)
+
+
+@pytest.mark.parametrize("form", ["float", "residues", "gated"])
+def test_residue_in_matches_pallas_interpret(form):
+    """The plain version against the Pallas megakernel itself (interpret
+    mode) at one tiny shape."""
+    M, K, N = 5, 64, 24
+    (jxa, jw), (txa, tw), rng = _operands(M, K, N, 7, F=128)
+    srow_np = np.array(jxa.scale)
+    jkw, tkw = {}, {}
+    if form == "gated":
+        g = rng.integers(-128, 128, (M, K)).astype(np.int8)
+        jkw = {"gate": jnp.asarray(g)}
+        tkw = {"gate": torch.from_numpy(g)}
+    emit = "residues" if form == "residues" else "float"
+    want = jfused(jxa, jw, scale_row=jnp.asarray(srow_np),
+                  scale_col=jw.scale, emit=emit, interpret=True, **jkw)
+    got = rns_fused_matmul(txa, tw, scale_row=torch.from_numpy(srow_np),
+                           scale_col=tw.scale, emit=emit, **tkw)
+    if emit == "residues":
+        assert np.array_equal(got.residues.numpy(), np.asarray(want.residues))
+        assert _bits(got.scale) == _bits(want.scale)
+    else:
+        assert _bits(got) == _bits(want)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_emit_requant_saturated_corner(backend):
+    """±127-saturated operands land exactly on the 127 boundary of the
+    requantize: the emitted residues decode to ±127 (never −128), the same
+    as the reference's."""
+    M = K = F = 32
+    x = np.full((M, K), 127.0, np.float32)
+    sign = np.where(np.arange(F) % 2 == 0, 1.0, -1.0)
+    w = np.broadcast_to(sign, (K, F)).astype(np.float32)
+    jb, tb = jrns.basis_for_chain(F), trns.basis_for_chain(F)
+    jxa = jrt.encode_activation(jnp.asarray(x), jb, backend="jnp")
+    jw = jrt.encode(jnp.asarray(w), jb)
+    want = _jax_chain(jxa, jw, emit="residues")
+    out = rns_chain_linear(trt.encode_activation(torch.from_numpy(x), tb),
+                           trt.encode(torch.from_numpy(w), tb),
+                           emit="residues", backend=backend)
+    assert np.array_equal(out.residues.numpy(), np.asarray(want[0]))
+    q = (127 * sign).astype(np.int64)
+    for c, m in enumerate(out.moduli):
+        assert np.array_equal(out.residues[c].numpy().astype(np.int64),
+                              np.broadcast_to(q % m, (M, F)))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_gate_with_emit_is_refused(backend):
+    _, (txa, tw), _ = _operands(4, 32, 32, 3, F=32)
+    g = torch.ones((4, 32), dtype=torch.int8)
+    with pytest.raises(ValueError, match="emit"):
+        rns_chain_linear(txa, tw, gate=g, gate_scale=torch.ones(4, 1),
+                         emit="residues", backend=backend)
+    with pytest.raises(ValueError, match="emit"):
+        rns_fused_matmul(txa, tw, scale_row=txa.scale, scale_col=tw.scale,
+                         gate=g, emit="residues")
+
+
+def _mlp_weights(d, F, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, 3, d)).astype(np.float32)
+    ws = [(rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+          for s in ((d, F), (d, F), (F, d))]
+    return x, ws
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mlp(d, F, seed):
+    """The reference's jitted `mlp_chain` (jnp backend) and its jitted
+    unchained oracle on `_mlp_weights`, as bytes."""
+    x, ws = _mlp_weights(d, F, seed)
+    jb = jrns.basis_for_chain(F)
+    jws = [jrt.encode(jnp.asarray(w), jb) for w in ws]
+    spec = dataclasses.replace(jax_smoke_config(NAME).linear_spec,
+                               backend="jnp")
+    chain = jax.jit(lambda a, *w: JL.mlp_chain(a, *w, spec, jax.nn.silu))(
+        jnp.asarray(x), *jws)
+    oracle = jax.jit(lambda a, *w: jref.rns_fused_chain_ref(a, *w, jb))(
+        jnp.asarray(x).reshape(-1, d), *jws)
+    return _bits(chain), _bits(oracle)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_mlp_chain_matches_unchained_oracle(backend):
+    """`mlp_chain` (one forward conversion, one MRC exit) equals the port's
+    unchained oracle bit for bit, and both equal the reference's."""
+    d, F = 32, 64
+    x, ws = _mlp_weights(d, F, 5)
+    tb = trns.basis_for_chain(F)
+    tws = [trt.encode(torch.from_numpy(w), tb) for w in ws]
+    got = TL.mlp_chain(torch.from_numpy(x), *tws,
+                       LinearSpec(mode="rns_int8", backend=backend,
+                                  encode_weights=True, domain="residue"),
+                       TL.silu)
+    oracle = tref.rns_fused_chain_ref(torch.from_numpy(x).reshape(-1, d),
+                                      *tws, tb, TL.silu)
+    assert _bits(got) == _bits(oracle)
+    want_chain, want_oracle = _jax_mlp(d, F, 5)
+    assert _bits(got) == want_chain
+    assert _bits(oracle) == want_oracle
+
+
+def test_mlp_chain_rejects_undersized_basis():
+    d, F = 32, 64
+    x, ws = _mlp_weights(d, F, 0)
+    small = trns.basis_for_int8_matmul(d)
+    tws = [trt.encode(torch.from_numpy(w), small) for w in ws]
+    spec = LinearSpec(mode="rns_int8", encode_weights=True, domain="residue")
+    with pytest.raises(ValueError, match="cannot hold"):
+        TL.mlp_chain(torch.from_numpy(x), *tws, spec, TL.silu)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_linear_qkv_equals_three_linears(backend):
+    d = 48
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 5, d)).astype(np.float32))
+    basis = trns.basis_for_int8_matmul(d)
+    enc = tuple(trt.encode(torch.from_numpy(
+        rng.standard_normal((d, n)).astype(np.float32)), basis)
+        for n in (32, 16, 16))
+    spec = LinearSpec(mode="rns_int8", backend=backend, encode_weights=True,
+                      domain="residue")
+    got = TL.linear_qkv(x, enc, spec)
+    for g, w in zip(got, enc):
+        assert g.shape == (2, 5, w.shape[-1])
+        assert _bits(g) == _bits(TL.linear(x, w, spec))
+
+
+def test_mlp_chain_single_forward_conversion(monkeypatch):
+    """The fused chain performs exactly one standalone forward conversion
+    (the activation encode) and no standalone MRC reverse."""
+    d, F = 32, 64
+    x, ws = _mlp_weights(d, F, 8)
+    tb = trns.basis_for_chain(F)
+    tws = [trt.encode(torch.from_numpy(w), tb) for w in ws]
+    calls = {"fwd": 0, "rev": 0}
+    real_fwd, real_rev = rns_convert.rns_forward, rns_convert.rns_reverse
+
+    def spy_fwd(*a, **k):
+        calls["fwd"] += 1
+        return real_fwd(*a, **k)
+
+    def spy_rev(*a, **k):
+        calls["rev"] += 1
+        return real_rev(*a, **k)
+
+    monkeypatch.setattr(rns_convert, "rns_forward", spy_fwd)
+    monkeypatch.setattr(rns_convert, "rns_reverse", spy_rev)
+    TL.mlp_chain(torch.from_numpy(x), *tws,
+                 LinearSpec(mode="rns_int8", backend="pallas_fused",
+                            encode_weights=True, domain="residue"), TL.silu)
+    assert calls == {"fwd": 1, "rev": 0}
+
+
+def test_linear_spec_parse_and_validation():
+    cfg = get_smoke_config(NAME)
+    spec = cfg.linear_spec
+    assert (spec.mode, spec.backend, spec.encode_weights, spec.domain) == \
+        ("rns_int8", "pallas_fused", True, "residue")
+    assert LinearSpec.parse("rns_int8") == LinearSpec(mode="rns_int8")
+    assert LinearSpec.parse("bf16") == LinearSpec()
+    with pytest.raises(ValueError):
+        LinearSpec.parse("rns_int8:jnp")
+    with pytest.raises(ValueError):
+        LinearSpec(mode="rns_int8", domain="residue")    # needs encoding
+    with pytest.raises(ValueError):
+        dataclasses.replace(cfg, encode_weights=False).linear_spec
+
+
+@pytest.fixture(scope="module")
+def resident_engines():
+    jcfg = dataclasses.replace(jax_smoke_config(NAME),
+                               linear_backend="rns_int8:jnp")
+    return cmp.engines(jcfg, get_smoke_config(NAME))
+
+
+def test_resident_engine_encodes_mlp_in_chain_basis(resident_engines):
+    _, teng = resident_engines
+    blocks = teng.params["blocks"]["sub0"]
+    assert blocks["mlp"]["w_gate"].moduli == \
+        trns.basis_for_chain(teng.cfg.d_ff).moduli
+    assert blocks["attn"]["wq"].moduli == \
+        trns.basis_for_int8_matmul(teng.cfg.d_model).moduli
+
+
+def test_resident_logits_within_tolerance(resident_engines):
+    worst = cmp.max_logit_diff(*resident_engines, seeds=range(4))
+    print(f"largest logit difference {worst:.4f} "
+          f"(tolerance {RESIDENT_LOGIT_ATOL})")
+    assert worst <= RESIDENT_LOGIT_ATOL
+
+
+def test_whole_model_bit_equal_without_excess_precision():
+    """The resident smoke model gives the reference's logits bit for bit,
+    and its greedy tokens, once XLA keeps every bfloat16 rounding:
+    RESIDENT_LOGIT_ATOL measures XLA's excess precision, nothing of the
+    port."""
+    got = cmp.compare_without_excess_precision([NAME])
+    print(got)
+    assert all(r == {"logits": 0.0, "tokens_equal": True}
+               for r in got.values()), got
+
+
+def test_resident_greedy_tokens_match_where_decisive(resident_engines):
+    jeng, teng = resident_engines
+    prompts = cmp.prompts(jeng.cfg.vocab_size, [3, 9, 14])
+    decisive, equal, flips = cmp.compare_greedy(
+        jeng, teng, prompts, 8, atol=RESIDENT_LOGIT_ATOL)
+    print(f"{equal} tokens equal ({decisive} decisive); near-tie flips "
+          f"{flips}")
+
+
+def test_resident_batch_invariance(resident_engines):
+    _, teng = resident_engines
+    prompts = cmp.prompts(teng.cfg.vocab_size, [4, 17, 9])
+    batched = teng.generate(prompts, max_new_tokens=6)
+    for i, p in enumerate(prompts):
+        assert teng.generate([p], max_new_tokens=6)[0] == batched[i]

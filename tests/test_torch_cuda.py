@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from repro_torch.core import rns_tensor as trt
-from repro_torch.core.quant import quant_scale, quantize_int8
-from repro_torch.core.rns import basis_for_int8_matmul
-from repro_torch.kernels import ref, rns_forward, rns_fused_matmul
+from repro_torch.core.conversion_plan import ConversionPlan
+from repro_torch.core.quant import quant_scale, quantize_int8, requant_const
+from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+from repro_torch.kernels import (ref, rns_forward, rns_fused_matmul,
+                                 rns_matmul, rns_modmul, rns_reverse)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +60,132 @@ def test_forward_matches_plain(dev):
             for dtype in (torch.int8, torch.int32):
                 got = rns_forward(x, mods, dtype=dtype)
                 assert torch.equal(got, ref.rns_forward_ref(x, mods, dtype))
+
+
+def _chain_operands(dev, M, K, N, seed, basis=None):
+    """An activation RNSTensor and a weight RNSTensor in one basis, with
+    saturated ±127 corners in both."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    basis = basis or basis_for_chain(max(K, 128))
+    x = torch.randn(M, K, generator=g, device=dev)
+    x[0, :2] = torch.tensor([40.0, -40.0])
+    w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
+    return trt.encode_activation(x, basis), trt.encode(w, basis), g
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 576, 1536),
+                                   (8, 1536, 576), (512, 1536, 576),
+                                   (8, 576, 960), (13, 200, 70)])
+@pytest.mark.parametrize("form", ["float", "residues", "gated"])
+def test_residue_in_matches_plain(dev, M, K, N, form):
+    xa, wt, g = _chain_operands(dev, M, K, N, M + K + N)
+    gate = None
+    srow = xa.scale
+    if form == "gated":
+        gate = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                             dtype=torch.int8)
+        gate[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
+        srow = xa.scale * 0.5
+    emit = "residues" if form == "residues" else "float"
+    before = (rns_fused_matmul.launches, rns_fused_matmul.residue_in_launches)
+    got = rns_fused_matmul(xa, wt, scale_row=srow, scale_col=wt.scale,
+                           gate=gate, emit=emit)
+    creq = requant_const(wt.scale, K) if emit == "residues" else None
+    want = ref.rns_fused_matmul_ref(xa.residues, wt.residues, wt.basis,
+                                    scale_row=srow, scale_col=wt.scale,
+                                    gate=gate, creq=creq)
+    torch.cuda.synchronize()
+    assert (rns_fused_matmul.launches,
+            rns_fused_matmul.residue_in_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    if emit == "residues":
+        assert torch.equal(got.residues, want)
+        assert torch.equal(got.scale, srow * creq)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 576, 576), (512, 576, 192),
+                                   (8, 1536, 576), (13, 200, 70)])
+def test_matmul_broadcast_matches_plain(dev, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M * K + N)
+    mods = basis_for_int8_matmul(K).moduli
+    x = torch.randint(-128, 128, (1, M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    w_res = rns_forward(w, mods, dtype=torch.int8)
+    before = rns_matmul.launches
+    got = rns_matmul(x, w_res, mods, signed_a=True)
+    torch.cuda.synchronize()
+    assert rns_matmul.launches == before + 1
+    assert torch.equal(got, ref.rns_matmul_ref(x, w_res, mods, signed_a=True))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 1536, 576),
+                                   (13, 200, 70)])
+def test_matmul_canonical_matches_plain(dev, M, K, N):
+    xa, wt, _ = _chain_operands(dev, M, K, N, 3 * M + K)
+    got = rns_matmul(xa.residues, wt.residues, wt.moduli)
+    assert torch.equal(got, ref.rns_matmul_ref(xa.residues, wt.residues,
+                                               wt.moduli))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_modmul_matches_plain(dev, dtype):
+    mods = basis_for_chain(1536).moduli
+    g = torch.Generator(device=dev).manual_seed(4)
+    a = torch.stack([torch.randint(0, m, (8 * 1536 + 5,), generator=g,
+                                   device=dev) for m in mods]).to(dtype)
+    b = torch.stack([torch.randint(0, m, (8 * 1536 + 5,), generator=g,
+                                   device=dev) for m in mods]).to(dtype)
+    before = rns_modmul.launches
+    got = rns_modmul(a, b, mods)
+    torch.cuda.synchronize()
+    assert rns_modmul.launches == before + 1
+    assert torch.equal(got, ref.rns_modmul_ref(a, b, mods))
+
+
+@pytest.mark.parametrize("basis_of", [lambda: basis_for_int8_matmul(576),
+                                      lambda: basis_for_chain(1536)])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_reverse_matches_plain(dev, basis_of, with_scale):
+    basis = basis_of()
+    conv = ConversionPlan.for_basis(basis)
+    g = torch.Generator(device=dev).manual_seed(5)
+    half = basis.M // 2
+    vals = torch.randint(-2**62, 2**62, (8 * 1536 + 3,), generator=g,
+                         device=dev) % (2 * half) - half
+    vals[:4] = torch.tensor([0, -1, half - 1, -half], device=dev)
+    res = torch.stack([torch.remainder(vals, m) for m in basis.moduli]) \
+        .to(torch.int32)
+    scale = (torch.rand(vals.shape, generator=g, device=dev)
+             if with_scale else None)
+    before = rns_reverse.launches
+    got = rns_reverse(res, conv, scale=scale)
+    torch.cuda.synchronize()
+    assert rns_reverse.launches == before + 1
+    assert torch.equal(got, ref.rns_reverse_ref(res, conv, scale))
+
+
+def test_chain_staged_equals_fused(dev):
+    """rns_chain_linear on the staged kernels equals the fused kernel bit
+    for bit at the full-width MLP shapes."""
+    from repro_torch.core.quant import quantize_int8 as q8
+    from repro_torch.core.rns_linear import rns_chain_linear
+    from repro_torch.models.layers import silu
+
+    xa, wg, g = _chain_operands(dev, 8, 576, 1536, 11)
+    wu = trt.encode(torch.randn(576, 1536, generator=g, device=dev) / 24,
+                    xa.basis)
+    wd = trt.encode(torch.randn(1536, 576, generator=g, device=dev) / 40,
+                    xa.basis)
+    outs = []
+    for backend in ("pallas", "pallas_fused"):
+        gf = rns_chain_linear(xa, wg, backend=backend)
+        up = rns_chain_linear(xa, wu, emit="residues", backend=backend)
+        gq, sg = q8(silu(gf), dim=-1)
+        outs.append(rns_chain_linear(up, wd, gate=gq, gate_scale=sg,
+                                     backend=backend))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])

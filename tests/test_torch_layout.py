@@ -41,6 +41,11 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "src/repro_torch/kernels/rns_fused.py",
+            "src/repro_torch/kernels/rns_matmul.py",
+            "src/repro_torch/kernels/rns_modmul.py",
+            "src/repro_torch/kernels/rns_convert.py",
+            "src/repro_torch/core/linear_spec.py",
+            "src/repro_torch/core/rns_linear.py",
             "src/repro_torch/serve/engine.py"} <= names
 
 
