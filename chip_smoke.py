@@ -21,11 +21,22 @@ Phases, each of which must pass:
      and decode times;
   4. chain   — `rns_chain_linear` on the staged kernels equal bit for bit
      to the fused kernel at the full-width MLP shapes;
-  5. check   — finite logits of each served batch, and each smoke config's
+  5. entry   — the entry points no served model calls, once each at full
+     width with their launches counted: `flash_attention` (8 lanes, 9
+     heads, head_dim 64, 2048 keys, prefill and decode; outputs held
+     against the plain version), `fold`, and one smollm layer's linears as
+     one-channel `rns_fused_crt_partial` slices composed by
+     `dist.rns_shard.channel_sliced_matmul` and held bit for bit against
+     `rns_fused_matmul`;
+  6. check   — finite logits of each served batch, and each smoke config's
      logits on the card against the same model on the CPU (plain versions).
-Lines: per-shape kernel rows, a `kernels:` summary, one `serve:` line per
-model, a `chain:` line, one `check:` line per smoke config, the nvidia-smi
-line, the kernels JSON line and, last, the device JSON line.  ``--record
+Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
+bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0),
+`fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
+for n = 1 and n = C) against their plain versions.  Lines: per-shape kernel rows, a `kernels:` summary, one `serve:`
+line per model, a `chain:` line, an `entry:` line, one `check:` line per
+smoke config, the nvidia-smi line, the kernels JSON line and, last, the
+device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
 Exits non-zero without a CUDA device or without the port's sources beside
 it.
@@ -39,9 +50,16 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 1,979 TOP/s dense int8.
+# NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 1,979 TOP/s dense int8,
+# 989 TFLOP/s dense bf16, 67 TFLOP/s float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+# flash_attention against its plain version, which also computes in
+# float32: |got - want| <= rtol*|want| + atol elementwise, one bf16 ulp of
+# the output for bf16; fully masked rows must be exactly 0.
+FLASH_TOL = {"bfloat16": (2.0**-7, 1e-3), "float32": (0.0, 2e-5)}
 COLD_L2_BYTES = 120 << 20          # > 2x the 50 MB L2: weights read cold
 ARCH = "rns-smollm-135m-fused"
 RESIDENT = "rns-smollm-135m-resident"
@@ -52,8 +70,8 @@ STAGED = "rns-smollm-135m-pallas"
 LOGIT_ATOL = {ARCH: 0.03, STAGED: 0.03, RESIDENT: 0.15}
 
 
-def bound_ms(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def bound_ms(nbytes, ops, rate=INT8_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -244,26 +262,38 @@ def _sum(rows):
 
 
 def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
-             nbytes, ops, **info):
-    """Compare one launch with its plain version and time kernel, plain
-    version and yardstick; appends the row and returns equality."""
+             nbytes, ops, rate=INT8_OPS_PER_S, tol=None, **info):
+    """Compare one launch with its plain version (bit for bit, or within
+    ``tol`` = (rtol, atol), see `_within`) and time kernel, plain version
+    and yardstick; appends the row and returns the verdict."""
     import torch
 
     torch.cuda.synchronize()
     same = torch.equal(got, want)
     err = 0.0 if same else (got.double() - want.double()).abs().max().item()
+    ok = same if tol is None else _within(got, want, tol)
     ms = device_ms(launch, pool_n)
     call = time_ms(lambda i: launch(i % pool_n))
     plain_ms = time_ms(lambda i: plain(), reps=5, warmup=1)
     lib_ms = device_ms(lib[0], lib[1]) if lib else None
-    b, by = bound_ms(nbytes, ops)
-    rows.append(dict(kernel=kernel, label=label, equal=same, max_abs_err=err,
-                     ms=ms, call_ms=call, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=b, bound_by=by, **info))
+    b, by = bound_ms(nbytes, ops, rate)
+    rows.append(dict(kernel=kernel, label=label, equal=same, ok=ok,
+                     max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=b, bound_by=by, **info))
     libs = "none" if lib_ms is None else f"{lib_ms:.4f}"
-    print(f"  {kernel} {label} equal={same} ms={ms:.4f} call={call:.4f} "
+    verdict = f"equal={same}" if tol is None else \
+        f"max_abs_err={err:.3g} within(rtol,atol)={tol}:{ok}"
+    print(f"  {kernel} {label} {verdict} ms={ms:.4f} call={call:.4f} "
           f"plain={plain_ms:.3f} library={libs} bound={b:.4f}")
-    return same
+    return ok
+
+
+def _within(got, want, tol):
+    """|got - want| <= rtol*|want| + atol at every element."""
+    rtol, atol = tol
+    want = want.double()
+    return bool(((got.double() - want).abs()
+                 <= rtol * want.abs() + atol).all())
 
 
 def _bf16_matmul(x_shape, k, n, g, dev):
@@ -458,16 +488,260 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
     return rows, ok
 
 
+def _flash_inputs(case, dtype, g, dev):
+    """q, k, v and the mask keywords of one flash case at B = 8 lanes."""
+    import torch
+
+    B, H, Sq, Sk, D, causal, window, softcap, masking = case
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+               for S in (Sq, Sk, Sk))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if masking == "pad":
+        # ragged lanes left-padded to the bucket, one lane all padding
+        kw["pad"] = torch.tensor([0, 1, 17, Sk // 4, Sk // 2, Sk - 1, Sk, 5],
+                                 dtype=torch.int32, device=dev)[:B]
+    elif masking == "pos":
+        # paged gather: shuffled key positions, dead key slots and rows
+        kp = torch.stack([torch.randperm(Sk, generator=g, device=dev)
+                          for _ in range(B)]).int()
+        kp[1, : Sk // 3] = -1
+        kp[2] = -1
+        qp = (torch.arange(Sq, device=dev, dtype=torch.int32)
+              + (Sk - Sq)).repeat(B, 1)
+        qp[3, ::3] = -1
+        kw.update(qpos=qp.contiguous(), kpos=kp.contiguous())
+    return q, k, v, kw
+
+
+# (label, B, H, Sq, Sk, D, causal, window, softcap, masking) at smollm-135m's
+# attention widths: 9 query heads (3 KV heads repeated), head_dim 64
+FLASH_CASES = [
+    ("prefill-pad", 8, 9, 2048, 2048, 64, True, None, None, "pad"),
+    ("prefill-window-softcap", 8, 9, 2048, 2048, 64, True, 512, 50.0, "pad"),
+    ("decode-128", 8, 9, 1, 128, 64, True, None, None, "pad"),
+    ("decode-2048", 8, 9, 1, 2048, 64, True, None, None, "pad"),
+    ("noncausal-2000", 8, 9, 2000, 2000, 64, False, None, None, None),
+    ("positions", 8, 9, 64, 2048, 64, True, None, None, "pos"),
+]
+
+
+def phase_entries(layer_shapes, chain, lanes, dev):
+    """The slice-3 entry points driven once each, as a user calls them, at
+    full width: flash_attention at prefill and decode, fold of a K = 1536
+    accumulator, and one smollm layer's float-emit linears as channel
+    slices (n = C) composed through crt_finish and checked bit for bit
+    against rns_fused_matmul; the flash outputs are held against their
+    plain version.  Counts are set to 0 just before and read just after;
+    inputs are made before."""
+    import torch
+    from repro_torch.core.quant import quant_scale
+    from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+    from repro_torch.core.rns_tensor import (RNSTensor, encode,
+                                             encode_activation)
+    from repro_torch.dist.rns_shard import channel_sliced_matmul
+    from repro_torch.kernels import (flash_attention, fold, ref,
+                                     rns_fused_matmul)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    d, F, qkv_n = chain
+    flash = [_flash_inputs(FLASH_CASES[i][1:], torch.bfloat16, g, dev)
+             for i in (0, 3)]
+    S = 512 * 1536
+    fbound = 1536 * 46 * 46
+    fmods = basis_for_int8_matmul(1536).moduli
+    fx = torch.randint(0, fbound, (len(fmods), S), generator=g, device=dev,
+                       dtype=torch.int32)
+    layer = []
+    for name, k, n, _ in layer_shapes:
+        x = torch.randn(lanes, k, generator=g, device=dev).to(torch.bfloat16)
+        layer.append((name, basis_for_int8_matmul(k), x, None,
+                      encode(torch.randn(k, n, generator=g, device=dev)
+                             / k ** 0.5)))
+    for name, basis, k, n in (("qkv", basis_for_int8_matmul(d), d, qkv_n),
+                              ("down", basis_for_chain(F), F, d)):
+        xa = encode_activation(torch.randn(lanes, k, generator=g, device=dev),
+                               basis)
+        gate = (torch.randint(-127, 128, (lanes, k), generator=g, device=dev,
+                              dtype=torch.int8) if name == "down" else None)
+        layer.append((name, basis, xa, gate,
+                      encode(torch.randn(k, n, generator=g, device=dev)
+                             / k ** 0.5, basis)))
+    torch.cuda.synchronize()
+
+    reset_launches()
+    outs = [flash_attention(q, k, v, **kw) for q, k, v, kw in flash]
+    folded = fold(fx, fmods, fbound)
+    composed = []
+    for name, basis, x, gate, wt in layer:
+        srow = x.scale if isinstance(x, RNSTensor) else quant_scale(x)
+        composed.append((name, channel_sliced_matmul(
+            x, wt, len(basis.moduli), scale_row=srow, scale_col=wt.scale,
+            gate=gate)))
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    ok = all(o.shape == q.shape and torch.isfinite(o.float()).all()
+             and _within(o, ref.attention_ref(q, k, v, **kw),
+                         FLASH_TOL["bfloat16"])
+             for o, (q, k, v, kw) in zip(outs, flash))
+    ok &= torch.equal(folded.long(), fx.long() % torch.tensor(
+        fmods, device=dev)[:, None])
+    for (name, val), (_, basis, x, gate, wt) in zip(composed, layer):
+        srow = x.scale if isinstance(x, RNSTensor) else quant_scale(x)
+        ok &= torch.equal(val, rns_fused_matmul(
+            x, wt, scale_row=srow, scale_col=wt.scale, gate=gate))
+    return {"launches": {k: launches[k] for k in SLICE3}, "ok": bool(ok)}
+
+
+def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
+    """flash_attention, fold and rns_fused_crt_partial at full width, each
+    against its plain version and timed.  Every crt launch shape is also
+    composed over its slices, for n = 1 and n = C, and held bit for bit
+    against rns_fused_matmul on the full basis."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.core.quant import quant_scale
+    from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+    from repro_torch.core.rns_tensor import (RNSTensor, encode,
+                                             encode_activation)
+    from repro_torch.dist.rns_shard import (channel_partials,
+                                            channel_sliced_matmul, crt_tables)
+    from repro_torch.kernels import (flash_attention, fold, ref,
+                                     rns_fused_matmul)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows, ok = [], True
+    d, F, qkv_n = chain
+
+    # flash_attention: every case in bf16 and float32
+    for label, *case in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, kw = _flash_inputs(case, dtype, g, dev)
+            B, H, Sq, D = q.shape
+            Sk = k.shape[2]
+            mask = ref.attention_mask(B, Sq, Sk, device=dev, **{
+                n: kw.get(n) for n in ("causal", "window", "pad", "qpos",
+                                       "kpos")})
+            got = flash_attention(q, k, v, **kw)
+            dead = (~mask.any(-1))[:, None].expand(-1, H, -1)
+            zeros = bool((got[dead] == 0).all())
+            lib = None
+            if kw["softcap"] is None:
+                amask = mask[:, None]
+                lib = (lambda i, q=q, k=k, v=v, amask=amask:
+                       Fn.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=amask), 3)
+            tname = str(dtype).split(".")[1]
+            nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+            ok &= zeros and _measure(
+                rows, "flash_attention", f"{label} {tname}", got,
+                ref.attention_ref(q, k, v, **kw),
+                lambda i, q=q, k=k, v=v, kw=kw: flash_attention(q, k, v,
+                                                                **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.attention_ref(q, k, v, **kw),
+                lib, 3, nbytes, 4 * D * H * int(mask.sum()),
+                rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+                tol=FLASH_TOL[tname], leaf=label, dtype=tname, B=B, H=H,
+                Sq=Sq, Sk=Sk, D=D, dead_rows_zero=zeros)
+            del q, k, v, got, mask
+
+    # fold: K = 576 / 1536 accumulators of the 5- and 7-channel bases
+    S = 512 * 1536
+    for mods in (basis_for_int8_matmul(1536).moduli,
+                 basis_for_chain(1536).moduli):
+        for bound in (2**31 - 1, 1536 * 46 * 46):
+            C = len(mods)
+            x = torch.randint(0, bound, (C, S), generator=g, device=dev,
+                              dtype=torch.int32)
+            x[:, :2] = torch.tensor([0, bound - 1], dtype=torch.int32)
+            mcol = torch.tensor(mods, dtype=torch.int32, device=dev)[:, None]
+            ok &= _measure(
+                rows, "fold", f"C={C} S={S} bound={bound}",
+                fold(x, mods, bound), ref.fold_ref(x, mods, bound),
+                lambda i, x=x, mods=mods, bound=bound: fold(x, mods, bound),
+                lambda x=x, mods=mods, bound=bound: ref.fold_ref(x, mods,
+                                                                 bound),
+                (lambda i, x=x, mcol=mcol: torch.remainder(x, mcol), 20),
+                20, 8 * C * S, 0, C=C, S=S, bound=bound)
+
+    # rns_fused_crt_partial: one smollm layer's float-emit launches
+    specs = [(name, basis_for_int8_matmul(k), k, n, "quantize")
+             for name, k, n, _ in layer_shapes]
+    specs += [("qkv", basis_for_int8_matmul(d), d, qkv_n, "residue_in"),
+              ("down", basis_for_chain(F), F, d, "gated")]
+    for name, basis, k, n, form in specs:
+        mods = basis.moduli
+        C = len(mods)
+        wt = encode(torch.randn(k, n, generator=g, device=dev) / k ** 0.5,
+                    basis)
+        pool = _copies(lambda: torch.randint(0, 37, (C, k, n),
+                                             dtype=torch.int8, device=dev),
+                       C * k * n)
+        L1 = crt_tables(basis)[2]
+        for m in (decode_m, prefill_m):
+            xf = torch.randn(m, k, generator=g, device=dev)
+            xf[0, :2] = torch.tensor([40.0, -40.0])
+            gate = None
+            if form == "quantize":
+                x = xin = xf.to(torch.bfloat16)
+                srow = quant_scale(x)
+            else:
+                xin = encode_activation(xf, basis)
+                x, srow = xin.residues, xin.scale
+                if form == "gated":
+                    gate = torch.randint(-127, 128, (m, k), generator=g,
+                                         device=dev, dtype=torch.int8)
+            full = rns_fused_matmul(xin, wt, scale_row=srow,
+                                    scale_col=wt.scale, gate=gate)
+            for nsl in (1, C):
+                kw = dict(scale_row=srow, gate=gate)
+
+                def run(w, xin=xin, wt=wt, nsl=nsl, kw=kw):
+                    return channel_partials(
+                        xin, RNSTensor(w, wt.scale, wt.basis), nsl, **kw)
+
+                def plain(xin=xin, wt=wt, nsl=nsl, kw=kw):
+                    return channel_partials(xin, wt, nsl, plain=True, **kw)
+
+                parts = run(wt.residues)
+                composed = channel_sliced_matmul(xin, wt, nsl,
+                                                 scale_col=wt.scale, **kw)
+                torch.cuda.synchronize()
+                same = torch.equal(composed, full)
+                ok &= same
+
+                def lib(i, xin=xin, gate=gate, srow=srow, wt=wt, pool=pool):
+                    return rns_fused_matmul(
+                        xin, RNSTensor(pool[i], wt.scale, wt.basis),
+                        scale_row=srow, scale_col=wt.scale, gate=gate)
+
+                xbytes = x.numel() * x.element_size()
+                nbytes = (xbytes + C * k * n + 4 * m + (m * k if gate is
+                                                          not None else 0)
+                          + 4 * L1 * m * n * nsl)
+                ok &= _measure(
+                    rows, "rns_fused_crt_partial",
+                    f"{name} M={m} K={k} N={n} n={nsl}",
+                    torch.stack(parts), torch.stack(plain()),
+                    lambda i, run=run, pool=pool: run(pool[i]), plain,
+                    (lib, len(pool)), len(pool), nbytes, 2 * C * m * k * n,
+                    leaf=name, M=m, K=k, N=n, C=C, slices=nsl, form=form,
+                    composed_equal=same)
+    return rows, bool(ok)
+
+
+SLICE3 = ("flash_attention", "fold", "rns_fused_crt_partial")
 COUNTED = ("rns_fused_matmul", "residue_in", "rns_forward", "rns_matmul",
-           "rns_reverse", "rns_modmul")
+           "rns_reverse", "rns_modmul") + SLICE3
 
 
 def _counters():
-    from repro_torch.kernels import (rns_forward, rns_fused_matmul,
+    from repro_torch.kernels import (flash_attention, fold, rns_forward,
+                                     rns_fused_crt_partial, rns_fused_matmul,
                                      rns_matmul, rns_modmul, rns_reverse)
 
     return (rns_fused_matmul, rns_forward, rns_matmul, rns_modmul,
-            rns_reverse)
+            rns_reverse, flash_attention, fold, rns_fused_crt_partial)
 
 
 def reset_launches():
@@ -477,11 +751,13 @@ def reset_launches():
 
 
 def read_launches():
-    fused, fwd, mm, mod, rev = _counters()
+    fused, fwd, mm, mod, rev, flash, fold, crt = _counters()
     return {"rns_fused_matmul": fused.launches,
             "residue_in": fused.residue_in_launches,
             "rns_forward": fwd.launches, "rns_matmul": mm.launches,
-            "rns_reverse": rev.launches, "rns_modmul": mod.launches}
+            "rns_reverse": rev.launches, "rns_modmul": mod.launches,
+            "flash_attention": flash.launches, "fold": fold.launches,
+            "rns_fused_crt_partial": crt.launches}
 
 
 def expected_launches(cfg, steps):
@@ -730,15 +1006,31 @@ def main() -> int:
     matmul = pick("rns_matmul", names)
     reverse = pick("rns_reverse", names)
     modmul = pick("rns_modmul", [f"M={lanes}"])
+    print("phase kernels slice 3:")
+    qkv_n = qd + 2 * kvd
+    rows3, ok3 = phase_kernels_slice3(layer_shapes, (d, f, qkv_n), lanes,
+                                      lanes * bucket, dev)
+    # per kernel, the launches of its entry path (phase_entries)
+    flash = _sum([r for r in rows3 if r["kernel"] == "flash_attention"
+                  and r["label"] in ("prefill-pad bfloat16",
+                                     "decode-2048 bfloat16")])
+    fold = _sum([r for r in rows3 if r["kernel"] == "fold"
+                 and r["C"] == 5 and r["bound"] == 1536 * 46 * 46])
+    crt = _sum([r for r in rows3 if r["kernel"] == "rns_fused_crt_partial"
+                and r["M"] == lanes and r["slices"] == r["C"]])
     print(f'kernels: ["rns_fused_matmul", "rns_forward", '
           f'"rns_fused_matmul:residue_in", "rns_matmul", "rns_reverse", '
-          f'"rns_modmul"] pass=[{str(fused_ok).lower()}, '
-          f'{str(fwd_ok).lower()}, {str(ok2).lower()}] median_ms='
+          f'"rns_modmul", "flash_attention", "fold", '
+          f'"rns_fused_crt_partial"] pass=[{str(fused_ok).lower()}, '
+          f'{str(fwd_ok).lower()}, {str(ok2).lower()}, '
+          f'{str(ok3).lower()}] median_ms='
           f'[{fused["ms"]:.4f}, {fwd["ms"]:.4f}, {resid["ms"]:.4f}, '
-          f'{matmul["ms"]:.4f}, {reverse["ms"]:.4f}, {modmul["ms"]:.4f}] '
+          f'{matmul["ms"]:.4f}, {reverse["ms"]:.4f}, {modmul["ms"]:.4f}, '
+          f'{flash["ms"]:.4f}, {fold["ms"]:.4f}, {crt["ms"]:.4f}] '
           f'(one layer at decode on its path; rns_forward: the 7 encodes '
-          f'at init)')
-    if not (fused_ok and fwd_ok and ok2):
+          f'at init; flash: bf16 prefill + decode at 2048; fold: '
+          f'(5, 512x1536); crt: one layer as one-channel slices)')
+    if not (fused_ok and fwd_ok and ok2 and ok3):
         raise AssertionError("a kernel disagrees with its plain version")
 
     smi = dev_info["smi"]
@@ -768,6 +1060,14 @@ def main() -> int:
           f"{chain['equal']} | staged launches {chain['launches']}")
     if not chain["equal"]:
         raise AssertionError("staged chain differs from the fused chain")
+
+    entries = phase_entries(layer_shapes, (d, f, qkv_n), lanes, dev)
+    print(f"entry: flash_attention prefill + decode (B {lanes}, 9 heads, "
+          f"2048 keys), fold (5, 512x1536), one layer of channel-slice "
+          f"launches composed == rns_fused_matmul: {entries['ok']} | "
+          f"launches {entries['launches']}")
+    if not entries["ok"]:
+        raise AssertionError("an entry point's output is wrong")
 
     checks = {}
     for arch in (ARCH, RESIDENT, STAGED):
@@ -822,6 +1122,19 @@ def main() -> int:
         entry("rns_modmul", src + "rns_kernels.cu",
               "src/repro/kernels/rns_modmul.py:29", by_path("rns_modmul"),
               modmul, rows_of("rns_modmul", rows2)),
+        entry("flash_attention", src + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:115",
+              {"entry:flash_attention":
+               entries["launches"]["flash_attention"]}, flash,
+              rows_of("flash_attention", rows3)),
+        entry("fold", src + "rns_kernels.cu", "src/repro/kernels/fold.py:29",
+              {"entry:fold": entries["launches"]["fold"]}, fold,
+              rows_of("fold", rows3)),
+        entry("rns_fused_crt_partial", src + "rns_common.cuh",
+              "src/repro/kernels/rns_fused.py:569",
+              {"entry:rns_fused_crt_partial":
+               entries["launches"]["rns_fused_crt_partial"]}, crt,
+              rows_of("rns_fused_crt_partial", rows3)),
     ]
     for k in kernels:
         if k["launches"] == 0:
@@ -831,8 +1144,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                     exist_ok=True)
         with open(args.record, "w") as fh:
-            json.dump({"device": dev_info, "rows": rows + rows2,
-                       "serve": serves, "chain": chain,
+            json.dump({"device": dev_info, "rows": rows + rows2 + rows3,
+                       "serve": serves, "chain": chain, "entries": entries,
                        "check_logit_err": checks, "kernels": kernels},
                       fh, indent=1)
     print(smi)

@@ -97,27 +97,33 @@ class ChannelPlan:
     def residue_dtype(self) -> torch.dtype:
         return residue_dtype_for(self.moduli)
 
-    def apply_ladder(self, x: torch.Tensor, c: int) -> torch.Tensor:
+    def apply_ladder(self, x: torch.Tensor, c: int | None = None, *,
+                     sched=None, m: int | None = None) -> torch.Tensor:
         """Channel ``c``'s fold ladder and ``n_sub`` conditional subtracts on
-        a nonnegative int32 tensor: result canonical in [0, m_c)."""
-        m = self.moduli[c]
-        for s, cc in self.rungs[c]:
-            x = (x & ((1 << s) - 1)) + (x >> s) * cc
+        a nonnegative int32 tensor: result canonical in [0, m_c).  A
+        channel-slice launch passes its own rung rows ``sched`` ((R, 2)
+        ints) and modulus ``m`` instead of ``c``."""
+        rungs = self.rungs[c] if sched is None else sched
+        m = self.moduli[c] if m is None else int(m)
+        for s, cc in rungs:
+            x = (x & ((1 << int(s)) - 1)) + (x >> int(s)) * int(cc)
         for _ in range(self.n_sub):
             x = torch.where(x >= m, x - m, x)
         return x
 
-    def fold_signed(self, x: torch.Tensor, c: int) -> torch.Tensor:
+    def fold_signed(self, x: torch.Tensor, c: int | None = None, *,
+                    sched=None, m: int | None = None) -> torch.Tensor:
         """Ladder for possibly-negative accumulators: fold |x|, then
         (−v) mod m = m − (v mod m) where x < 0 and the residue is nonzero."""
-        m = self.moduli[c]
-        r = self.apply_ladder(torch.abs(x), c)
+        m = self.moduli[c] if m is None else int(m)
+        r = self.apply_ladder(torch.abs(x), c, sched=sched, m=m)
         return torch.where((x < 0) & (r > 0), m - r, r)
 
-    def fold(self, x: torch.Tensor, c: int) -> torch.Tensor:
+    def fold(self, x: torch.Tensor, c: int | None = None, *, sched=None,
+             m: int | None = None) -> torch.Tensor:
         if self.signed:
-            return self.fold_signed(x, c)
-        return self.apply_ladder(x, c)
+            return self.fold_signed(x, c, sched=sched, m=m)
+        return self.apply_ladder(x, c, sched=sched, m=m)
 
 
 @functools.lru_cache(maxsize=1024)

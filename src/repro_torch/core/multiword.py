@@ -13,8 +13,8 @@ import torch
 
 __all__ = ["LIMB_BITS", "LIMB_MASK", "MAX_HORNER_MODULUS", "nlimbs_for",
            "to_limbs_const", "limbs_from_scalar", "limbs_horner",
-           "limbs_const_minus", "limbs_ge_const",
-           "limbs_to_float"]
+           "limbs_sub_const", "limbs_const_minus", "limbs_ge_const",
+           "limbs_select", "limbs_to_float"]
 
 LIMB_BITS = 15
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -69,6 +69,17 @@ def limbs_horner(acc, m: int, d: torch.Tensor):
     return _carry_propagate(prods)
 
 
+def limbs_sub_const(acc, value: int):
+    """acc − value (value fits the limb count; assumes acc >= value)."""
+    out = []
+    borrow = torch.zeros_like(acc[0])
+    for limb, c in zip(acc, to_limbs_const(value, len(acc))):
+        v = limb - c - borrow
+        borrow = (v < 0).to(torch.int32)
+        out.append(v + borrow * (1 << LIMB_BITS))
+    return out
+
+
 def limbs_const_minus(value: int, acc):
     """value − acc (assumes value >= acc elementwise)."""
     out = []
@@ -89,6 +100,11 @@ def limbs_ge_const(acc, value: int) -> torch.Tensor:
         ge = ge | (eq & (limb > c))
         eq = eq & (limb == c)
     return ge | eq
+
+
+def limbs_select(pred: torch.Tensor, a, b):
+    """Limb-wise ``where(pred, a, b)``."""
+    return [torch.where(pred, x, y) for x, y in zip(a, b)]
 
 
 def limbs_to_float(acc) -> torch.Tensor:

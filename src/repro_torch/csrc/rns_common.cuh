@@ -13,7 +13,11 @@
 //     in-domain requantize (emit="residues") epilogue;
 //   src/repro/kernels/rns_matmul.py: rns_matmul, the per-channel product of
 //     a broadcast signed (1, M, K) or canonical (C, M, K) int8 operand with
-//     (C, K, N) residues, written as (C, M, N) canonical int32 residues.
+//     (C, K, N) residues, written as (C, M, N) canonical int32 residues;
+//   src/repro/kernels/rns_fused.py: rns_fused_crt_partial, the same
+//     prologues on a channel slice of the basis (C = 1 and 2 included),
+//     whose epilogue writes the CRT partial sum Σ_j |r_j·v_j|_{m_j}·(M/m_j)
+//     as (L1, M, N) int32 15-bit limb planes (EMIT_CRT_LIMBS).
 //
 // What bounds it on an H100: at decode (M <= 64 rows) a launch reads C int8
 // residues per weight, C*K*N bytes, and does C*M*K*N multiply-adds: far
@@ -65,6 +69,7 @@ enum Emit : int {
   EMIT_FLOAT = 0,     // (M, N) f32: MRC reverse, (y*s_row)*s_col
   EMIT_RESIDUES = 1,  // (C, M, N) int8: MRC, in-domain requantize, |q|_m
   EMIT_CANONICAL = 2, // (C, M, N) int32: the folded channel residues
+  EMIT_CRT_LIMBS = 3, // (L1, M, N) int32: CRT partial sum of a slice
 };
 
 }  // namespace rns
@@ -79,6 +84,11 @@ struct FusedPlan {
   int inv[rns::MAXC][rns::MAXC];
   int M_limbs[rns::MAXL];
   int half_limbs[rns::MAXL];
+  // CRT partial epilogue of a channel slice: limb count of the planes,
+  // v_j = |(M/m_j)^-1|_{m_j} and the 15-bit limbs of M/m_j per channel.
+  int L1;
+  int crt_v[rns::MAXC];
+  int crt_mc[rns::MAXC][rns::MAXL];
 };
 
 // Operands of one tile-kernel launch (mirrors `_TileArgs`).
@@ -215,6 +225,34 @@ __device__ __forceinline__ void tile_epilogue(const int (&acc)[C], int gm,
     int* out = static_cast<int*>(a.out);
 #pragma unroll
     for (int j = 0; j < C; ++j) out[j * plane + at] = r[j];
+    return;
+  }
+  if (a.emit == EMIT_CRT_LIMBS) {
+    // alpha_j = |r_j v_j|_{m_j}, then limb += mc_j[l]*alpha_j + carry with
+    // the carry propagated after every channel: r*v and mc*alpha stay
+    // below 2^30 (m <= 2^15), limb + carry below 2^16, so every value
+    // stays below 2^31.
+    int limb[MAXL];
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) limb[l] = 0;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int alpha = floor_mod(r[j] * p.crt_v[j], p.mods[j]);
+      int carry = 0;
+#pragma unroll
+      for (int l = 0; l < MAXL; ++l) {
+        if (l < p.L1) {
+          const int v = limb[l] + p.crt_mc[j][l] * alpha + carry;
+          limb[l] = v & LIMB_MASK;
+          carry = v >> LIMB_BITS;
+        }
+      }
+    }
+    int* out = static_cast<int*>(a.out);
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) {
+      if (l < p.L1) out[l * plane + at] = limb[l];
+    }
     return;
   }
   const float val = mrc_value<C>(r, p);
@@ -429,7 +467,22 @@ int launch_tile(const TileArgs& a, const FusedPlan& plan,
       }                                                                     \
     }                                                                       \
     break;
+// Channel slices narrower than any basis (C = 1, 2) only occur in the CRT
+// partial launch, which always takes encoded residues and never the
+// shared signed operand: only those instances are built.
+#define RNS_TILE_SLICE_CASE(CC)                                             \
+  case CC:                                                                  \
+    if constexpr (AM != A_SHARED) {                                         \
+      if (a.encoded) {                                                      \
+        rns_tile_kernel<CC, AM, true><<<grid, THREADS, 0, stream>>>(a,      \
+                                                                    plan);  \
+        break;                                                              \
+      }                                                                     \
+    }                                                                       \
+    return -1;
   switch (plan.C) {
+    RNS_TILE_SLICE_CASE(1)
+    RNS_TILE_SLICE_CASE(2)
     RNS_TILE_CASE(3)
     RNS_TILE_CASE(4)
     RNS_TILE_CASE(5)
@@ -443,6 +496,7 @@ int launch_tile(const TileArgs& a, const FusedPlan& plan,
       return -1;
   }
 #undef RNS_TILE_CASE
+#undef RNS_TILE_SLICE_CASE
   return static_cast<int>(cudaGetLastError());
 }
 

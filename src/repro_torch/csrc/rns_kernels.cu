@@ -11,8 +11,11 @@
 //     float32, optional fused scale multiply.
 //   rns_modmul — replaces src/repro/kernels/rns_modmul.py: rns_modmul, the
 //     elementwise |a*b|_m: one int32 product and the plan's fold ladder.
+//   rns_fold — replaces src/repro/kernels/fold.py: fold, the standalone
+//     Stage-4 ladder that canonicalizes (C, S) int32 values in [0, bound)
+//     per channel (ChannelPlan.build(moduli, bound), unsigned).
 //
-// All three read and write each element once and do a few dozen integer
+// All four read and write each element once and do a few dozen integer
 // operations on it: device memory bounds them, and a grid-stride loop over
 // contiguous elements (neighbouring threads on neighbouring addresses) is
 // the whole design.  Every entry returns cudaGetLastError() after its
@@ -76,6 +79,20 @@ __global__ void rns_modmul_kernel(const T* __restrict__ a,
     const long long at = c * S + i;
     const int p = static_cast<int>(a[at]) * static_cast<int>(b[at]);
     out[at] = rns::fold_channel(p, c, plan);
+  }
+}
+
+// Unsigned plans only: values in [0, bound), one channel per grid row.
+__global__ void rns_fold_kernel(const int* __restrict__ x,
+                                int* __restrict__ out, long long S,
+                                FusedPlan plan) {
+  const int c = blockIdx.y;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < S; i += stride) {
+    const long long at = c * S + i;
+    out[at] = rns::fold_channel(x[at], c, plan);
   }
 }
 
@@ -172,6 +189,14 @@ int rns_modmul_launch(const void* a, const void* b, int is_int32, int* out,
         static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), out, S,
         *plan);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: (C, S) int32; plan carries the moduli and the fold ladder.
+int rns_fold_launch(const int* x, int* out, long long S,
+                    const FusedPlan* plan, int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rns_fold_kernel<<<dim3(blocks, plan->C), 256, 0, s>>>(x, out, S, *plan);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,8 @@ launch on a CUDA tensor — never at import.  A failed build raises; nothing
 falls back.
 
 `Plan` and `TileArgs` mirror the structs of `csrc/rns_common.cuh` field for
-field; `plan_struct` fills a `Plan` from a fold plan and a conversion plan.
+field, `FlashArgs` the one of `csrc/flash_attention.cu`; `plan_struct`
+fills a `Plan` from a fold plan and a conversion plan.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from pathlib import Path
 from repro_torch.core import multiword as mw
 
 __all__ = ["build", "library", "check", "plan_struct", "Plan", "TileArgs",
-           "BUILD_DIR", "SOURCES"]
+           "FlashArgs", "BUILD_DIR", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
@@ -48,7 +49,10 @@ class Plan(ctypes.Structure):
                 ("sched_c", (ctypes.c_int * MAXR) * MAXC),
                 ("inv", (ctypes.c_int * MAXC) * MAXC),
                 ("M_limbs", ctypes.c_int * MAXL),
-                ("half_limbs", ctypes.c_int * MAXL)]
+                ("half_limbs", ctypes.c_int * MAXL),
+                ("L1", ctypes.c_int),
+                ("crt_v", ctypes.c_int * MAXC),
+                ("crt_mc", (ctypes.c_int * MAXL) * MAXC)]
 
 
 class TileArgs(ctypes.Structure):
@@ -61,6 +65,19 @@ class TileArgs(ctypes.Structure):
                 ("N", ctypes.c_int), ("splits", ctypes.c_int),
                 ("k_per_split", ctypes.c_int), ("vec", ctypes.c_int),
                 ("encoded", ctypes.c_int), ("emit", ctypes.c_int)]
+
+
+class FlashArgs(ctypes.Structure):
+    _fields_ = [("q", ctypes.c_void_p), ("k", ctypes.c_void_p),
+                ("v", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("pad", ctypes.c_void_p), ("qpos", ctypes.c_void_p),
+                ("kpos", ctypes.c_void_p),
+                ("B", ctypes.c_int), ("H", ctypes.c_int),
+                ("Sq", ctypes.c_int), ("Sk", ctypes.c_int),
+                ("D", ctypes.c_int), ("causal", ctypes.c_int),
+                ("has_window", ctypes.c_int), ("window", ctypes.c_int),
+                ("has_softcap", ctypes.c_int), ("bf16", ctypes.c_int),
+                ("scale", ctypes.c_float), ("softcap", ctypes.c_float)]
 
 
 def plan_struct(plan, conv) -> Plan:
@@ -152,8 +169,11 @@ def library() -> ctypes.CDLL:
     lib.rns_forward_launch.argtypes = [p, i, p, i, ll, p, i, p]
     lib.rns_reverse_launch.argtypes = [p, p, p, ll, p, i, p]
     lib.rns_modmul_launch.argtypes = [p, p, i, p, ll, p, i, p]
+    lib.rns_fold_launch.argtypes = [p, p, ll, p, i, p]
+    lib.flash_attention_launch.argtypes = [p, p]
     for fn in (lib.rns_tile_launch, lib.rns_forward_launch,
-               lib.rns_reverse_launch, lib.rns_modmul_launch):
+               lib.rns_reverse_launch, lib.rns_modmul_launch,
+               lib.rns_fold_launch, lib.flash_attention_launch):
         fn.restype = i
     return lib
 
@@ -161,8 +181,8 @@ def library() -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned an error code."""
     if rc == -1:
-        raise ValueError(f"{name}: channel count or mode not compiled into "
-                         "the kernel library")
+        raise ValueError(f"{name}: channel count, head size or mode not "
+                         "compiled into the kernel library")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 

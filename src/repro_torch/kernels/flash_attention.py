@@ -1,0 +1,102 @@
+"""The flash attention wrapper: port of
+`repro/kernels/flash_attention.py::flash_attention`.
+
+Blocked online-softmax attention over (B, H, S, D) tensors with equal head
+counts for q, k and v (a caller with fewer KV heads repeats them): causal
+with the frontier aligned to the end of the keys, a sliding window, a tanh
+softcap, a per-sequence left ``pad``, or explicit ``qpos``/``kpos``
+positions with −1 marking an invalid row.  The CUDA source is
+`csrc/flash_attention.cu`; its header says what bounds the kernel on an
+H100 and how the design answers it.  The plain version is
+`ref.attention_ref`.
+
+The Pallas kernel's ``block_q``/``block_k`` (its TPU grid) and
+``interpret`` have no counterpart: the CUDA kernel's tiles are fixed.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .ref import _positions, attention_ref
+
+__all__ = ["flash_attention"]
+
+HEAD_SIZES = (16, 32, 64, 128)       # D values compiled into the kernel
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, pad=None, qpos=None,
+                    kpos=None) -> torch.Tensor:
+    """(B, H, Sq, D) × (B, H, Sk, D)² → (B, H, Sq, D) in q's dtype.
+
+    Sq may differ from Sk (decode: Sq = 1 against the cached keys); query i
+    sits at position ``i + Sk − Sq``.  ``pad`` (B,) masks the first
+    ``pad[b]`` keys of sequence b.  ``qpos``/``kpos`` ((S,) or (B, S) int,
+    −1 = invalid row) switch to explicit positions and exclude ``pad``.
+    Fully masked rows are 0.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel.
+    """
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"need q (B, H, Sq, D) and k, v (B, H, Sk, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32,
+                                                            torch.bfloat16):
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    explicit = qpos is not None or kpos is not None
+    if pad is not None and explicit:
+        raise ValueError("pad= and explicit qpos/kpos= are mutually "
+                         "exclusive")
+    kw = dict(causal=causal, window=window, softcap=softcap, pad=pad,
+              qpos=qpos, kpos=kpos)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if D not in HEAD_SIZES:
+        raise ValueError(f"head size {D} is not compiled into the kernel "
+                         f"(one of {HEAD_SIZES})")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    args = _build.FlashArgs()
+    if explicit:
+        ar = torch.arange(max(Sq, Sk), dtype=torch.int32, device=q.device)
+        qp = _positions(qpos, ar[:Sq] + (Sk - Sq), B).contiguous()
+        kp = _positions(kpos, ar[:Sk], B).contiguous()
+        args.qpos, args.kpos = qp.data_ptr(), kp.data_ptr()
+    if pad is not None:
+        pd = torch.as_tensor(pad, dtype=torch.int32,
+                             device=q.device).reshape(B).contiguous()
+        args.pad = pd.data_ptr()
+    args.q, args.k, args.v, args.out = (q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), out.data_ptr())
+    args.B, args.H, args.Sq, args.Sk, args.D = B, H, Sq, Sk, D
+    args.causal = int(causal)
+    args.has_window, args.window = int(window is not None), int(window or 0)
+    args.has_softcap = int(softcap is not None)
+    args.softcap = float(softcap or 0.0)
+    args.scale = 1.0 / math.sqrt(D)
+    args.bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.library().flash_attention_launch(ctypes.byref(args), stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -12,16 +12,21 @@ and in any summation order.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.core import multiword as mw
 from repro_torch.core.channel_plan import ChannelPlan
 from repro_torch.core.conversion_plan import ConversionPlan
 from repro_torch.core.quant import QMAX, quantize_int8, requant_const
 
 __all__ = ["rns_forward_ref", "rns_fused_matmul_ref", "rns_matmul_ref",
-           "rns_modmul_ref", "rns_reverse_ref", "rns_fused_chain_ref"]
+           "rns_modmul_ref", "rns_reverse_ref", "rns_fused_chain_ref",
+           "rns_fused_crt_partial_ref", "fold_ref", "attention_ref"]
+
+NEG_INF = -1e30
 
 
 def rns_forward_ref(x: torch.Tensor, moduli: Sequence[int],
@@ -34,6 +39,26 @@ def rns_forward_ref(x: torch.Tensor, moduli: Sequence[int],
 
 def _channel_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
+def _channel_products(x: torch.Tensor, w_res: torch.Tensor, moduli,
+                      scale_row: torch.Tensor | None,
+                      gate: torch.Tensor | None):
+    """The fused kernel's per-channel int32 accumulators, unfolded, one per
+    modulus: the quantized (M, K) float ``x`` or channel c of the (C, M, K)
+    residues ``x`` (times ``|gate|_m`` when gated), against ``w_res[c]``."""
+    if x.ndim == 2:
+        q = torch.clamp(torch.round(x.to(torch.float32) / scale_row),
+                        -QMAX, QMAX)
+    for c, m in enumerate(moduli):
+        if x.ndim == 2:
+            a = q
+        else:
+            a = x[c].to(torch.int32)
+            if gate is not None:
+                a = torch.remainder(
+                    torch.remainder(gate.to(torch.int32), m) * a, m)
+        yield _channel_dot(a, w_res[c])
 
 
 def rns_fused_matmul_ref(x: torch.Tensor, w: torch.Tensor, basis, *,
@@ -57,19 +82,8 @@ def rns_fused_matmul_ref(x: torch.Tensor, w: torch.Tensor, basis, *,
     plan = ChannelPlan.for_matmul(moduli, K, signed=not residue_in)
     conv = ConversionPlan.for_basis(basis)
     w_res = w if w.ndim == 3 else rns_forward_ref(w, moduli)
-    if not residue_in:
-        q = torch.clamp(torch.round(x.to(torch.float32) / scale_row),
-                        -QMAX, QMAX)
-    res = []
-    for c, m in enumerate(moduli):
-        if residue_in:
-            a = x[c].to(torch.int32)
-            if gate is not None:
-                a = torch.remainder(
-                    torch.remainder(gate.to(torch.int32), m) * a, m)
-        else:
-            a = q
-        res.append(plan.fold(_channel_dot(a, w_res[c]), c))
+    res = [plan.fold(acc, c) for c, acc in enumerate(
+        _channel_products(x, w_res, moduli, scale_row, gate))]
     val = conv.reverse_plain(torch.stack(res))
     if creq is not None:
         q = torch.clamp(torch.round((val * scale_col) / creq), -QMAX, QMAX)
@@ -140,3 +154,114 @@ def rns_fused_chain_ref(x: torch.Tensor, w_gate, w_up, w_down, basis,
     g_res = rns_forward_ref(gq, moduli, torch.int8)
     a_res = rns_modmul_ref(u_res, g_res, moduli).to(torch.int8)
     return (linear(a_res, w_down, plan_f) * (s_up * sg)) * w_down.scale
+
+
+def rns_fused_crt_partial_ref(x: torch.Tensor, w: torch.Tensor, *,
+                              plan: ChannelPlan, mods: Sequence[int],
+                              sched, crt_v: Sequence[int], crt_mc,
+                              scale_row: torch.Tensor | None = None,
+                              gate: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Plain version of the channel-slice kernel: Stage ②–④ on the slice,
+    then the CRT partial sum Σ_j |r_j·v_j|_{m_j}·(M/m_j) as (L1, M, N)
+    int32 15-bit limb planes, carried after every channel.
+
+    ``x`` is (M, K) float (quantized by ``scale_row`` (M, 1), signed fold)
+    or the (C_l, M, K) canonical int8 residues of the slice (unsigned fold,
+    times ``|gate|_m`` when gated); ``w`` the (C_l, K, N) residue slice.
+    ``plan`` gives the rung count, ``n_sub`` and signedness; ``mods``,
+    ``sched`` (C_l, R, 2), ``crt_v`` (C_l,) and ``crt_mc`` (C_l, L1) are
+    the slice's own tables.
+    """
+    mods = [int(m) for m in mods]
+    L1 = len(crt_mc[0])
+    limbs = [torch.zeros((x.shape[-2], w.shape[-1]), dtype=torch.int32,
+                         device=x.device) for _ in range(L1)]
+    for j, acc in enumerate(_channel_products(x, w, mods, scale_row, gate)):
+        m = mods[j]
+        r = plan.fold(acc, sched=sched[j], m=m)
+        alpha = torch.remainder(r * int(crt_v[j]), m)
+        carry = torch.zeros_like(alpha)
+        for l in range(L1):
+            v = limbs[l] + int(crt_mc[j][l]) * alpha + carry
+            limbs[l] = v & mw.LIMB_MASK
+            carry = v >> mw.LIMB_BITS
+    return torch.stack(limbs)
+
+
+def fold_ref(x: torch.Tensor, moduli: Sequence[int],
+             bound: int) -> torch.Tensor:
+    """(C, …) int32 values in [0, bound) → canonical residues per channel:
+    the ``ChannelPlan.build(moduli, bound)`` ladder."""
+    plan = ChannelPlan.build(tuple(int(m) for m in moduli), int(bound))
+    return torch.stack([plan.apply_ladder(x[c].to(torch.int32), c)
+                        for c in range(plan.k)])
+
+
+def _positions(p, default: torch.Tensor, B: int) -> torch.Tensor:
+    """(S,) or (B, S) int positions (``default`` when None) as a (B, S)
+    int32 view."""
+    p = default if p is None else torch.as_tensor(p, dtype=torch.int32,
+                                                  device=default.device)
+    if p.ndim not in (1, 2) or p.shape[-1] != default.shape[0]:
+        raise ValueError(f"positions must be ({default.shape[0]},) or (B, "
+                         f"{default.shape[0]}), got {tuple(p.shape)}")
+    return (p[None] if p.ndim == 1 else p).expand(B, -1)
+
+
+def attention_mask(B: int, Sq: int, Sk: int, *, causal: bool = True,
+                   window: int | None = None, pad=None, qpos=None,
+                   kpos=None, device=None) -> torch.Tensor:
+    """(B, Sq, Sk) bool mask of `attention_ref` and the flash kernel.
+
+    Implicit positions put query i at ``i + Sk − Sq`` (the causal frontier
+    aligned to the end of the keys) and key j at ``j``; ``pad`` (B,) masks
+    keys below ``pad[b]``.  Explicit ``qpos``/``kpos`` ((S,) or (B, S)
+    int, −1 = invalid row) replace them and exclude ``pad``.
+    """
+    explicit = qpos is not None or kpos is not None
+    if explicit and pad is not None:
+        raise ValueError("pad= and explicit qpos/kpos= are mutually "
+                         "exclusive")
+    qp = _positions(qpos, torch.arange(Sq, dtype=torch.int32, device=device)
+                    + (Sk - Sq), B)[:, :, None]
+    kp = _positions(kpos, torch.arange(Sk, dtype=torch.int32, device=device),
+                    B)[:, None, :]
+    mask = torch.ones((B, Sq, Sk), dtype=torch.bool, device=device)
+    if explicit:
+        mask = mask & (kp >= 0) & (qp >= 0)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    if pad is not None:
+        pad = torch.as_tensor(pad, dtype=torch.int32, device=device)
+        mask = mask & (kp >= pad[:, None, None])
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  softcap: float | None = None, pad=None, qpos=None,
+                  kpos=None) -> torch.Tensor:
+    """Plain version of the flash kernel: (B, H, Sq, D), (B, H, Sk, D)² →
+    (B, H, Sq, D) in q's dtype, port of `repro/kernels/ref.attention_ref`.
+
+    Scores ``q·k / √D``, ``tanh(s/c)·c`` under ``softcap``, masked scores
+    set to −1e30, softmax, fully masked rows zero.  The products run in
+    float32 whatever the input type, as the kernel (and the JAX package's
+    Pallas kernel) computes them; the JAX reference multiplies bf16 inputs
+    in bf16, which the bf16 tolerance covers.
+    """
+    B, _, Sq, D = q.shape
+    Sk = k.shape[-2]
+    mask = attention_mask(B, Sq, Sk, causal=causal, window=window, pad=pad,
+                          qpos=qpos, kpos=kpos, device=q.device)[:, None]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * (1.0 / math.sqrt(D))
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask.any(-1, keepdim=True), torch.softmax(s, -1), 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)

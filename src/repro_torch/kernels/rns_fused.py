@@ -14,13 +14,19 @@ in the domain, clip(round(y·s_col / c), ±127) with c =
 `quant.requant_const`, and writes the C residue planes of the result
 (``emit="residues"``).  The CUDA source is `csrc/rns_common.cuh`; its
 header says what bounds the kernel on an H100 and how the design answers
-it.  The CRT-partial variant is not ported.
+it.
+
+`rns_fused_crt_partial` is the same tile kernel on a channel slice of the
+basis, for the channel-sharded layout (`repro_torch.dist.rns_shard`): its
+epilogue writes the slice's CRT partial sum as 15-bit limb planes instead
+of running the MRC reverse, which needs every channel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core.channel_plan import ChannelPlan
@@ -30,15 +36,15 @@ from repro_torch.core.rns import basis_for_int8_matmul
 from repro_torch.core.rns_tensor import RNSTensor
 
 from . import _build
-from .ref import rns_fused_matmul_ref
+from .ref import rns_fused_crt_partial_ref, rns_fused_matmul_ref
 
-__all__ = ["rns_fused_matmul"]
+__all__ = ["rns_fused_matmul", "rns_fused_crt_partial"]
 
 _TM, _TN, _TK = 16, 64, 32          # tile shape compiled into the kernel
 _MIN_KTILES_PER_SPLIT = 1
 # rns::AMode and rns::Emit of csrc/rns_common.cuh
 A_F32, A_BF16, A_SHARED, A_PLANES = 0, 1, 2, 3
-EMIT_FLOAT, EMIT_RESIDUES, EMIT_CANONICAL = 0, 1, 2
+EMIT_FLOAT, EMIT_RESIDUES, EMIT_CANONICAL, EMIT_CRT_LIMBS = 0, 1, 2, 3
 
 
 @functools.lru_cache(maxsize=256)
@@ -219,3 +225,132 @@ def _launch(x, w, srow, scol, gate, creq, C, st, residue_in):
 
 rns_fused_matmul.launches = 0              # every launch
 rns_fused_matmul.residue_in_launches = 0   # of which residue-in
+
+
+def _table(t) -> tuple:
+    """A small host table (numpy array, nested sequence or tensor) as
+    nested tuples of Python ints."""
+    def tup(e):
+        return tuple(map(tup, e)) if isinstance(e, list) else int(e)
+
+    if isinstance(t, torch.Tensor):
+        t = t.cpu()
+    return tup(np.asarray(t).tolist())
+
+
+@functools.lru_cache(maxsize=256)
+def _crt_plan_struct(plan: ChannelPlan, mods: tuple, sched: tuple,
+                     crt_v: tuple, crt_mc: tuple) -> _build.Plan:
+    """The kernel's plan tables of one slice launch: the local plan's rung
+    count, ``n_sub`` and signedness with the slice's own moduli, rung rows
+    and CRT constants."""
+    st = _build.plan_struct(plan, None)
+    L1 = len(crt_mc[0])
+    if L1 > _build.MAXL:
+        raise ValueError(f"{L1} CRT limbs exceed the kernel's {_build.MAXL}")
+    st.L1 = L1
+    for j, m in enumerate(mods):
+        st.mods[j] = m
+        st.crt_v[j] = crt_v[j]
+        for r, (sh, c) in enumerate(sched[j]):
+            st.sched_s[j][r], st.sched_c[j][r] = sh, c
+        for l, limb in enumerate(crt_mc[j]):
+            st.crt_mc[j][l] = limb
+    return st
+
+
+def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
+                          crt_mc, quantize: bool = False,
+                          scale_row: torch.Tensor | None = None,
+                          gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Channel-slice launch: Stage ②–④ on C_l channels, then the CRT
+    partial sum Σ_j |r_j·v_j|_{m_j}·(M/m_j) over them as ``(L1, M, N)``
+    int32 15-bit limb planes (``L1 = crt_mc.shape[-1]``).  Summing the
+    planes of every slice and `repro_torch.dist.rns_shard.crt_finish`
+    recover the fused kernel's value exactly.
+
+    ``plan`` is the local-shaped plan (`rns_shard.local_plan`: global bound,
+    rung count and ``n_sub``); ``mods`` (C_l,), ``sched`` (C_l, R, 2),
+    ``crt_v`` (C_l,) and ``crt_mc`` (C_l, L1) are this slice's tables, as
+    host arrays.  The JAX entry's ``conv`` has no counterpart: the CRT
+    epilogue does not read a conversion plan.
+
+    ``x`` is (M, K) float32/bfloat16 with ``quantize=True`` and
+    ``scale_row`` (M, 1), or the (C_l, M, K) int8 canonical residue slice,
+    optionally gated by a raw int8 (M, K) ``gate``.  ``w`` is the
+    (C_l, K, N) int8 residue slice.  Raw signed int8 activations and live
+    (K, N) weights, which no configuration reaches, raise
+    ``NotImplementedError``.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel.
+    """
+    residue_in = x.ndim == 3
+    if residue_in:
+        if x.shape[0] != plan.k:
+            raise ValueError(f"residue slice has {x.shape[0]} channels, "
+                             f"local plan has {plan.k}")
+        if quantize:
+            raise ValueError("quantize=True is the float prologue; residue "
+                             "slices are already quantized")
+        if x.dtype != torch.int8:
+            raise ValueError(f"residue slice must be int8, got {x.dtype}")
+    elif not quantize:
+        raise NotImplementedError("raw int8 activations (quantize=False on "
+                                  "an (M, K) block) are not ported")
+    elif x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"need float32/bfloat16 x (M, K), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if w.ndim != 3:
+        raise NotImplementedError("live (K, N) weights are not ported; "
+                                  "encode the weight slice")
+    if w.shape[0] != plan.k:
+        raise ValueError(f"weight slice has {w.shape[0]} channels, local "
+                         f"plan has {plan.k}")
+    if w.dtype != torch.int8:
+        raise ValueError(f"weight residues must be int8, got {w.dtype}")
+    if quantize and scale_row is None:
+        raise ValueError("quantize=True needs the per-row quant scale_row")
+    M, K = x.shape[-2:]
+    N = w.shape[-1]
+    if w.shape[-2] != K or K == 0:
+        raise ValueError(f"contraction mismatch: x K={K}, w K={w.shape[-2]}")
+    if gate is not None:
+        if not residue_in:
+            raise ValueError("gate= fuses into the residue-in prologue")
+        if gate.shape != x.shape[-2:] or gate.dtype != torch.int8:
+            raise ValueError(f"gate must be int8 {tuple(x.shape[-2:])}, got "
+                             f"{gate.dtype} {tuple(gate.shape)}")
+    mods, sched = _table(mods), _table(sched)
+    crt_v, crt_mc = _table(crt_v), _table(crt_mc)
+    if not (len(mods) == len(sched) == len(crt_v) == len(crt_mc) == plan.k) \
+            or any(len(r) != plan.num_rungs for r in sched):
+        raise ValueError(f"slice tables must have {plan.k} channels and "
+                         f"{plan.num_rungs} rungs")
+    srow = (scale_row.to(torch.float32).reshape(M, 1) if quantize else None)
+    if x.device.type == "cpu":
+        return rns_fused_crt_partial_ref(x, w, plan=plan, mods=mods,
+                                         sched=sched, crt_v=crt_v,
+                                         crt_mc=crt_mc, scale_row=srow,
+                                         gate=gate)
+    if x.device.type != "cuda":
+        raise ValueError(f"rns_fused_crt_partial runs on cuda or cpu, not "
+                         f"{x.device}")
+    for name, t in (("w", w), ("scale_row", srow), ("gate", gate)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    st = _crt_plan_struct(plan, mods, sched, crt_v, crt_mc)
+    out = torch.empty((len(crt_mc[0]), M, N), dtype=torch.int32,
+                      device=x.device)
+    if M == 0 or N == 0:
+        return out
+    amode = (A_PLANES if residue_in
+             else A_BF16 if x.dtype == torch.bfloat16 else A_F32)
+    launch_tile(amode, EMIT_CRT_LIMBS, st, x=x.contiguous(),
+                w=w.contiguous(), out=out, M=M, K=K, N=N, C=plan.k,
+                srow=srow.contiguous() if srow is not None else None,
+                gate=gate.contiguous() if gate is not None else None,
+                name="rns_fused_crt_partial")
+    rns_fused_crt_partial.launches += 1
+    return out
+
+
+rns_fused_crt_partial.launches = 0

@@ -11,7 +11,9 @@ from repro_torch.core import rns_tensor as trt
 from repro_torch.core.conversion_plan import ConversionPlan
 from repro_torch.core.quant import quant_scale, quantize_int8, requant_const
 from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
-from repro_torch.kernels import (ref, rns_forward, rns_fused_matmul,
+from repro_torch.dist.rns_shard import channel_partials, channel_sliced_matmul
+from repro_torch.kernels import (flash_attention, fold, ref, rns_forward,
+                                 rns_fused_crt_partial, rns_fused_matmul,
                                  rns_matmul, rns_modmul, rns_reverse)
 
 pytestmark = pytest.mark.cuda
@@ -189,3 +191,110 @@ def test_chain_staged_equals_fused(dev):
                                      backend=backend))
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
+
+
+
+@pytest.mark.parametrize("mods,bound", [((47, 43, 41, 39, 37), 2**31 - 1),
+                                        ((47, 43, 41, 39, 37, 35, 31),
+                                         1536 * 46 * 46),
+                                        ((1024, 47, 31), 2**31 - 1),
+                                        ((2045, 2051, 2039, 2057, 1025, 3071),
+                                         2**25)])
+def test_fold_matches_plain(dev, mods, bound):
+    g = torch.Generator(device=dev).manual_seed(len(mods))
+    x = torch.randint(0, bound, (len(mods), 8 * 1536 + 3), generator=g,
+                      device=dev, dtype=torch.int32)
+    x[:, :2] = torch.tensor([0, bound - 1], dtype=torch.int32)
+    before = fold.launches
+    got = fold(x, mods, bound)
+    torch.cuda.synchronize()
+    assert fold.launches == before + 1
+    assert torch.equal(got, ref.fold_ref(x, mods, bound))
+    assert torch.equal(got.long(), x.long() % torch.tensor(
+        mods, device=dev)[:, None])
+
+
+@pytest.mark.parametrize("form", ["quantize", "residue_in", "gated"])
+@pytest.mark.parametrize("M,K,N", [(8, 576, 960), (512, 1536, 576),
+                                   (13, 64, 70)])
+def test_crt_partial_matches_plain_and_composes(dev, form, M, K, N):
+    """Every slice launch bit-equal to its plain version; the summed planes
+    through crt_finish bit-equal to the fused kernel, for n = 1 and n = C."""
+    if form == "quantize":
+        basis = basis_for_int8_matmul(K)
+        g = torch.Generator(device=dev).manual_seed(M + K)
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        x[0, :2] = torch.tensor([40.0, -40.0])
+        wt = trt.encode(torch.randn(K, N, generator=g, device=dev) / K ** .5)
+        srow, gate, xin = quant_scale(x), None, x
+        full = rns_fused_matmul(x, wt, scale_row=srow, scale_col=wt.scale)
+    else:
+        basis = basis_for_chain(K) if form == "gated" else \
+            basis_for_int8_matmul(K)
+        xin, wt, g = _chain_operands(dev, M, K, N, M + K, basis)
+        gate = None
+        srow = xin.scale
+        if form == "gated":
+            gate = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                                 dtype=torch.int8)
+            srow = xin.scale * 0.5
+        full = rns_fused_matmul(xin, wt, scale_row=srow, scale_col=wt.scale,
+                                gate=gate)
+    C = len(basis.moduli)
+    for n in (1, C):
+        kw = dict(scale_row=srow, gate=gate)
+        before = rns_fused_crt_partial.launches
+        parts = channel_partials(xin, wt, n, **kw)
+        torch.cuda.synchronize()
+        assert rns_fused_crt_partial.launches == before + n
+        for part, want in zip(parts, channel_partials(xin, wt, n, plain=True,
+                                                      **kw)):
+            assert torch.equal(part, want)
+        got = channel_sliced_matmul(xin, wt, n, scale_col=wt.scale, **kw)
+        assert torch.equal(got, full)
+
+FLASH_CASES = [
+    # (B, H, Sq, Sk, D, causal, window, softcap, pad, explicit)
+    (2, 3, 64, 64, 32, True, None, None, None, False),
+    (2, 2, 100, 100, 16, True, 24, 50.0, None, False),
+    (2, 2, 1, 100, 64, True, None, None, (0, 99), False),
+    (1, 2, 100, 100, 64, False, None, None, None, False),
+    (2, 2, 4, 100, 128, True, None, None, (3, 100), False),
+    (2, 2, 48, 130, 64, True, 40, None, None, True),
+    (3, 9, 257, 257, 64, True, None, None, (0, 17, 256), False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_matches_plain(dev, case, dtype):
+    B, H, Sq, Sk, D, causal, window, cap, pad, explicit = case
+    g = torch.Generator(device=dev).manual_seed(Sq * Sk + D)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+               for S in (Sq, Sk, Sk))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    if pad is not None:
+        kw["pad"] = torch.tensor(pad, dtype=torch.int32, device=dev)
+    if explicit:
+        qp = torch.arange(Sq, device=dev, dtype=torch.int32) + (Sk - Sq)
+        kp = torch.arange(Sk, device=dev, dtype=torch.int32).repeat(B, 1)
+        qp = qp.repeat(B, 1)
+        qp[0, :5] = -1
+        kp[0, 7:30] = -1
+        kp[-1, :] = torch.randperm(Sk, generator=g, device=dev).int()
+        kw.update(qpos=qp, kpos=kp)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # the plain version computes in float32 too: bf16 outputs agree to one
+    # bf16 ulp (2^-7 relative) of the output, float32 ones to 2e-5
+    rtol, atol = (2.0**-7, 1e-3) if dtype == torch.bfloat16 else (0.0, 2e-5)
+    assert ((got.double() - want.double()).abs()
+            <= rtol * want.double().abs() + atol).all()
+    dead = ~ref.attention_mask(B, Sq, Sk, device=dev, **{
+        k_: kw.get(k_) for k_ in ("causal", "window", "pad", "qpos",
+                                  "kpos")}).any(-1)
+    assert (got[dead[:, None].expand(-1, H, -1)] == 0).all()

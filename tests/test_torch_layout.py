@@ -44,6 +44,9 @@ def test_scan_sees_the_port():
             "src/repro_torch/kernels/rns_matmul.py",
             "src/repro_torch/kernels/rns_modmul.py",
             "src/repro_torch/kernels/rns_convert.py",
+            "src/repro_torch/kernels/fold.py",
+            "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/dist/rns_shard.py",
             "src/repro_torch/core/linear_spec.py",
             "src/repro_torch/core/rns_linear.py",
             "src/repro_torch/serve/engine.py"} <= names
