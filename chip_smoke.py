@@ -11,14 +11,19 @@ Phases, each of which must pass:
      shape, with median times (CUDA events; weights read cold from device
      memory), the plain version's time, a one-call PyTorch yardstick and
      the least time the card could take (bytes over HBM rate or int8 ops
-     over the int8 peak, whichever is larger);
+     over the int8 peak, whichever is larger).  Past 16 rows the tile
+     kernel runs at both heights, the 32-row tensor-core tile it picks
+     and pinned to the 16-row `__dp4a` tile, each held bit for bit and
+     the two timed in turns; `prefill:` lines sum each served path's
+     launches of one layer at M = 512 for both;
   3. serve   — three full 30-layer models (published widths, seeded random
      weights) served through `serve.Engine`: `rns-smollm-135m-fused`
      (encoded weights, one fused launch per linear),
      `rns-smollm-135m-resident` (residue-resident QKV and MLP chains) and
      `rns-smollm-135m-pallas` (live weights on the staged kernels); each
-     with its launch counts, batch invariance with pinned lanes, prefill
-     and decode times;
+     with its launch counts (the prefill's tile launches at 32 rows,
+     every decode step's at 16), batch invariance with pinned lanes,
+     prefill and decode times;
   4. chain   — `rns_chain_linear` on the staged kernels equal bit for bit
      to the fused kernel at the full-width MLP shapes;
   5. entry   — the entry points no served model calls, once each at full
@@ -33,7 +38,8 @@ Phases, each of which must pass:
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0),
 `fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
-for n = 1 and n = C) against their plain versions.  Lines: per-shape kernel rows, a `kernels:` summary, one `serve:`
+for n = 1 and n = C) against their plain versions.  Lines: per-shape
+kernel rows, a `kernels:` summary, the `prefill:` sums, one `serve:`
 line per model, a `chain:` line, an `entry:` line, one `check:` line per
 smoke config, the nvidia-smi line, the kernels JSON line and, last, the
 device JSON line.  ``--record
@@ -45,6 +51,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -97,10 +104,9 @@ def time_ms(fn, reps=30, warmup=3):
     return times[len(times) // 2]
 
 
-def device_ms(fn, n, reps=7):
-    """Device time of one ``fn(i)``: ``n`` calls (i = 0..n-1) captured in a
-    CUDA graph, the graph replayed ``reps`` times, median replay / n.  The
-    host's launch overhead is out of the measurement."""
+def _capture(fn, n):
+    """``n`` calls ``fn(i)`` (i = 0..n-1) captured in a CUDA graph, after
+    a warm-up, and replayed once."""
     import torch
 
     side = torch.cuda.Stream()
@@ -115,16 +121,80 @@ def device_ms(fn, n, reps=7):
             fn(i)
     graph.replay()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / n)
+    return graph
+
+
+def _replay_ms(graph, n):
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_ms(fn, n, reps=7):
+    """Device time of one ``fn(i)``: ``n`` calls (i = 0..n-1) captured in a
+    CUDA graph, the graph replayed ``reps`` times, median replay / n.  The
+    host's launch overhead is out of the measurement."""
+    graph = _capture(fn, n)
+    times = [_replay_ms(graph, n) for _ in range(reps)]
     return sorted(times)[reps // 2]
+
+
+def _pinned(fn, rows):
+    """``fn()`` with every tile launch pinned to the ``rows``-row tile."""
+    from repro_torch.kernels.rns_fused import _pin_tile_rows
+
+    with _pin_tile_rows(rows):
+        return fn()
+
+
+def device_ms_heights(fn, n, reps=8):
+    """`device_ms` of a tile-kernel launch pinned to each tile height, the
+    32-row tensor-core tile and the 16-row ``__dp4a`` one: the two graphs
+    are replayed in turns (A B B A ...); medians by height."""
+    from repro_torch.kernels.rns_fused import TM, TM_MMA
+
+    heights = (TM_MMA, TM)
+    graphs = [_pinned(lambda: _capture(fn, n), h) for h in heights]
+    times = ([], [])
+    for r in range(reps):
+        for h in ((0, 1) if r % 2 == 0 else (1, 0)):
+            times[h].append(_replay_ms(graphs[h], n))
+    return {h: sorted(t)[reps // 2] for h, t in zip(heights, times)}
+
+
+def _both_heights(again, want):
+    """``again()`` at each tile height, bit for bit against ``want``."""
+    import torch
+    from repro_torch.kernels.rns_fused import TM, TM_MMA
+
+    return {h: torch.equal(_pinned(again, h), want) for h in (TM_MMA, TM)}
+
+
+def _picked(m, n, c):
+    """The tile height the launcher picks for an (m, n) launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rns_fused import tile_rows
+
+    return tile_rows(m, n, c, _build.num_sms(0))
+
+
+def _height_info(eq, hts, picked):
+    """Row fields and the printed part of both heights' verdicts."""
+    from repro_torch.kernels.rns_fused import TM, TM_MMA
+
+    if eq is None:
+        return {}, ""
+    info = {"rows": picked, "equal_tm32": eq[TM_MMA], "equal_tm16": eq[TM],
+            "ms_tm32": hts[TM_MMA], "ms_tm16": hts[TM]}
+    text = (f"[rows={picked}] tm32: equal={eq[TM_MMA]} "
+            f"ms={hts[TM_MMA]:.4f} tm16: equal={eq[TM]} ms={hts[TM]:.4f} ")
+    return info, text
 
 
 def phase_device():
@@ -140,15 +210,27 @@ def phase_device():
     so, log = _build.build()
     _build.library()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    spills = [ln.strip() for ln in log.splitlines()
-              if "spill" in ln and " 0 bytes spill" not in ln]
+    # ptxas -v per kernel: its entry, then spills, then registers
+    kernels, spills = [], []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kernels.append({"kernel": ln.split("'")[1]})
+        elif "spill stores" in ln and kernels:
+            kernels[-1]["spill"] = ln.strip()
+            if " 0 bytes spill" not in ln:
+                spills.append(f"{kernels[-1]['kernel']}: {ln.strip()}")
+        elif "registers" in ln and kernels:
+            kernels[-1]["ptxas"] = ln.split(":", 1)[1].strip()
+    mma = [k for k in kernels if "rns_tile_kernelILi32E" in k["kernel"]]
+    mma_regs = [int(k["ptxas"].split()[1]) for k in mma if "ptxas" in k]
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     print(f"build: {build_s:.1f} s -> {os.path.relpath(so, ROOT)} "
-          f"({len(regs)} kernels; spills: {spills or 'none'})")
+          f"({len(kernels)} kernels, {len(mma)} of them 32-row tiles with "
+          f"{min(mma_regs, default=0)}-{max(mma_regs, default=0)} "
+          f"registers; spills: {spills or 'none'})")
     return {"name": name, "smi": smi, "build_s": build_s,
-            "ptxas": regs, "spills": spills}
+            "ptxas": kernels, "spills": spills}
 
 
 def _copies(make, nbytes):
@@ -188,10 +270,15 @@ def phase_kernels(layer_shapes, decode_m, prefill_m, dev):
         got = rns_fused_matmul(x, arg, basis, scale_row=sx, scale_col=scol)
         want = ref.rns_fused_matmul_ref(x, arg, basis, scale_row=sx,
                                         scale_col=scol)
+        # past 16 rows: both tile heights, each held against the plain
+        # version
+        eq = None if m <= 16 else _both_heights(
+            lambda: rns_fused_matmul(x, arg, basis, scale_row=sx,
+                                     scale_col=scol), want)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         same = torch.equal(got, want)
-        ok &= same
+        ok &= same and (eq is None or all(eq.values()))
         max_err = max(max_err, err)
         wbytes = arg.numel()
         pool = _copies(lambda: torch.randint(0, 37, tuple(arg.shape),
@@ -199,7 +286,10 @@ def phase_kernels(layer_shapes, decode_m, prefill_m, dev):
                        wbytes)
         def launch(i):
             rns_fused_matmul(x, pool[i], basis, scale_row=sx, scale_col=scol)
-        ms = device_ms(launch, len(pool))
+        hts = device_ms_heights(launch, len(pool)) if eq else None
+        picked = _picked(m, n, C)
+        ms = hts[picked] if eq else device_ms(launch, len(pool))
+        hinfo, htext = _height_info(eq, hts, picked)
         call = time_ms(lambda i: launch(i % len(pool)))
         plain = time_ms(lambda i: ref.rns_fused_matmul_ref(
             x, arg, basis, scale_row=sx, scale_col=scol), reps=5, warmup=1)
@@ -212,9 +302,9 @@ def phase_kernels(layer_shapes, decode_m, prefill_m, dev):
                      "weights": "encoded" if enc else "live", "C": C,
                      "equal": same, "max_abs_err": err, "ms": ms,
                      "call_ms": call, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": b, "bound_by": by})
+                     "bound_ms": b, "bound_by": by, **hinfo})
         print(f"  rns_fused_matmul M={m:4d} K={k:4d} N={n:4d} "
-              f"{rows[-1]['weights']:7s} equal={same} ms={ms:.4f} "
+              f"{rows[-1]['weights']:7s} equal={same} ms={ms:.4f} {htext}"
               f"call={call:.4f} plain={plain:.3f} bf16_matmul={lib:.4f} "
               f"bound={b:.4f}")
 
@@ -262,28 +352,39 @@ def _sum(rows):
 
 
 def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
-             nbytes, ops, rate=INT8_OPS_PER_S, tol=None, **info):
+             nbytes, ops, rate=INT8_OPS_PER_S, tol=None, again=None,
+             **info):
     """Compare one launch with its plain version (bit for bit, or within
     ``tol`` = (rtol, atol), see `_within`) and time kernel, plain version
-    and yardstick; appends the row and returns the verdict."""
+    and yardstick; appends the row and returns the verdict.  ``again``
+    recomputes ``got`` for a tile-kernel launch past 16 rows: it is run
+    pinned to each tile height, each held bit for bit against ``want``,
+    and the two timed in turns; ``ms`` is the height the launcher picks
+    (``info`` holds M, N and C)."""
     import torch
 
+    eq = None if again is None else _both_heights(again, want)
     torch.cuda.synchronize()
     same = torch.equal(got, want)
     err = 0.0 if same else (got.double() - want.double()).abs().max().item()
     ok = same if tol is None else _within(got, want, tol)
-    ms = device_ms(launch, pool_n)
+    ok &= eq is None or all(eq.values())
+    hts = device_ms_heights(launch, pool_n) if eq else None
+    picked = _picked(info["M"], info["N"], info["C"]) if eq else None
+    ms = hts[picked] if eq else device_ms(launch, pool_n)
+    hinfo, htext = _height_info(eq, hts, picked)
     call = time_ms(lambda i: launch(i % pool_n))
     plain_ms = time_ms(lambda i: plain(), reps=5, warmup=1)
     lib_ms = device_ms(lib[0], lib[1]) if lib else None
     b, by = bound_ms(nbytes, ops, rate)
     rows.append(dict(kernel=kernel, label=label, equal=same, ok=ok,
                      max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
-                     library_ms=lib_ms, bound_ms=b, bound_by=by, **info))
+                     library_ms=lib_ms, bound_ms=b, bound_by=by, **hinfo,
+                     **info))
     libs = "none" if lib_ms is None else f"{lib_ms:.4f}"
     verdict = f"equal={same}" if tol is None else \
         f"max_abs_err={err:.3g} within(rtol,atol)={tol}:{ok}"
-    print(f"  {kernel} {label} {verdict} ms={ms:.4f} call={call:.4f} "
+    print(f"  {kernel} {label} {verdict} ms={ms:.4f} {htext}call={call:.4f} "
           f"plain={plain_ms:.3f} library={libs} bound={b:.4f}")
     return ok
 
@@ -358,15 +459,17 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
             return rns_fused_matmul(xa, w, scale_row=xa.scale,
                                     scale_col=wt.scale, gate=gate, emit=emit)
 
-        got = rns_fused_matmul(xa, wt, scale_row=xa.scale, scale_col=wt.scale,
-                               gate=gate, emit=emit)
+        def compute(xa=xa, wt=wt, gate=gate, emit=emit):
+            got = rns_fused_matmul(xa, wt, scale_row=xa.scale,
+                                   scale_col=wt.scale, gate=gate, emit=emit)
+            return got.residues if emit == "residues" else got
+
+        got = compute()
         creq = requant_const(wt.scale, k) if emit == "residues" else None
         want = ref.rns_fused_matmul_ref(xa.residues, wt.residues, basis,
                                         scale_row=xa.scale,
                                         scale_col=wt.scale, gate=gate,
                                         creq=creq)
-        if emit == "residues":
-            got = got.residues
         out_bytes = C * m * n if emit == "residues" else 4 * m * n
         nbytes = (C * m * k + C * k * n + (m * k if gate is not None else 0)
                   + 4 * m + 4 * n + out_bytes)
@@ -378,7 +481,8 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
                                      scale_row=xa.scale, scale_col=wt.scale,
                                      gate=gate, creq=creq),
             _bf16_matmul((m, k), k, n, g, dev), len(pool), nbytes,
-            2 * C * m * k * n, leaf=label, M=m, K=k, N=n, C=C, form=form)
+            2 * C * m * k * n, again=compute if m > 16 else None,
+            leaf=label, M=m, K=k, N=n, C=C, form=form)
 
     # rns_matmul: broadcast (staged linears) and canonical (staged chain)
     mm_cases = []
@@ -415,7 +519,9 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
             ref.rns_matmul_ref(a, w, mods, signed_a=signed),
             _bf16_matmul((m, k), k, n, g, dev), len(pool),
             a.numel() + C * k * n + 4 * C * m * n, 2 * C * m * k * n,
-            leaf=label, M=m, K=k, N=n, C=C,
+            again=(lambda a=a, w=w_res, mods=mods, signed=signed:
+                   rns_matmul(a, w, mods, signed_a=signed)) if m > 16
+            else None, leaf=label, M=m, K=k, N=n, C=C,
             form="broadcast" if signed else "canonical")
 
     # rns_reverse: the (C, M·N) residues of every staged linear's output
@@ -725,9 +831,39 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
                     torch.stack(parts), torch.stack(plain()),
                     lambda i, run=run, pool=pool: run(pool[i]), plain,
                     (lib, len(pool)), len(pool), nbytes, 2 * C * m * k * n,
+                    again=(lambda run=run, wt=wt: torch.stack(
+                        run(wt.residues))) if m > 16 else None,
                     leaf=name, M=m, K=k, N=n, C=C, slices=nsl, form=form,
                     composed_equal=same)
     return rows, bool(ok)
+
+
+def prefill_per_layer(rows, rows2, layer_shapes, m):
+    """Each served path's tile-kernel launches of one layer at prefill
+    (M = m), summed at the heights the launcher picks (``ms``) and at each
+    height pinned: fused (the 7 quantize launches), resident (qkv, gate,
+    up, gated down residue-in + the quantize wo) and staged (the 7
+    broadcast rns_matmul)."""
+    def fused(k, n):
+        return next(r for r in rows if r["kernel"] == "rns_fused_matmul"
+                    and r["weights"] == "encoded" and r["M"] == m
+                    and (r["K"], r["N"]) == (k, n))
+
+    def row2(kernel, label):
+        return next(r for r in rows2 if r["kernel"] == kernel
+                    and r["label"].startswith(label + " ") and r["M"] == m)
+
+    _, wo_k, wo_n, _ = next(s for s in layer_shapes if s[0] == "wo")
+    paths = {"fused": [fused(k, n) for _, k, n, _ in layer_shapes],
+             "resident": [row2("rns_fused_matmul:residue_in", lab)
+                          for lab in ("qkv", "gate", "up", "down")]
+             + [fused(wo_k, wo_n)],
+             "staged": [row2("rns_matmul", name)
+                        for name, _, _, _ in layer_shapes]}
+    return {path: {k: sum(r[k] for r in rs)
+                   for k in ("ms", "ms_tm32", "ms_tm16", "bound_ms",
+                             "library_ms")}
+            for path, rs in paths.items()}
 
 
 SLICE3 = ("flash_attention", "fold", "rns_fused_crt_partial")
@@ -745,9 +881,13 @@ def _counters():
 
 
 def reset_launches():
+    from repro_torch.kernels.rns_fused import tile_launches
+
     for f in _counters():
         f.launches = 0
     _counters()[0].residue_in_launches = 0
+    for h in tile_launches:
+        tile_launches[h] = 0
 
 
 def read_launches():
@@ -780,6 +920,7 @@ def expected_launches(cfg, steps):
 def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     import numpy as np
     import torch
+    from repro_torch.kernels.rns_fused import TM, TM_MMA, tile_launches
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import Engine
 
@@ -800,11 +941,21 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     out = eng.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     launches = read_launches()
+    heights = dict(tile_launches)
     want = expected_launches(cfg, new_tokens)
     if launches != want:
         raise AssertionError(f"{cfg.name} launches {launches}, expected "
                              f"{want} over {new_tokens} prefill/decode "
                              "steps")
+    # the prefill (M = lanes x bucket) on the 32-row tile but for its
+    # narrow launches, every decode step on the 16-row one
+    tiles = (want["rns_fused_matmul"] + want["rns_matmul"]) // new_tokens
+    if sum(heights.values()) != tiles * new_tokens or \
+            not 0 < heights[TM_MMA] <= tiles:
+        raise AssertionError(f"{cfg.name} tile launches by height "
+                             f"{heights}: expected the {TM_MMA}-row ones "
+                             f"among the {tiles} prefill launches, the "
+                             f"rest at {TM}")
     for p, o in zip(prompts, out):
         gen = o[len(p):]
         if o[:len(p)] != p or len(gen) != new_tokens or \
@@ -818,18 +969,26 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
             raise AssertionError(f"prompt {i} alone differs from its "
                                  f"batched tokens")
 
-    # timing: prefill = generate(1 token); decode = the rest, per step
-    def wall(n):
-        ts, res = [], None
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = eng.generate(prompts, max_new_tokens=n)
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t)
-        return sorted(ts)[1], res
+    # timing: prefill = generate(1 token), at the launcher's tile heights
+    # and with every tile launch pinned to 16 rows, in turns; decode = the
+    # rest, per step
+    def once(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.generate(prompts, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, res
 
-    pre_s, _ = wall(1)
+    def wall(n):
+        ts = [once(n) for _ in range(3)]
+        return sorted(t for t, _ in ts)[1], ts[-1][1]
+
+    pre = {TM_MMA: [], TM: []}
+    for r in range(4):
+        for pin in ((None, TM) if r % 2 == 0 else (TM, None)):
+            pre[pin or TM_MMA].append(
+                _pinned(lambda: once(1)[0], pin) if pin else once(1)[0])
+    pre_s, pre16_s = (statistics.median(pre[h]) for h in (TM_MMA, TM))
     full_s, again = wall(new_tokens)
     if again != out:
         raise AssertionError("greedy generate is not deterministic")
@@ -868,7 +1027,9 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
                 for k, v in want.items()}
     return {"arch": cfg.name, "layers": cfg.num_layers,
             "launches": launches, "launches_per_step": per_step,
+            "tile_launches_by_rows": heights,
             "init_s": init_s, "prefill_ms": 1e3 * pre_s,
+            "prefill_ms_tm16": 1e3 * pre16_s,
             "decode_ms_per_token": dec_ms,
             "decode_tokens_per_s": n_prompts * 1e3 / dec_ms,
             "prompt_lens": lens, "lanes": lanes, "new_tokens": new_tokens,
@@ -1034,6 +1195,14 @@ def main() -> int:
         raise AssertionError("a kernel disagrees with its plain version")
 
     smi = dev_info["smi"]
+    prefill = prefill_per_layer(rows, rows2, layer_shapes, lanes * bucket)
+    for path, agg in prefill.items():
+        print(f"prefill: {path} one layer's tile launches at M="
+              f"{lanes * bucket}: as launched {1e3 * agg['ms']:.1f} us, all "
+              f"32-row {1e3 * agg['ms_tm32']:.1f} us, all 16-row "
+              f"{1e3 * agg['ms_tm16']:.1f} us, bf16 torch.matmul "
+              f"{1e3 * agg['library_ms']:.1f} us, bound "
+              f"{1e3 * agg['bound_ms']:.1f} us | on {smi}")
     print("phase serve:")
     serves = {}
     for arch in (ARCH, RESIDENT, STAGED):
@@ -1043,10 +1212,13 @@ def main() -> int:
               f"{len(serve['prompt_lens'])} prompts (lens "
               f"{serve['prompt_lens']}, lanes {lanes}), "
               f"{serve['new_tokens']} greedy tokens | prefill "
-              f"{serve['prefill_ms']:.1f} ms | decode "
+              f"{serve['prefill_ms']:.1f} ms (all tile launches on 16 rows: "
+              f"{serve['prefill_ms_tm16']:.1f} ms) | decode "
               f"{serve['decode_ms_per_token']:.2f} ms/token | "
               f"{serve['decode_tokens_per_s']:.1f} tokens/s | launches "
-              f"{serve['launches']} | batch-invariant | on {smi}")
+              f"{serve['launches']} (tile by rows "
+              f"{serve['tile_launches_by_rows']}) | batch-invariant | on "
+              f"{smi}")
         tr = serve["trace"]
         print(f"trace: {arch} generate(4 tokens) {tr['wall_ms']:.1f} ms "
               f"wall, device busy {tr['device_busy_ms']:.2f} ms "
@@ -1146,6 +1318,7 @@ def main() -> int:
         with open(args.record, "w") as fh:
             json.dump({"device": dev_info, "rows": rows + rows2 + rows3,
                        "serve": serves, "chain": chain, "entries": entries,
+                       "prefill_per_layer": prefill,
                        "check_logit_err": checks, "kernels": kernels},
                       fh, indent=1)
     print(smi)

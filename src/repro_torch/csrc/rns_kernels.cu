@@ -101,11 +101,26 @@ __global__ void rns_fold_kernel(const int* __restrict__ x,
 extern "C" {
 
 // One launch of the tile kernel.  amode is an rns::AMode, a and plan are
-// the operand and plan structs.  Returns 0, a cudaError_t, or -1 for an
-// unsupported channel count or mode.
+// the operand and plan structs, a->tm the tile height (rns::TM or
+// rns::TM_MMA).  Returns 0, a cudaError_t, or -1 for an unsupported
+// channel count, mode or height.
 int rns_tile_launch(int amode, const TileArgs* a, const FusedPlan* plan,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->tm == rns::TM_MMA) {
+    switch (amode) {
+      case rns::A_F32:
+        return rns_launch_tile_mma_f32(*a, *plan, s);
+      case rns::A_BF16:
+        return rns_launch_tile_mma_bf16(*a, *plan, s);
+      case rns::A_SHARED:
+      case rns::A_PLANES:
+        return rns_launch_tile_mma_int8(amode, *a, *plan, s);
+      default:
+        return -1;
+    }
+  }
+  if (a->tm != rns::TM) return -1;
   switch (amode) {
     case rns::A_F32:
       return rns_launch_tile_f32(*a, *plan, s);

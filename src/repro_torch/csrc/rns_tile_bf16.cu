@@ -6,5 +6,5 @@
 
 int rns_launch_tile_bf16(const TileArgs& a, const FusedPlan& plan,
                          cudaStream_t stream) {
-  return rns::launch_tile<rns::A_BF16>(a, plan, stream);
+  return rns::launch_tile<rns::TM, rns::A_BF16>(a, plan, stream);
 }

@@ -6,5 +6,5 @@
 
 int rns_launch_tile_f32(const TileArgs& a, const FusedPlan& plan,
                         cudaStream_t stream) {
-  return rns::launch_tile<rns::A_F32>(a, plan, stream);
+  return rns::launch_tile<rns::TM, rns::A_F32>(a, plan, stream);
 }

@@ -9,7 +9,7 @@
 int rns_launch_tile_int8(int amode, const TileArgs& a, const FusedPlan& plan,
                          cudaStream_t stream) {
   if (amode == rns::A_SHARED) {
-    return rns::launch_tile<rns::A_SHARED>(a, plan, stream);
+    return rns::launch_tile<rns::TM, rns::A_SHARED>(a, plan, stream);
   }
-  return rns::launch_tile<rns::A_PLANES>(a, plan, stream);
+  return rns::launch_tile<rns::TM, rns::A_PLANES>(a, plan, stream);
 }

@@ -37,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAXC, MAXR, MAXL = 12, 8, 6
+MAXC, MAXR, MAXL, MAXSUB = 12, 8, 6, 4
 
 
 class Plan(ctypes.Structure):
@@ -64,7 +64,8 @@ class TileArgs(ctypes.Structure):
                 ("M", ctypes.c_int), ("K", ctypes.c_int),
                 ("N", ctypes.c_int), ("splits", ctypes.c_int),
                 ("k_per_split", ctypes.c_int), ("vec", ctypes.c_int),
-                ("encoded", ctypes.c_int), ("emit", ctypes.c_int)]
+                ("encoded", ctypes.c_int), ("emit", ctypes.c_int),
+                ("tm", ctypes.c_int), ("avec", ctypes.c_int)]
 
 
 class FlashArgs(ctypes.Structure):
@@ -88,9 +89,10 @@ def plan_struct(plan, conv) -> Plan:
     C = len(ref.moduli)
     R = plan.num_rungs if plan is not None else 0
     L = conv.nlimbs if conv is not None else 0
-    if not 1 <= C <= MAXC or R > MAXR or L > MAXL:
-        raise ValueError(f"plan (C={C}, R={R}, L={L}) is outside the "
-                         "kernels' tables")
+    n_sub = plan.n_sub if plan is not None else 0
+    if not 1 <= C <= MAXC or R > MAXR or L > MAXL or n_sub > MAXSUB:
+        raise ValueError(f"plan (C={C}, R={R}, L={L}, n_sub={n_sub}) is "
+                         "outside the kernels' tables")
     st = Plan()
     st.C, st.R, st.L = C, R, L
     if plan is not None:

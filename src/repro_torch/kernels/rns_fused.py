@@ -23,6 +23,7 @@ of running the MRC reverse, which needs every channel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -40,8 +41,15 @@ from .ref import rns_fused_crt_partial_ref, rns_fused_matmul_ref
 
 __all__ = ["rns_fused_matmul", "rns_fused_crt_partial"]
 
-_TM, _TN, _TK = 16, 64, 32          # tile shape compiled into the kernel
+_TN, _TK = 64, 32                   # tile width and K step of the kernel
+# The two tile heights (rns::TM, rns::TM_MMA): the 16-row __dp4a tile and
+# the 32-row tensor-core tile, compiled for bases of up to _MMA_MAXC
+# channels.
+TM, TM_MMA, _MMA_MAXC = 16, 32, 7
 _MIN_KTILES_PER_SPLIT = 1
+_pinned_rows: int | None = None
+# launches of the tile kernel by tile height, over every entry
+tile_launches = {TM: 0, TM_MMA: 0}
 # rns::AMode and rns::Emit of csrc/rns_common.cuh
 A_F32, A_BF16, A_SHARED, A_PLANES = 0, 1, 2, 3
 EMIT_FLOAT, EMIT_RESIDUES, EMIT_CANONICAL, EMIT_CRT_LIMBS = 0, 1, 2, 3
@@ -61,15 +69,62 @@ def _kernel_plan(basis, K: int, signed: bool):
     return plan, conv, _build.plan_struct(plan, conv)
 
 
-def _split_k(M: int, K: int, N: int, sms: int) -> tuple[int, int]:
-    """(splits, k_per_split) for a launch: split the K loop across blocks
-    only when the output tiles alone would leave SMs idle (decode shapes),
-    aiming at two blocks per SM and at least two K steps per block."""
-    tiles = -(-N // _TN) * -(-M // _TM)
+def tile_rows(M: int, N: int, C: int, sms: int, vec: bool = True) -> int:
+    """Tile height of an (M, N) launch in a C-channel basis on ``sms`` SMs:
+    the 32-row tensor-core tile for M > 16 (prefill) when it is compiled
+    for C, the operands are ``vec`` (N and K multiples of 4, aligned rows:
+    the tile reads four values a load) and its grid has a tile for every
+    SM; the 16-row ``__dp4a`` tile otherwise (decode, bases of 8+
+    channels, odd shapes, and narrow launches, whose few 32-row tiles would
+    split K and leave each tile's whole epilogue to one block)."""
+    if _pinned_rows is not None:
+        return _pinned_rows
+    if M > TM and C <= _MMA_MAXC and vec and _tiles(M, N, TM_MMA) >= sms:
+        return TM_MMA
+    return TM
+
+
+@contextlib.contextmanager
+def _pin_tile_rows(rows: int):
+    """Run every tile launch inside the block at height ``rows``, to hold
+    the two heights against each other (the card's tests and
+    ``chip_smoke.py``; no served path pins)."""
+    global _pinned_rows
+    if rows not in (TM, TM_MMA):
+        raise ValueError(f"tile height {rows} is not compiled")
+    prev, _pinned_rows = _pinned_rows, rows
+    try:
+        yield
+    finally:
+        _pinned_rows = prev
+
+
+def _tiles(M: int, N: int, tm: int) -> int:
+    return -(-N // _TN) * -(-M // tm)
+
+
+def _workspace_ints(M: int, N: int, C: int, tm: int) -> int:
+    """int32 words of a split launch's workspace: the C·M·N partial sums,
+    then one arrival counter per output tile."""
+    return C * M * N + _tiles(M, N, tm)
+
+
+def _split_k(M: int, K: int, N: int, sms: int,
+             tm: int = TM) -> tuple[int, int]:
+    """(splits, k_per_split) for a launch with ``tm``-row tiles: split the
+    K loop across blocks only when the output tiles alone would leave SMs
+    idle, with at least one K step per block.  16-row blocks (decode) aim
+    at two blocks per SM.  Two 32-row blocks fill an SM's registers, so
+    their splits fill at most that one wave: a second wave, or the
+    atomics of a split that gains no SM, costs more than the idle SMs."""
+    tiles = _tiles(M, N, tm)
     ktiles = -(-K // _TK)
     splits = 1
-    if tiles < sms:
+    if tm == TM and tiles < sms:
         splits = max(1, min(-(-2 * sms // tiles),
+                            ktiles // _MIN_KTILES_PER_SPLIT))
+    elif tm == TM_MMA:
+        splits = max(1, min(2 * sms // tiles,
                             ktiles // _MIN_KTILES_PER_SPLIT))
     k_per_split = -(-ktiles // splits) * _TK
     return -(-K // k_per_split), k_per_split
@@ -78,15 +133,25 @@ def _split_k(M: int, K: int, N: int, sms: int) -> tuple[int, int]:
 def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
                 M: int, K: int, N: int, C: int, srow=None, scol=None,
                 gate=None, creq=None, name: str) -> None:
-    """One launch of the tile kernel on contiguous CUDA tensors; the split-K
-    workspace is allocated here."""
-    splits, kps = _split_k(M, K, N, _build.num_sms(x.device.index or 0))
+    """One launch of the tile kernel on contiguous CUDA tensors, at the
+    height `tile_rows` picks; the split-K workspace is allocated here."""
+    vec = N % 4 == 0 and w.data_ptr() % 4 == 0
+    # A (and the gate) four k values at a time
+    avec = K % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                              for t in (x, gate) if t is not None)
+    sms = _build.num_sms(x.device.index or 0)
+    tm = tile_rows(M, N, C, sms, vec and avec)
+    if tm == TM_MMA and (C > _MMA_MAXC or not (vec and avec)):
+        raise ValueError(f"{name}: the {TM_MMA}-row tile is compiled for "
+                         f"C <= {_MMA_MAXC} and N, K multiples of 4 with "
+                         f"aligned rows, not C={C}, N={N}, K={K}")
+    splits, kps = _split_k(M, K, N, sms, tm)
     ws = None
     args = _build.TileArgs()
     if splits > 1:
         n_acc = C * M * N
-        ws = torch.zeros(n_acc + -(-N // _TN) * -(-M // _TM),
-                         dtype=torch.int32, device=x.device)
+        ws = torch.zeros(_workspace_ints(M, N, C, tm), dtype=torch.int32,
+                         device=x.device)
         args.ws, args.counters = ws.data_ptr(), ws[n_acc:].data_ptr()
     for field, t in (("x", x), ("w", w), ("out", out), ("srow", srow),
                      ("scol", scol), ("gate", gate), ("creq", creq)):
@@ -94,12 +159,13 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
             setattr(args, field, t.data_ptr())
     args.M, args.K, args.N, args.splits, args.k_per_split = M, K, N, \
         splits, kps
-    args.vec = int(N % 4 == 0 and w.data_ptr() % 4 == 0)
-    args.encoded, args.emit = int(w.ndim == 3), emit
+    args.vec, args.avec = int(vec), int(avec)
+    args.encoded, args.emit, args.tm = int(w.ndim == 3), emit, tm
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.library().rns_tile_launch(amode, ctypes.byref(args),
                                           ctypes.byref(st), stream)
     _build.check(rc, name)
+    tile_launches[tm] += 1
 
 
 def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,

@@ -68,7 +68,7 @@ def rns_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
     out = torch.empty((C, M, N), dtype=torch.int32, device=a_res.device)
     if M == 0 or N == 0:
         return out
-    launch_tile(A_SHARED if Ca == 1 else A_PLANES, EMIT_CANONICAL,
+    launch_tile(A_SHARED if Ca < C else A_PLANES, EMIT_CANONICAL,
                 _plan_struct(plan), x=a_res.contiguous(),
                 w=b_res.contiguous(), out=out, M=M, K=K, N=N, C=C,
                 name="rns_matmul")

@@ -4,6 +4,8 @@ Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports torch and the port only, so it also runs where JAX
 is not installed: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -15,6 +17,7 @@ from repro_torch.dist.rns_shard import channel_partials, channel_sliced_matmul
 from repro_torch.kernels import (flash_attention, fold, ref, rns_forward,
                                  rns_fused_crt_partial, rns_fused_matmul,
                                  rns_matmul, rns_modmul, rns_reverse)
+from repro_torch.kernels import rns_fused as tile
 
 pytestmark = pytest.mark.cuda
 
@@ -26,9 +29,25 @@ def dev():
     return torch.device("cuda")
 
 
+# Shapes run on the 32-row tensor-core tile, pinned (their grids have
+# fewer tiles than an H100 has SMs, so the launcher would pick 16 rows):
+# ragged M (17, 65, 100), K not a multiple of 32 (200), N not a multiple
+# of 64 (200), and a split-K launch (M 64, N 192).  The tile takes only N
+# and K multiples of 4; the byte-wise shapes (N 70) run on the 16-row tile.
+TILE_MMA = [(17, 200, 200), (64, 1536, 192), (65, 200, 192),
+            (100, 1536, 200)]
+
+
+def _rows(M, K, N):
+    """Pins the TILE_MMA shapes to the 32-row tile."""
+    if (M, K, N) in TILE_MMA:
+        return tile._pin_tile_rows(tile.TM_MMA)
+    return contextlib.nullcontext()
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 1536, 576),
                                    (1, 576, 192), (13, 200, 70),
-                                   (3, 64, 33)])
+                                   (3, 64, 33), (512, 64, 192)] + TILE_MMA)
 @pytest.mark.parametrize("encoded", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_matches_plain(dev, M, K, N, encoded, dtype):
@@ -44,7 +63,8 @@ def test_fused_matches_plain(dev, M, K, N, encoded, dtype):
         arg, scol = quantize_int8(w, dim=0)
         basis = basis_for_int8_matmul(K)
     before = rns_fused_matmul.launches
-    got = rns_fused_matmul(x, arg, basis, scale_row=sx, scale_col=scol)
+    with _rows(M, K, N):
+        got = rns_fused_matmul(x, arg, basis, scale_row=sx, scale_col=scol)
     want = ref.rns_fused_matmul_ref(x, arg, basis, scale_row=sx,
                                     scale_col=scol)
     torch.cuda.synchronize()
@@ -77,7 +97,7 @@ def _chain_operands(dev, M, K, N, seed, basis=None):
 
 @pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 576, 1536),
                                    (8, 1536, 576), (512, 1536, 576),
-                                   (8, 576, 960), (13, 200, 70)])
+                                   (8, 576, 960), (13, 200, 70)] + TILE_MMA)
 @pytest.mark.parametrize("form", ["float", "residues", "gated"])
 def test_residue_in_matches_plain(dev, M, K, N, form):
     xa, wt, g = _chain_operands(dev, M, K, N, M + K + N)
@@ -90,8 +110,9 @@ def test_residue_in_matches_plain(dev, M, K, N, form):
         srow = xa.scale * 0.5
     emit = "residues" if form == "residues" else "float"
     before = (rns_fused_matmul.launches, rns_fused_matmul.residue_in_launches)
-    got = rns_fused_matmul(xa, wt, scale_row=srow, scale_col=wt.scale,
-                           gate=gate, emit=emit)
+    with _rows(M, K, N):
+        got = rns_fused_matmul(xa, wt, scale_row=srow, scale_col=wt.scale,
+                               gate=gate, emit=emit)
     creq = requant_const(wt.scale, K) if emit == "residues" else None
     want = ref.rns_fused_matmul_ref(xa.residues, wt.residues, wt.basis,
                                     scale_row=srow, scale_col=wt.scale,
@@ -108,7 +129,7 @@ def test_residue_in_matches_plain(dev, M, K, N, form):
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 576, 576), (512, 576, 192),
-                                   (8, 1536, 576), (13, 200, 70)])
+                                   (8, 1536, 576), (13, 200, 70)] + TILE_MMA)
 def test_matmul_broadcast_matches_plain(dev, M, K, N):
     g = torch.Generator(device=dev).manual_seed(M * K + N)
     mods = basis_for_int8_matmul(K).moduli
@@ -118,19 +139,61 @@ def test_matmul_broadcast_matches_plain(dev, M, K, N):
                       dtype=torch.int8)
     w_res = rns_forward(w, mods, dtype=torch.int8)
     before = rns_matmul.launches
-    got = rns_matmul(x, w_res, mods, signed_a=True)
+    with _rows(M, K, N):
+        got = rns_matmul(x, w_res, mods, signed_a=True)
     torch.cuda.synchronize()
     assert rns_matmul.launches == before + 1
     assert torch.equal(got, ref.rns_matmul_ref(x, w_res, mods, signed_a=True))
 
 
-@pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 1536, 576),
-                                   (13, 200, 70)])
-def test_matmul_canonical_matches_plain(dev, M, K, N):
+@pytest.mark.parametrize("M,K,N,C", [
+    (8, 576, 1536, None), (512, 1536, 576, None), (13, 200, 70, None)]
+    + [(*shape, None) for shape in TILE_MMA]
+    + [(*shape, c) for shape in TILE_MMA[:2] for c in range(1, 7)])
+def test_matmul_canonical_matches_plain(dev, M, K, N, C):
+    """The canonical emit on the chain basis, or on its first C channels
+    (the fold needs only each channel's modulus)."""
     xa, wt, _ = _chain_operands(dev, M, K, N, 3 * M + K)
-    got = rns_matmul(xa.residues, wt.residues, wt.moduli)
-    assert torch.equal(got, ref.rns_matmul_ref(xa.residues, wt.residues,
-                                               wt.moduli))
+    sl = slice(None) if C is None else slice(0, C)
+    a, w, mods = xa.residues[sl], wt.residues[sl], wt.moduli[sl]
+    with _rows(M, K, N):
+        got = rns_matmul(a, w, mods)
+    assert torch.equal(got, ref.rns_matmul_ref(a, w, mods))
+
+
+@pytest.mark.parametrize("form", ["quantize", "float", "residues", "gated",
+                                  "broadcast", "canonical", "crt"])
+def test_tile_heights_agree(dev, form):
+    """At M = 512 the 32-row tensor-core tile and the 16-row __dp4a tile
+    (pinned) give the same bits, each launch at the height asked for."""
+    M, K, N = 512, 1536, 576
+    xa, wt, g = _chain_operands(dev, M, K, N, 21)
+    gate = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                         dtype=torch.int8)
+    xf = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    w8 = trt.encode(torch.randn(K, N, generator=g, device=dev) / K ** 0.5)
+    kw = dict(scale_row=xa.scale, scale_col=wt.scale)
+    run = {
+        "quantize": lambda: rns_fused_matmul(xf, w8, scale_row=quant_scale(xf),
+                                             scale_col=w8.scale),
+        "float": lambda: rns_fused_matmul(xa, wt, **kw),
+        "residues": lambda: rns_fused_matmul(xa, wt, emit="residues",
+                                             **kw).residues,
+        "gated": lambda: rns_fused_matmul(xa, wt, gate=gate, **kw),
+        "broadcast": lambda: rns_matmul(gate[None], w8.residues, w8.moduli,
+                                        signed_a=True),
+        "canonical": lambda: rns_matmul(xa.residues, wt.residues, wt.moduli),
+        "crt": lambda: torch.stack(channel_partials(
+            xa, wt, 1, scale_row=xa.scale, gate=gate)),
+    }[form]
+    before = dict(tile.tile_launches)
+    got64 = run()
+    with tile._pin_tile_rows(tile.TM):
+        got16 = run()
+    torch.cuda.synchronize()
+    assert tile.tile_launches == {tile.TM: before[tile.TM] + 1,
+                                  tile.TM_MMA: before[tile.TM_MMA] + 1}
+    assert torch.equal(got64, got16)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
@@ -216,10 +279,11 @@ def test_fold_matches_plain(dev, mods, bound):
 
 @pytest.mark.parametrize("form", ["quantize", "residue_in", "gated"])
 @pytest.mark.parametrize("M,K,N", [(8, 576, 960), (512, 1536, 576),
-                                   (13, 64, 70)])
+                                   (13, 64, 70), (512, 64, 192)] + TILE_MMA)
 def test_crt_partial_matches_plain_and_composes(dev, form, M, K, N):
     """Every slice launch bit-equal to its plain version; the summed planes
-    through crt_finish bit-equal to the fused kernel, for n = 1 and n = C."""
+    through crt_finish bit-equal to the fused kernel, for every n that
+    divides C (slices of 1 to 7 channels)."""
     if form == "quantize":
         basis = basis_for_int8_matmul(K)
         g = torch.Generator(device=dev).manual_seed(M + K)
@@ -241,16 +305,19 @@ def test_crt_partial_matches_plain_and_composes(dev, form, M, K, N):
         full = rns_fused_matmul(xin, wt, scale_row=srow, scale_col=wt.scale,
                                 gate=gate)
     C = len(basis.moduli)
-    for n in (1, C):
+    for n in [n for n in range(1, C + 1) if C % n == 0]:
         kw = dict(scale_row=srow, gate=gate)
         before = rns_fused_crt_partial.launches
-        parts = channel_partials(xin, wt, n, **kw)
+        with _rows(M, K, N):
+            parts = channel_partials(xin, wt, n, **kw)
         torch.cuda.synchronize()
         assert rns_fused_crt_partial.launches == before + n
         for part, want in zip(parts, channel_partials(xin, wt, n, plain=True,
                                                       **kw)):
             assert torch.equal(part, want)
-        got = channel_sliced_matmul(xin, wt, n, scale_col=wt.scale, **kw)
+        with _rows(M, K, N):
+            got = channel_sliced_matmul(xin, wt, n, scale_col=wt.scale,
+                                        **kw)
         assert torch.equal(got, full)
 
 FLASH_CASES = [

@@ -1,0 +1,187 @@
+"""How the tile kernel's launcher picks its tile height, splits K and
+sizes the split-K workspace, on the CPU.
+
+`kernels.rns_fused.launch_tile` is the one launcher behind
+`rns_fused_matmul`, `rns_fused_crt_partial` and `rns_matmul`.  Launches
+of more than 16 rows in a basis of at most 7 channels (prefill) take the
+32-row tensor-core tile when it has a tile for every SM, the rest
+(decode, wide bases, narrow launches) the 16-row one.
+The launcher is driven here against a stand-in for the kernel library
+that records the argument struct it is handed; the kernels themselves
+are held against their plain versions on the card
+(`tests/test_torch_cuda.py`).
+"""
+import ctypes
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.core.channel_plan import ChannelPlan
+from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+from repro_torch.kernels import _build
+from repro_torch.kernels import rns_fused as tile
+
+SMS = 132                      # an H100's SMs
+
+
+@pytest.mark.parametrize("M,N,C,rows", [
+    (1, 576, 5, 16), (8, 576, 5, 16), (8, 1536, 7, 16),   # decode lanes
+    (16, 1536, 7, 16),
+    (512, 576, 5, 32), (512, 960, 5, 32), (512, 1536, 7, 32),  # prefill
+    (512, 576, 1, 32), (512, 576, 2, 32),              # CRT slices
+    (512, 192, 5, 16), (64, 1536, 5, 16), (17, 200, 5, 16),  # < 132 tiles
+    (512, 576, 8, 16), (512, 1536, 11, 16), (8, 576, 9, 16)])  # 8+ channels
+def test_tile_rows(M, N, C, rows):
+    assert tile.tile_rows(M, N, C, SMS) == rows
+    # odd shapes (N or K not a multiple of 4, unaligned rows) stay on 16
+    assert tile.tile_rows(M, N, C, SMS, vec=False) == tile.TM
+
+
+def test_tile_rows_at_serving_shapes():
+    """One smollm layer's launches: at decode (8 lanes) all on the 16-row
+    tile; at prefill (8 lanes x 64) the 32-row tile except the two
+    192-wide projections; 8 channels (a 65536-deep chain) never take it."""
+    lanes, prefill = 8, 8 * 64
+    layer = [(576, 576), (576, 192), (576, 192), (576, 576), (576, 1536),
+             (576, 1536), (1536, 576), (576, 960)]
+    for basis_of in (basis_for_int8_matmul, basis_for_chain):
+        for K, N in layer:
+            C = len(basis_of(K).moduli)
+            assert tile.tile_rows(lanes, N, C, SMS) == tile.TM
+            assert tile.tile_rows(prefill, N, C, SMS) == (
+                tile.TM if N == 192 else tile.TM_MMA)
+    assert tile.tile_rows(prefill, 1536, len(basis_for_chain(65536).moduli),
+                          SMS) == tile.TM
+
+
+def test_pin_tile_rows():
+    with tile._pin_tile_rows(tile.TM):
+        assert tile.tile_rows(512, 576, 5, SMS) == tile.TM
+        with tile._pin_tile_rows(tile.TM_MMA):
+            assert tile.tile_rows(8, 192, 5, SMS) == tile.TM_MMA
+        assert tile.tile_rows(512, 576, 5, SMS) == tile.TM
+    assert tile.tile_rows(512, 576, 5, SMS) == tile.TM_MMA
+    with pytest.raises(ValueError, match="not compiled"):
+        with tile._pin_tile_rows(64):
+            pass
+
+
+@pytest.mark.parametrize("M,K,N,tm,want", [
+    # decode: 24 column tiles, K split 9 ways of two K steps
+    (8, 576, 1536, 16, (9, 64)),
+    (8, 1536, 576, 16, (24, 64)),
+    # prefill on the 16-row tile: enough tiles, no split
+    (512, 576, 576, 16, (1, 576)),
+    (512, 1536, 576, 16, (1, 1536)),
+    # prefill on the 32-row tile: at most one wave of two blocks per SM,
+    # so 144 and 384 tiles are not split, 48 tiles 5 ways
+    (512, 576, 576, 32, (1, 576)),
+    (512, 1536, 576, 32, (1, 1536)),
+    (512, 576, 1536, 32, (1, 576)),
+    (512, 576, 192, 32, (5, 128)),
+    (512, 1536, 192, 32, (5, 320)),
+    # small and ragged
+    (64, 1536, 192, 32, (24, 64)),
+    (100, 200, 70, 32, (7, 32)),
+    (17, 200, 70, 32, (7, 32)),
+])
+def test_split_k(M, K, N, tm, want):
+    splits, kps = tile._split_k(M, K, N, SMS, tm)
+    assert (splits, kps) == want
+    assert kps % 32 == 0 and (splits - 1) * kps < K <= splits * kps
+    if tm == tile.TM_MMA:
+        assert splits * tile._tiles(M, N, tm) <= max(2 * SMS,
+                                                     tile._tiles(M, N, tm))
+
+
+@pytest.mark.parametrize("M,N,C,tm,want", [
+    (8, 1536, 5, 16, 5 * 8 * 1536 + 24),
+    (512, 576, 5, 32, 5 * 512 * 576 + 9 * 16),
+    (512, 576, 7, 16, 7 * 512 * 576 + 9 * 32),
+    (100, 70, 6, 32, 6 * 100 * 70 + 2 * 4),
+])
+def test_workspace_ints(M, N, C, tm, want):
+    assert tile._workspace_ints(M, N, C, tm) == want
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each TileArgs."""
+
+    def __init__(self):
+        self.args = []
+
+    def rns_tile_launch(self, amode, args, plan, stream):
+        a = ctypes.cast(args, ctypes.POINTER(_build.TileArgs)).contents
+        self.args.append({f: getattr(a, f) for f, _ in a._fields_})
+        return 0
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "num_sms", lambda index: SMS)
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    return lib
+
+
+@pytest.mark.parametrize("M,K,N,C", [(8, 576, 1536, 5), (512, 576, 576, 5),
+                                     (512, 1536, 576, 7), (512, 576, 192, 8),
+                                     (64, 1536, 192, 1)])
+@pytest.mark.parametrize("pin", [None, tile.TM])
+def test_launch_tile_args(fake_library, M, K, N, C, pin):
+    """The struct handed to the library carries the picked height and the
+    split of that height; the launch is counted under it."""
+    x = torch.zeros(C, M, K, dtype=torch.int8)
+    w = torch.zeros(C, K, N, dtype=torch.int8)
+    out = torch.zeros(C, M, N, dtype=torch.int32)
+    before = dict(tile.tile_launches)
+    kw = dict(x=x, w=w, out=out, M=M, K=K, N=N, C=C, name="test")
+    if pin is None:
+        tile.launch_tile(tile.A_PLANES, tile.EMIT_CANONICAL, _build.Plan(),
+                         **kw)
+    else:
+        with tile._pin_tile_rows(pin):
+            tile.launch_tile(tile.A_PLANES, tile.EMIT_CANONICAL,
+                             _build.Plan(), **kw)
+    tm = pin or tile.tile_rows(M, N, C, SMS)
+    splits, kps = tile._split_k(M, K, N, SMS, tm)
+    (args,) = fake_library.args
+    assert (args["tm"], args["splits"], args["k_per_split"]) == \
+        (tm, splits, kps)
+    assert (args["M"], args["K"], args["N"], args["encoded"]) == \
+        (M, K, N, 1)
+    assert (args["ws"] is not None) == (splits > 1)
+    assert tile.tile_launches[tm] == before[tm] + 1
+    assert sum(tile.tile_launches.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("C,K,N", [(8, 32, 64), (5, 32, 70), (5, 30, 64)])
+def test_launch_tile_refuses_what_32_rows_do_not_take(fake_library, C, K,
+                                                      N):
+    """Pinned to 32 rows, a basis of 8+ channels or an odd shape (N or K
+    not a multiple of 4) raises before any launch."""
+    x = torch.zeros(C, 64, K, dtype=torch.int8)
+    w = torch.zeros(C, K, N, dtype=torch.int8)
+    with tile._pin_tile_rows(tile.TM_MMA):
+        with pytest.raises(ValueError, match="C <= 7 and N, K multiples"):
+            tile.launch_tile(tile.A_PLANES, tile.EMIT_CANONICAL,
+                             _build.Plan(), x=x, w=w, out=w, M=64, K=K,
+                             N=N, C=C, name="test")
+    assert fake_library.args == []
+
+
+def test_plan_struct_bounds_the_subtracts():
+    """The kernels' fold unrolls at most MAXSUB conditional subtracts; a
+    plan needing more is refused before any launch."""
+    plan = ChannelPlan.for_matmul(basis_for_chain(1536).moduli, 1536,
+                                  signed=False)
+    assert plan.n_sub <= _build.MAXSUB
+    _build.plan_struct(plan, None)
+    with pytest.raises(ValueError, match="n_sub=5"):
+        _build.plan_struct(dataclasses.replace(plan, n_sub=5), None)
