@@ -15,7 +15,9 @@ Phases, each of which must pass:
      kernel runs at both heights, the 32-row tensor-core tile it picks
      and pinned to the 16-row `__dp4a` tile, each held bit for bit and
      the two timed in turns; `prefill:` lines sum each served path's
-     launches of one layer at M = 512 for both;
+     launches of one layer at M = 512 for both, `decode:` lines each
+     path's launches of one layer at M = 8 (the 16-row tile, K split over
+     thread-block clusters);
   3. serve   — three full 30-layer models (published widths, seeded random
      weights) served through `serve.Engine`: `rns-smollm-135m-fused`
      (encoded weights, one fused launch per linear),
@@ -39,10 +41,10 @@ Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0),
 `fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
 for n = 1 and n = C) against their plain versions.  Lines: per-shape
-kernel rows, a `kernels:` summary, the `prefill:` sums, one `serve:`
-line per model, a `chain:` line, an `entry:` line, one `check:` line per
-smoke config, the nvidia-smi line, the kernels JSON line and, last, the
-device JSON line.  ``--record
+kernel rows, a `kernels:` summary, the `decode:` and `prefill:` sums, one
+`serve:` line per model, a `chain:` line, an `entry:` line, one `check:`
+line per smoke config, the nvidia-smi line, the kernels JSON line and,
+last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
 Exits non-zero without a CUDA device or without the port's sources beside
 it.
@@ -197,9 +199,26 @@ def _height_info(eq, hts, picked):
     return info, text
 
 
-def phase_device():
+def _clusters(layer_shapes, decode_m, prefill_m):
+    """The K splits (cluster sizes) the launcher picks for one layer's
+    16-row launches at decode and at prefill, by (K, N)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rns_fused import TM, _split_k, tile_rows
+
+    sms = _build.num_sms(0)
+    out = {}
+    for m in (decode_m, prefill_m):
+        for _, k, n, _ in layer_shapes:
+            if tile_rows(m, n, 5, sms) == TM:
+                out[f"M={m} K={k} N={n}"] = _split_k(m, k, n, sms, TM)[0]
+    return out
+
+
+def phase_device(layer_shapes, decode_m, prefill_m):
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.rns_fused import (A_BF16, A_F32, A_PLANES,
+                                               A_SHARED)
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -223,14 +242,29 @@ def phase_device():
             kernels[-1]["ptxas"] = ln.split(":", 1)[1].strip()
     mma = [k for k in kernels if "rns_tile_kernelILi32E" in k["kernel"]]
     mma_regs = [int(k["ptxas"].split()[1]) for k in mma if "ptxas" in k]
+    t16 = [k for k in kernels if "rns_tile_kernelILi16E" in k["kernel"]]
+    t16_regs = [int(k["ptxas"].split()[1]) for k in t16 if "ptxas" in k]
+    # dynamic shared memory of every compiled 16-row instance
+    lib = _build.library()
+    smem = [lib.rns_tile16_smem(am, c, enc)
+            for am in (A_F32, A_BF16, A_SHARED, A_PLANES)
+            for c in range(1, _build.MAXC) for enc in (0, 1)]
+    smem = [b for b in smem if b > 0]
+    clusters = _clusters(layer_shapes, decode_m, prefill_m)
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     print(f"build: {build_s:.1f} s -> {os.path.relpath(so, ROOT)} "
           f"({len(kernels)} kernels, {len(mma)} of them 32-row tiles with "
           f"{min(mma_regs, default=0)}-{max(mma_regs, default=0)} "
-          f"registers; spills: {spills or 'none'})")
+          f"registers, {len(t16)} 16-row tiles with "
+          f"{min(t16_regs, default=0)}-{max(t16_regs, default=0)} "
+          f"registers and {min(smem) / 1024:.1f}-{max(smem) / 1024:.1f} KB "
+          f"dynamic shared memory; spills: {spills or 'none'}) | "
+          f"16-row clusters (K splits) of one layer: {clusters}")
     return {"name": name, "smi": smi, "build_s": build_s,
-            "ptxas": kernels, "spills": spills}
+            "ptxas": kernels, "spills": spills,
+            "tile16_smem_bytes": [min(smem), max(smem)],
+            "clusters": clusters}
 
 
 def _copies(make, nbytes):
@@ -838,12 +872,12 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
     return rows, bool(ok)
 
 
-def prefill_per_layer(rows, rows2, layer_shapes, m):
-    """Each served path's tile-kernel launches of one layer at prefill
-    (M = m), summed at the heights the launcher picks (``ms``) and at each
-    height pinned: fused (the 7 quantize launches), resident (qkv, gate,
-    up, gated down residue-in + the quantize wo) and staged (the 7
-    broadcast rns_matmul)."""
+def per_layer(rows, rows2, layer_shapes, m):
+    """Each served path's tile-kernel launches of one layer at M = m,
+    summed at the heights the launcher picks (``ms``) and, past 16 rows,
+    at each height pinned: fused (the 7 quantize launches), resident
+    (qkv, gate, up, gated down residue-in + the quantize wo) and staged
+    (the 7 broadcast rns_matmul)."""
     def fused(k, n):
         return next(r for r in rows if r["kernel"] == "rns_fused_matmul"
                     and r["weights"] == "encoded" and r["M"] == m
@@ -860,9 +894,10 @@ def prefill_per_layer(rows, rows2, layer_shapes, m):
              + [fused(wo_k, wo_n)],
              "staged": [row2("rns_matmul", name)
                         for name, _, _, _ in layer_shapes]}
-    return {path: {k: sum(r[k] for r in rs)
-                   for k in ("ms", "ms_tm32", "ms_tm16", "bound_ms",
-                             "library_ms")}
+    keys = ("ms", "bound_ms", "library_ms") + (
+        ("ms_tm32", "ms_tm16") if m > 16 else ())
+    return {path: {"launches": len(rs),
+                   **{k: sum(r[k] for r in rs) for k in keys}}
             for path, rs in paths.items()}
 
 
@@ -1140,7 +1175,7 @@ def main() -> int:
                     ("w_down", f, d, L)]
     lanes, bucket = 8, 64
 
-    dev_info = phase_device()
+    dev_info = phase_device(layer_shapes, lanes, lanes * bucket)
     dev = torch.device("cuda")
     print("phase kernels:")
     rows, fused_ok, fwd_ok, max_err = phase_kernels(
@@ -1195,7 +1230,20 @@ def main() -> int:
         raise AssertionError("a kernel disagrees with its plain version")
 
     smi = dev_info["smi"]
-    prefill = prefill_per_layer(rows, rows2, layer_shapes, lanes * bucket)
+    decode = per_layer(rows, rows2, layer_shapes, lanes)
+    decode["crt"] = dict(crt, launches=sum(
+        r["slices"] for r in rows3 if r["kernel"] == "rns_fused_crt_partial"
+        and r["M"] == lanes and r["slices"] == r["C"]))
+    for path, agg in decode.items():
+        what = ("one-channel rns_fused_crt_partial slices" if path == "crt"
+                else "tile launches")
+        yard = ("rns_fused_matmul on the full basis" if path == "crt"
+                else "bf16 torch.matmul")
+        print(f"decode: {path} one layer's {agg['launches']} {what} at "
+              f"M={lanes}: {1e3 * agg['ms']:.1f} us, {yard} "
+              f"{1e3 * agg['library_ms']:.1f} us, bound "
+              f"{1e3 * agg['bound_ms']:.2f} us | on {smi}")
+    prefill = per_layer(rows, rows2, layer_shapes, lanes * bucket)
     for path, agg in prefill.items():
         print(f"prefill: {path} one layer's tile launches at M="
               f"{lanes * bucket}: as launched {1e3 * agg['ms']:.1f} us, all "
@@ -1319,6 +1367,7 @@ def main() -> int:
             json.dump({"device": dev_info, "rows": rows + rows2 + rows3,
                        "serve": serves, "chain": chain, "entries": entries,
                        "prefill_per_layer": prefill,
+                       "decode_per_layer": decode,
                        "check_logit_err": checks, "kernels": kernels},
                       fh, indent=1)
     print(smi)

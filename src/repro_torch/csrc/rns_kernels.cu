@@ -134,6 +134,23 @@ int rns_tile_launch(int amode, const TileArgs* a, const FusedPlan* plan,
   }
 }
 
+// Dynamic shared memory, in bytes, of the 16-row tile instance for mode
+// amode, C channels and encoded (1) or live (0) weights; 0 if none.
+int rns_tile16_smem(int amode, int C, int encoded) {
+  switch (amode) {
+    case rns::A_F32:
+      return rns::tile16_smem_bytes<rns::A_F32>(C, encoded);
+    case rns::A_BF16:
+      return rns::tile16_smem_bytes<rns::A_BF16>(C, encoded);
+    case rns::A_SHARED:
+      return rns::tile16_smem_bytes<rns::A_SHARED>(C, encoded);
+    case rns::A_PLANES:
+      return rns::tile16_smem_bytes<rns::A_PLANES>(C, encoded);
+    default:
+      return 0;
+  }
+}
+
 // x: S int8 (x_int32 = 0) or int32 values; out: (C, S) int8 (out_int32 = 0)
 // or int32 canonical residues.
 int rns_forward_launch(const void* x, int x_int32, void* out, int out_int32,

@@ -25,8 +25,8 @@ from pathlib import Path
 
 from repro_torch.core import multiword as mw
 
-__all__ = ["build", "library", "check", "plan_struct", "Plan", "TileArgs",
-           "FlashArgs", "BUILD_DIR", "SOURCES"]
+__all__ = ["build", "library", "check", "plan_struct", "set_moduli", "Plan",
+           "TileArgs", "FlashArgs", "BUILD_DIR", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
@@ -52,20 +52,22 @@ class Plan(ctypes.Structure):
                 ("half_limbs", ctypes.c_int * MAXL),
                 ("L1", ctypes.c_int),
                 ("crt_v", ctypes.c_int * MAXC),
-                ("crt_mc", (ctypes.c_int * MAXL) * MAXC)]
+                ("crt_mc", (ctypes.c_int * MAXL) * MAXC),
+                ("mu", ctypes.c_uint * MAXC),
+                ("madd", ctypes.c_int * MAXC)]
 
 
 class TileArgs(ctypes.Structure):
     _fields_ = [("x", ctypes.c_void_p), ("srow", ctypes.c_void_p),
                 ("gate", ctypes.c_void_p), ("w", ctypes.c_void_p),
                 ("scol", ctypes.c_void_p), ("creq", ctypes.c_void_p),
-                ("out", ctypes.c_void_p), ("ws", ctypes.c_void_p),
-                ("counters", ctypes.c_void_p),
+                ("out", ctypes.c_void_p),
                 ("M", ctypes.c_int), ("K", ctypes.c_int),
                 ("N", ctypes.c_int), ("splits", ctypes.c_int),
                 ("k_per_split", ctypes.c_int), ("vec", ctypes.c_int),
                 ("encoded", ctypes.c_int), ("emit", ctypes.c_int),
-                ("tm", ctypes.c_int), ("avec", ctypes.c_int)]
+                ("tm", ctypes.c_int), ("avec", ctypes.c_int),
+                ("w16", ctypes.c_int)]
 
 
 class FlashArgs(ctypes.Structure):
@@ -79,6 +81,20 @@ class FlashArgs(ctypes.Structure):
                 ("has_window", ctypes.c_int), ("window", ctypes.c_int),
                 ("has_softcap", ctypes.c_int), ("bf16", ctypes.c_int),
                 ("scale", ctypes.c_float), ("softcap", ctypes.c_float)]
+
+
+def set_moduli(st: Plan, mods) -> None:
+    """The moduli of a `Plan` with what the kernels' divide-free mods read:
+    mu_j = floor(2^32 / m_j) and madd_j, the least multiple of m_j that is
+    at least 128 and every modulus (it lifts an int8 value, or a canonical
+    residue minus another channel's, to a non-negative operand)."""
+    bound = max(128, *mods)
+    for j, m in enumerate(mods):
+        if not 2 <= m <= 1 << 15:
+            raise ValueError(f"modulus {m} is outside the kernels' 2..2^15")
+        st.mods[j] = m
+        st.mu[j] = (1 << 32) // m
+        st.madd[j] = -(-bound // m) * m
 
 
 def plan_struct(plan, conv) -> Plan:
@@ -97,8 +113,8 @@ def plan_struct(plan, conv) -> Plan:
     st.C, st.R, st.L = C, R, L
     if plan is not None:
         st.n_sub, st.is_signed = plan.n_sub, int(plan.signed)
-    for j, m in enumerate(ref.moduli):
-        st.mods[j] = m
+    set_moduli(st, ref.moduli)
+    for j in range(C):
         if plan is not None:
             for r, (s, c) in enumerate(plan.rungs[j]):
                 st.sched_s[j][r] = s
@@ -173,7 +189,9 @@ def library() -> ctypes.CDLL:
     lib.rns_modmul_launch.argtypes = [p, p, i, p, ll, p, i, p]
     lib.rns_fold_launch.argtypes = [p, p, ll, p, i, p]
     lib.flash_attention_launch.argtypes = [p, p]
-    for fn in (lib.rns_tile_launch, lib.rns_forward_launch,
+    lib.rns_tile16_smem.argtypes = [i, i, i]
+    for fn in (lib.rns_tile_launch, lib.rns_tile16_smem,
+               lib.rns_forward_launch,
                lib.rns_reverse_launch, lib.rns_modmul_launch,
                lib.rns_fold_launch, lib.flash_attention_launch):
         fn.restype = i

@@ -46,7 +46,7 @@ _TN, _TK = 64, 32                   # tile width and K step of the kernel
 # the 32-row tensor-core tile, compiled for bases of up to _MMA_MAXC
 # channels.
 TM, TM_MMA, _MMA_MAXC = 16, 32, 7
-_MIN_KTILES_PER_SPLIT = 1
+_MAX_SPLITS = 8                     # rns::MAX_SPLITS: the portable cluster
 _pinned_rows: int | None = None
 # launches of the tile kernel by tile height, over every entry
 tile_launches = {TM: 0, TM_MMA: 0}
@@ -75,8 +75,8 @@ def tile_rows(M: int, N: int, C: int, sms: int, vec: bool = True) -> int:
     for C, the operands are ``vec`` (N and K multiples of 4, aligned rows:
     the tile reads four values a load) and its grid has a tile for every
     SM; the 16-row ``__dp4a`` tile otherwise (decode, bases of 8+
-    channels, odd shapes, and narrow launches, whose few 32-row tiles would
-    split K and leave each tile's whole epilogue to one block)."""
+    channels, odd shapes, and narrow launches, whose few 32-row tiles
+    would leave SMs idle: only the 16-row tile splits K)."""
     if _pinned_rows is not None:
         return _pinned_rows
     if M > TM and C <= _MMA_MAXC and vec and _tiles(M, N, TM_MMA) >= sms:
@@ -103,29 +103,19 @@ def _tiles(M: int, N: int, tm: int) -> int:
     return -(-N // _TN) * -(-M // tm)
 
 
-def _workspace_ints(M: int, N: int, C: int, tm: int) -> int:
-    """int32 words of a split launch's workspace: the C·M·N partial sums,
-    then one arrival counter per output tile."""
-    return C * M * N + _tiles(M, N, tm)
-
-
 def _split_k(M: int, K: int, N: int, sms: int,
              tm: int = TM) -> tuple[int, int]:
-    """(splits, k_per_split) for a launch with ``tm``-row tiles: split the
-    K loop across blocks only when the output tiles alone would leave SMs
-    idle, with at least one K step per block.  16-row blocks (decode) aim
-    at two blocks per SM.  Two 32-row blocks fill an SM's registers, so
-    their splits fill at most that one wave: a second wave, or the
-    atomics of a split that gains no SM, costs more than the idle SMs."""
+    """(splits, k_per_split) for a launch with ``tm``-row tiles.  The
+    16-row tile splits the K loop only when its output tiles alone would
+    leave SMs idle: into S <= 8 parts, the blocks of one output tile
+    launched as one thread-block cluster, aiming at two blocks per SM, with
+    at least one K step per block.  The 32-row tile never splits:
+    `tile_rows` picks it only when its grid has a tile for every SM."""
     tiles = _tiles(M, N, tm)
     ktiles = -(-K // _TK)
     splits = 1
     if tm == TM and tiles < sms:
-        splits = max(1, min(-(-2 * sms // tiles),
-                            ktiles // _MIN_KTILES_PER_SPLIT))
-    elif tm == TM_MMA:
-        splits = max(1, min(2 * sms // tiles,
-                            ktiles // _MIN_KTILES_PER_SPLIT))
+        splits = min(_MAX_SPLITS, -(-2 * sms // tiles), ktiles)
     k_per_split = -(-ktiles // splits) * _TK
     return -(-K // k_per_split), k_per_split
 
@@ -134,7 +124,9 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
                 M: int, K: int, N: int, C: int, srow=None, scol=None,
                 gate=None, creq=None, name: str) -> None:
     """One launch of the tile kernel on contiguous CUDA tensors, at the
-    height `tile_rows` picks; the split-K workspace is allocated here."""
+    height `tile_rows` picks and the K split `_split_k` picks (a split
+    16-row launch is one cluster per output tile).  It allocates nothing:
+    the caller hands it the output."""
     vec = N % 4 == 0 and w.data_ptr() % 4 == 0
     # A (and the gate) four k values at a time
     avec = K % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
@@ -146,13 +138,7 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
                          f"C <= {_MMA_MAXC} and N, K multiples of 4 with "
                          f"aligned rows, not C={C}, N={N}, K={K}")
     splits, kps = _split_k(M, K, N, sms, tm)
-    ws = None
     args = _build.TileArgs()
-    if splits > 1:
-        n_acc = C * M * N
-        ws = torch.zeros(_workspace_ints(M, N, C, tm), dtype=torch.int32,
-                         device=x.device)
-        args.ws, args.counters = ws.data_ptr(), ws[n_acc:].data_ptr()
     for field, t in (("x", x), ("w", w), ("out", out), ("srow", srow),
                      ("scol", scol), ("gate", gate), ("creq", creq)):
         if t is not None:
@@ -160,6 +146,10 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
     args.M, args.K, args.N, args.splits, args.k_per_split = M, K, N, \
         splits, kps
     args.vec, args.avec = int(vec), int(avec)
+    # weight rows in 16-byte pieces: the 16-row tile streams encoded
+    # weights by cp.async (every serving shape), else reads them a step
+    # ahead in registers
+    args.w16 = int(N % 16 == 0 and w.data_ptr() % 16 == 0)
     args.encoded, args.emit, args.tm = int(w.ndim == 3), emit, tm
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.library().rns_tile_launch(amode, ctypes.byref(args),
@@ -315,8 +305,8 @@ def _crt_plan_struct(plan: ChannelPlan, mods: tuple, sched: tuple,
     if L1 > _build.MAXL:
         raise ValueError(f"{L1} CRT limbs exceed the kernel's {_build.MAXL}")
     st.L1 = L1
-    for j, m in enumerate(mods):
-        st.mods[j] = m
+    _build.set_moduli(st, mods)
+    for j in range(len(mods)):
         st.crt_v[j] = crt_v[j]
         for r, (sh, c) in enumerate(sched[j]):
             st.sched_s[j][r], st.sched_c[j][r] = sh, c

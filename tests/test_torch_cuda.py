@@ -32,8 +32,9 @@ def dev():
 # Shapes run on the 32-row tensor-core tile, pinned (their grids have
 # fewer tiles than an H100 has SMs, so the launcher would pick 16 rows):
 # ragged M (17, 65, 100), K not a multiple of 32 (200), N not a multiple
-# of 64 (200), and a split-K launch (M 64, N 192).  The tile takes only N
-# and K multiples of 4; the byte-wise shapes (N 70) run on the 16-row tile.
+# of 64 (200), and a narrow grid (M 64, N 192: 6 tiles, K unsplit).  The
+# tile takes only N and K multiples of 4; the byte-wise shapes (N 70) run
+# on the 16-row tile.
 TILE_MMA = [(17, 200, 200), (64, 1536, 192), (65, 200, 192),
             (100, 1536, 200)]
 
@@ -45,9 +46,12 @@ def _rows(M, K, N):
     return contextlib.nullcontext()
 
 
+# (8, 200, 192): K not a multiple of the 32-deep step, weight rows that
+# stream by cp.async; N 70 and 33: rows read a step ahead in registers
 @pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 1536, 576),
                                    (1, 576, 192), (13, 200, 70),
-                                   (3, 64, 33), (512, 64, 192)] + TILE_MMA)
+                                   (3, 64, 33), (512, 64, 192),
+                                   (8, 200, 192)] + TILE_MMA)
 @pytest.mark.parametrize("encoded", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_matches_plain(dev, M, K, N, encoded, dtype):
@@ -97,7 +101,8 @@ def _chain_operands(dev, M, K, N, seed, basis=None):
 
 @pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 576, 1536),
                                    (8, 1536, 576), (512, 1536, 576),
-                                   (8, 576, 960), (13, 200, 70)] + TILE_MMA)
+                                   (8, 576, 960), (13, 200, 70),
+                                   (8, 200, 192)] + TILE_MMA)
 @pytest.mark.parametrize("form", ["float", "residues", "gated"])
 def test_residue_in_matches_plain(dev, M, K, N, form):
     xa, wt, g = _chain_operands(dev, M, K, N, M + K + N)
@@ -129,7 +134,8 @@ def test_residue_in_matches_plain(dev, M, K, N, form):
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 576, 576), (512, 576, 192),
-                                   (8, 1536, 576), (13, 200, 70)] + TILE_MMA)
+                                   (8, 1536, 576), (13, 200, 70),
+                                   (8, 200, 192)] + TILE_MMA)
 def test_matmul_broadcast_matches_plain(dev, M, K, N):
     g = torch.Generator(device=dev).manual_seed(M * K + N)
     mods = basis_for_int8_matmul(K).moduli
@@ -194,6 +200,134 @@ def test_tile_heights_agree(dev, form):
     assert tile.tile_launches == {tile.TM: before[tile.TM] + 1,
                                   tile.TM_MMA: before[tile.TM_MMA] + 1}
     assert torch.equal(got64, got16)
+
+
+# Decode launches (M <= 16) at K = 1536 on the 16-row tile, K split over
+# a cluster: every A mode and emit of the three entries at C = 1, 2, 5, 7
+# and 8 channels (basis_for_int8_matmul(1536), basis_for_chain(1536) and
+# basis_for_chain(65536), the widest basis a config builds).  One and two
+# channels exist only as CRT slices of the 8-channel basis and as its
+# sub-bases (canonical rns_matmul).
+DECODE_FORMS = ("quantize-f32", "quantize-bf16", "live", "float",
+                "residues", "gated", "broadcast", "canonical",
+                "crt-quantize", "crt-residue", "crt-gated")
+SLICE_FORMS = ("canonical", "crt-quantize", "crt-residue", "crt-gated")
+DECODE_CASES = [(M, C, form) for M in (1, 8, 16) for C in (1, 2, 5, 7, 8)
+                for form in DECODE_FORMS if C >= 5 or form in SLICE_FORMS]
+
+
+def _decode_basis(C):
+    if C == 5:
+        return basis_for_int8_matmul(1536)
+    return basis_for_chain(1536) if C == 7 else basis_for_chain(65536)
+
+
+@pytest.mark.parametrize("M,C,form", DECODE_CASES)
+def test_decode_tile_matches_plain(dev, M, C, form):
+    K, N = 1536, {1: 192, 8: 576, 16: 960}[M]
+    basis = _decode_basis(C)
+    mods = basis.moduli
+    xa, wt, g = _chain_operands(dev, M, K, N, 7 * M + C, basis)
+    gate = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                         dtype=torch.int8)
+    gate[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
+    x = torch.randn(M, K, generator=g, device=dev)
+    x[0, :2] = torch.tensor([40.0, -40.0])
+    if form == "quantize-bf16" or form == "crt-quantize":
+        x = x.to(torch.bfloat16)
+    before = tile.tile_launches[tile.TM]
+    launches = 1
+    if form.startswith("crt"):
+        n = len(mods) // C                        # slices of C channels
+        xin, srow, g8 = xa, xa.scale, None
+        if form == "crt-quantize":
+            xin, srow = x, quant_scale(x)
+        elif form == "crt-gated":
+            srow, g8 = xa.scale * 0.5, gate
+        kw = dict(scale_row=srow, gate=g8)
+        got = torch.stack(channel_partials(xin, wt, n, **kw))
+        want = torch.stack(channel_partials(xin, wt, n, plain=True, **kw))
+        launches = n
+    elif form in ("quantize-f32", "quantize-bf16", "live"):
+        sx = quant_scale(x)
+        arg, scol = wt.residues, wt.scale
+        if form == "live":
+            arg, scol = quantize_int8(torch.randn(K, N, generator=g,
+                                                  device=dev) / K ** 0.5,
+                                      dim=0)
+        got = rns_fused_matmul(x, arg, basis, scale_row=sx, scale_col=scol)
+        want = ref.rns_fused_matmul_ref(x, arg, basis, scale_row=sx,
+                                        scale_col=scol)
+    elif form in ("float", "residues", "gated"):
+        srow = xa.scale * 0.5 if form == "gated" else xa.scale
+        g8 = gate if form == "gated" else None
+        emit = "residues" if form == "residues" else "float"
+        got = rns_fused_matmul(xa, wt, scale_row=srow, scale_col=wt.scale,
+                               gate=g8, emit=emit)
+        creq = requant_const(wt.scale, K) if emit == "residues" else None
+        if creq is not None:
+            got = got.residues
+        want = ref.rns_fused_matmul_ref(xa.residues, wt.residues, basis,
+                                        scale_row=srow, scale_col=wt.scale,
+                                        gate=g8, creq=creq)
+    elif form == "broadcast":
+        got = rns_matmul(gate[None], wt.residues, mods, signed_a=True)
+        want = ref.rns_matmul_ref(gate[None], wt.residues, mods,
+                                  signed_a=True)
+    else:                                          # canonical, C channels
+        a, w, sub = xa.residues[:C], wt.residues[:C], mods[:C]
+        got = rns_matmul(a, w, sub)
+        want = ref.rns_matmul_ref(a, w, sub)
+    torch.cuda.synchronize()
+    assert tile.tile_launches[tile.TM] == before + launches
+    assert torch.equal(got, want)
+
+
+def test_decode_launch_captures(dev):
+    """One layer's seven decode launches (M = 8, the fused path's quantize
+    form with encoded weights, each K split over a cluster) captured in
+    one CUDA graph and replayed twice on new inputs copied into the
+    captured buffers: each replay bit-equal to the plain versions."""
+    M = 8
+    shapes = [(576, 576), (576, 192), (576, 192), (576, 576), (576, 1536),
+              (576, 1536), (1536, 576)]
+    g = torch.Generator(device=dev).manual_seed(16)
+    ws = [trt.encode(torch.randn(K, N, generator=g, device=dev) / K ** 0.5)
+          for K, N in shapes]
+    xs = [torch.empty(M, K, device=dev, dtype=torch.bfloat16)
+          for K, _ in shapes]
+
+    def fill():
+        for x in xs:
+            x.copy_(torch.randn(x.shape, generator=g, device=dev))
+            x[0, :2] = torch.tensor([40.0, -40.0])
+        return [quant_scale(x) for x in xs]
+
+    ss = fill()
+
+    def run():
+        return [rns_fused_matmul(x, w, scale_row=s, scale_col=w.scale)
+                for x, s, w in zip(xs, ss, ws)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()            # first launches: build, shared memory limits
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rns_fused_matmul.launches
+    with torch.cuda.graph(graph):
+        outs = run()
+    assert rns_fused_matmul.launches == before + len(shapes)
+    for _ in range(2):
+        for s, new in zip(ss, fill()):
+            s.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, x, s, w in zip(outs, xs, ss, ws):
+            want = ref.rns_fused_matmul_ref(x, w.residues, w.basis,
+                                            scale_row=s, scale_col=w.scale)
+            assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])

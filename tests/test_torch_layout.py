@@ -1,6 +1,6 @@
-"""Layout rules of the port: `src/repro_torch` and `chip_smoke.py` import
-neither JAX nor the reference package, and entry points use the CPU only
-when asked."""
+"""Layout rules of the port: `src/repro_torch`, `chip_smoke.py` and
+`tile_phases.py` import neither JAX nor the reference package, and entry
+points use the CPU only when asked."""
 import ast
 import pathlib
 
@@ -13,7 +13,7 @@ from repro_torch.serve.engine import Engine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tile_phases.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert {"chip_smoke.py", "src/repro_torch/kernels/rns_fused.py",
+    assert {"chip_smoke.py", "tile_phases.py",
+            "src/repro_torch/kernels/rns_fused.py",
             "src/repro_torch/kernels/rns_matmul.py",
             "src/repro_torch/kernels/rns_modmul.py",
             "src/repro_torch/kernels/rns_convert.py",

@@ -1,5 +1,5 @@
-"""How the tile kernel's launcher picks its tile height, splits K and
-sizes the split-K workspace, on the CPU.
+"""How the tile kernel's launcher picks its tile height and splits K into
+thread-block clusters, on the CPU.
 
 `kernels.rns_fused.launch_tile` is the one launcher behind
 `rns_fused_matmul`, `rns_fused_crt_partial` and `rns_matmul`.  Launches
@@ -68,41 +68,56 @@ def test_pin_tile_rows():
 
 
 @pytest.mark.parametrize("M,K,N,tm,want", [
-    # decode: 24 column tiles, K split 9 ways of two K steps
-    (8, 576, 1536, 16, (9, 64)),
-    (8, 1536, 576, 16, (24, 64)),
+    # decode: 24 column tiles, K split into clusters of 6 blocks of three
+    # K steps (at most 8 blocks, at least one step each); 9 tiles
+    (8, 576, 1536, 16, (6, 96)),
+    (8, 1536, 576, 16, (8, 192)),
+    (8, 576, 576, 16, (6, 96)),
+    # prefill's 192-wide launches: 96 tiles, clusters of 3
+    (512, 576, 192, 16, (3, 192)),
     # prefill on the 16-row tile: enough tiles, no split
     (512, 576, 576, 16, (1, 576)),
     (512, 1536, 576, 16, (1, 1536)),
-    # prefill on the 32-row tile: at most one wave of two blocks per SM,
-    # so 144 and 384 tiles are not split, 48 tiles 5 ways
+    # the 32-row tile never splits
     (512, 576, 576, 32, (1, 576)),
     (512, 1536, 576, 32, (1, 1536)),
     (512, 576, 1536, 32, (1, 576)),
-    (512, 576, 192, 32, (5, 128)),
-    (512, 1536, 192, 32, (5, 320)),
+    (512, 576, 192, 32, (1, 576)),
+    (512, 1536, 192, 32, (1, 1536)),
     # small and ragged
-    (64, 1536, 192, 32, (24, 64)),
-    (100, 200, 70, 32, (7, 32)),
-    (17, 200, 70, 32, (7, 32)),
+    (64, 1536, 192, 32, (1, 1536)),
+    (100, 200, 70, 32, (1, 224)),
+    (17, 200, 70, 32, (1, 224)),
 ])
 def test_split_k(M, K, N, tm, want):
     splits, kps = tile._split_k(M, K, N, SMS, tm)
     assert (splits, kps) == want
     assert kps % 32 == 0 and (splits - 1) * kps < K <= splits * kps
     if tm == tile.TM_MMA:
-        assert splits * tile._tiles(M, N, tm) <= max(2 * SMS,
-                                                     tile._tiles(M, N, tm))
+        assert splits == 1
 
 
-@pytest.mark.parametrize("M,N,C,tm,want", [
-    (8, 1536, 5, 16, 5 * 8 * 1536 + 24),
-    (512, 576, 5, 32, 5 * 512 * 576 + 9 * 16),
-    (512, 576, 7, 16, 7 * 512 * 576 + 9 * 32),
-    (100, 70, 6, 32, 6 * 100 * 70 + 2 * 4),
-])
-def test_workspace_ints(M, N, C, tm, want):
-    assert tile._workspace_ints(M, N, C, tm) == want
+@pytest.mark.parametrize("M,K,N", [
+    # one smollm layer at decode (8 lanes, and 1 and 16), the CRT slices
+    # run the same shapes with fewer channels
+    (8, 576, 576), (8, 576, 192), (8, 576, 960), (8, 576, 1536),
+    (8, 1536, 576), (1, 576, 192), (16, 1536, 576), (16, 1536, 1536),
+    # the 16-row prefill launches that split: the 192-wide projections
+    (512, 576, 192), (512, 1536, 192), (64, 1536, 192),
+    # K shorter than a cluster's worth of steps, and ragged
+    (8, 64, 576), (13, 200, 70)])
+def test_cluster_split(M, K, N):
+    """A split 16-row launch is one cluster per output tile: at most 8
+    blocks (the portable cluster size), as many as the grid's z, each
+    with at least one K step; only launches with fewer tiles than SMs
+    split, and the K steps are shared as evenly as whole steps allow."""
+    splits, kps = tile._split_k(M, K, N, SMS, tile.TM)
+    ktiles = -(-K // 32)
+    assert 1 <= splits <= 8 and splits <= ktiles
+    assert kps % 32 == 0 and (splits - 1) * kps < K <= splits * kps
+    tiles = tile._tiles(M, N, tile.TM)
+    assert (splits > 1) == (tiles < SMS and ktiles > 1)
+    assert kps // 32 == -(-ktiles // min(8, -(-2 * SMS // tiles), ktiles))
 
 
 class _FakeLibrary:
@@ -156,9 +171,38 @@ def test_launch_tile_args(fake_library, M, K, N, C, pin):
         (tm, splits, kps)
     assert (args["M"], args["K"], args["N"], args["encoded"]) == \
         (M, K, N, 1)
-    assert (args["ws"] is not None) == (splits > 1)
+    # the cluster: grid z = cluster z = splits, at most 8, 32 rows unsplit
+    assert 1 <= args["splits"] <= 8
+    assert args["splits"] == 1 or tm == tile.TM
+    assert args["w16"] == int(N % 16 == 0)
     assert tile.tile_launches[tm] == before[tm] + 1
     assert sum(tile.tile_launches.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("M,K,N,C,amode,emit", [
+    (8, 576, 1536, 5, tile.A_BF16, tile.EMIT_FLOAT),
+    (8, 1536, 576, 7, tile.A_PLANES, tile.EMIT_RESIDUES),
+    (8, 576, 576, 1, tile.A_PLANES, tile.EMIT_CRT_LIMBS),
+    (512, 576, 192, 5, tile.A_SHARED, tile.EMIT_CANONICAL),
+    (512, 576, 576, 5, tile.A_F32, tile.EMIT_FLOAT)])
+def test_launch_tile_allocates_nothing(fake_library, monkeypatch, M, K, N,
+                                       C, amode, emit):
+    """A launch, split or not, allocates nothing: the split-K partials
+    live in the cluster's shared memory, and the caller hands over the
+    output."""
+    x = torch.zeros(C, M, K, dtype=torch.int8)
+    w = torch.zeros(C, K, N, dtype=torch.int8)
+    out = torch.zeros(C, M, N, dtype=torch.int32)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("launch_tile allocated a tensor")
+
+    for fn in ("zeros", "empty", "zeros_like", "empty_like", "full"):
+        monkeypatch.setattr(torch, fn, refuse)
+    tile.launch_tile(amode, emit, _build.Plan(), x=x, w=w, out=out, M=M,
+                     K=K, N=N, C=C, name="test")
+    (args,) = fake_library.args
+    assert args["splits"] == tile._split_k(M, K, N, SMS, args["tm"])[0]
 
 
 @pytest.mark.parametrize("C,K,N", [(8, 32, 64), (5, 32, 70), (5, 30, 64)])
@@ -185,3 +229,39 @@ def test_plan_struct_bounds_the_subtracts():
     _build.plan_struct(plan, None)
     with pytest.raises(ValueError, match="n_sub=5"):
         _build.plan_struct(dataclasses.replace(plan, n_sub=5), None)
+
+
+def _mod_u(u, m, mu):
+    """`rns::mod_u` of csrc/rns_common.cuh in Python."""
+    r = u - ((u * mu) >> 32) * m
+    return r - m if r >= m else r
+
+
+@pytest.mark.parametrize("mods", [basis_for_int8_matmul(576).moduli,
+                                  basis_for_chain(65536).moduli,
+                                  (2045, 2051, 2039, 2057, 1025, 3071),
+                                  (1024, 47, 31), (2, 3, 1 << 15)])
+def test_divide_free_mods_are_exact(mods):
+    """The kernels' mods by the plan's reciprocal equal Python's floored
+    mod over the operands they are given: int8 values lifted by madd, a
+    residue minus another channel's times an inverse (the MRC step), and
+    the extremes of the 32-bit range."""
+    st = _build.Plan()
+    _build.set_moduli(st, mods)
+    hi = max(mods)
+    rng = torch.Generator().manual_seed(len(mods))
+    for j, m in enumerate(mods):
+        mu, madd = st.mu[j], st.madd[j]
+        assert madd % m == 0 and madd >= max(128, hi)
+        for x in range(-128, 128):
+            assert _mod_u(x + madd, m, mu) == x % m
+        t = torch.randint(0, m, (2000,), generator=rng).tolist()
+        d = torch.randint(0, hi, (2000,), generator=rng).tolist()
+        inv = torch.randint(0, m, (2000,), generator=rng).tolist()
+        for a, b, v in zip(t, d, inv):
+            u = (a - b + madd) * v
+            assert 0 <= u < 1 << 32 and _mod_u(u, m, mu) == u % m
+        for u in (0, m - 1, m, (1 << 32) - 1, (1 << 31) - 1):
+            assert _mod_u(u, m, mu) == u % m
+    with pytest.raises(ValueError, match="outside"):
+        _build.set_moduli(_build.Plan(), ((1 << 15) + 1,))
