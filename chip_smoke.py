@@ -5,7 +5,8 @@
 
 Phases, each of which must pass:
   1. device  — the card's name and power limit (nvidia-smi), the kernel
-     library built from `src/repro_torch/csrc` (build seconds printed);
+     library built from `src/repro_torch/csrc` (build seconds, registers
+     and spills printed; flash instances by route on a second line);
   2. kernels — each CUDA kernel against its plain PyTorch version, bit for
      bit, at every launch shape of the three serving paths and at an odd
      shape, with median times (CUDA events; weights read cold from device
@@ -38,7 +39,10 @@ Phases, each of which must pass:
   6. check   — finite logits of each served batch, and each smoke config's
      logits on the card against the same model on the CPU (plain versions).
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
-bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0),
+bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
+the route each shape takes (`split`, `mma` or `fma`, named on its row;
+bf16 prefill also pinned to `fma`, held alike and timed in turns with
+`mma`; a `flash:` line sums up decode, prefill and `fold`),
 `fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
 for n = 1 and n = C) against their plain versions.  Lines: per-shape
 kernel rows, a `kernels:` summary, the `decode:` and `prefill:` sums, one
@@ -163,11 +167,29 @@ def device_ms_heights(fn, n, reps=8):
 
     heights = (TM_MMA, TM)
     graphs = [_pinned(lambda: _capture(fn, n), h) for h in heights]
+    return dict(zip(heights, _in_turns(graphs, n, reps)))
+
+
+def _in_turns(graphs, n, reps):
+    """Two captured graphs of ``n`` calls replayed in turns (A B B A ...):
+    the median time of one call in each."""
     times = ([], [])
     for r in range(reps):
         for h in ((0, 1) if r % 2 == 0 else (1, 0)):
             times[h].append(_replay_ms(graphs[h], n))
-    return {h: sorted(t)[reps // 2] for h, t in zip(heights, times)}
+    return [sorted(t)[reps // 2] for t in times]
+
+
+def device_ms_routes(fn, n, routes, reps=8):
+    """`device_ms` of a flash_attention call pinned to each of ``routes``:
+    the graphs replayed in turns (A B B A ...); medians by route."""
+    from repro_torch.kernels.flash_attention import _pin_route
+
+    graphs = []
+    for route in routes:
+        with _pin_route(route):
+            graphs.append(_capture(fn, n))
+    return dict(zip(routes, _in_turns(graphs, n, reps)))
 
 
 def _both_heights(again, want):
@@ -251,6 +273,7 @@ def phase_device(layer_shapes, decode_m, prefill_m):
             for c in range(1, _build.MAXC) for enc in (0, 1)]
     smem = [b for b in smem if b > 0]
     clusters = _clusters(layer_shapes, decode_m, prefill_m)
+    flash = _flash_instances(kernels)
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     print(f"build: {build_s:.1f} s -> {os.path.relpath(so, ROOT)} "
@@ -261,10 +284,40 @@ def phase_device(layer_shapes, decode_m, prefill_m):
           f"registers and {min(smem) / 1024:.1f}-{max(smem) / 1024:.1f} KB "
           f"dynamic shared memory; spills: {spills or 'none'}) | "
           f"16-row clusters (K splits) of one layer: {clusters}")
+    print("build: flash_attention routes (instance: registers/spill "
+          "bytes): " + "; ".join(
+              f"{route} {len(ins)} instances "
+              + ", ".join(f"{k}: {r}/{sp}" for k, r, sp in ins)
+              for route, ins in flash.items()))
     return {"name": name, "smi": smi, "build_s": build_s,
-            "ptxas": kernels, "spills": spills,
+            "ptxas": kernels, "spills": spills, "flash_instances": flash,
             "tile16_smem_bytes": [min(smem), max(smem)],
             "clusters": clusters}
+
+
+def _flash_instances(kernels):
+    """The flash_attention instances of the build by route: (template
+    arguments, registers, spill-store bytes) from ptxas -v."""
+    import re
+
+    names = {"split": "flash_split_kernel", "mma": "flash_mma_kernel",
+             "fma": "flash_fma_kernel"}
+    out = {}
+    for route, fn in names.items():
+        out[route] = []
+        for k in kernels:
+            if fn not in k["kernel"]:
+                continue
+            tmpl = k["kernel"].split(fn, 1)[1]
+            args = re.findall(r"Li(\d+)E", tmpl) + (
+                ["bf16"] if "bfloat16" in tmpl else
+                ["f32"] if route != "mma" else [])
+            regs = int(k["ptxas"].split()[1]) if "ptxas" in k else -1
+            spill = re.search(r"(\d+) bytes spill stores",
+                              k.get("spill", ""))
+            out[route].append(("D" + "/".join(args), regs,
+                               int(spill.group(1)) if spill else -1))
+    return out
 
 
 def _copies(make, nbytes):
@@ -617,13 +670,15 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
     for label, basis, shape, dtype in fw_cases:
         mods = basis.moduli
         q = torch.randint(-127, 128, shape, generator=g, device=dev).to(dtype)
+        mcol = torch.tensor(mods, dtype=dtype, device=dev).reshape(-1, 1, 1)
         ok &= _measure(
             rows, "rns_forward", f"{label} {shape[0]}x{shape[1]}",
             rns_forward(q, mods, dtype=torch.int8),
             ref.rns_forward_ref(q, mods, torch.int8),
             lambda i, q=q, mods=mods: rns_forward(q, mods, dtype=torch.int8),
             lambda q=q, mods=mods: ref.rns_forward_ref(q, mods, torch.int8),
-            None, 20, q.numel() * (q.element_size() + len(mods)), 0,
+            (lambda i, q=q, mcol=mcol: torch.remainder(q[None], mcol), 20),
+            20, q.numel() * (q.element_size() + len(mods)), 0,
             leaf=label, shape=list(shape), C=len(mods))
     return rows, ok
 
@@ -681,6 +736,7 @@ def phase_entries(layer_shapes, chain, lanes, dev):
     from repro_torch.dist.rns_shard import channel_sliced_matmul
     from repro_torch.kernels import (flash_attention, fold, ref,
                                      rns_fused_matmul)
+    from repro_torch.kernels.flash_attention import flash_route
 
     g = torch.Generator(device=dev).manual_seed(3)
     d, F, qkv_n = chain
@@ -719,8 +775,13 @@ def phase_entries(layer_shapes, chain, lanes, dev):
             gate=gate)))
     torch.cuda.synchronize()
     launches = read_launches()
+    routes = dict(flash_attention.route_launches)
+    # each call went through the route its shape names
+    ok = routes == {r: sum(flash_route(q.shape[2], q.dtype) == r
+                           for q, _, _, _ in flash)
+                    for r in routes}
 
-    ok = all(o.shape == q.shape and torch.isfinite(o.float()).all()
+    ok &= all(o.shape == q.shape and torch.isfinite(o.float()).all()
              and _within(o, ref.attention_ref(q, k, v, **kw),
                          FLASH_TOL["bfloat16"])
              for o, (q, k, v, kw) in zip(outs, flash))
@@ -730,7 +791,8 @@ def phase_entries(layer_shapes, chain, lanes, dev):
         srow = x.scale if isinstance(x, RNSTensor) else quant_scale(x)
         ok &= torch.equal(val, rns_fused_matmul(
             x, wt, scale_row=srow, scale_col=wt.scale, gate=gate))
-    return {"launches": {k: launches[k] for k in SLICE3}, "ok": bool(ok)}
+    return {"launches": {k: launches[k] for k in SLICE3},
+            "flash_routes": routes, "ok": bool(ok)}
 
 
 def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
@@ -748,12 +810,15 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
                                             channel_sliced_matmul, crt_tables)
     from repro_torch.kernels import (flash_attention, fold, ref,
                                      rns_fused_matmul)
+    from repro_torch.kernels.flash_attention import _pin_route, flash_route
 
     g = torch.Generator(device=dev).manual_seed(4)
     rows, ok = [], True
     d, F, qkv_n = chain
 
-    # flash_attention: every case in bf16 and float32
+    # flash_attention: every case in bf16 and float32, each on the route
+    # it takes; bf16 prefill also pinned to the CUDA-core route (the
+    # "before"), held to the same tolerance and timed in turns with it
     for label, *case in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, kw = _flash_inputs(case, dtype, g, dev)
@@ -765,25 +830,51 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
             got = flash_attention(q, k, v, **kw)
             dead = (~mask.any(-1))[:, None].expand(-1, H, -1)
             zeros = bool((got[dead] == 0).all())
+            tname = str(dtype).split(".")[1]
+            route = flash_route(Sq, dtype)
+            want = ref.attention_ref(q, k, v, **kw)
+            # bytes the function must move: q read and the output written
+            # once, and the K and V rows of the keys some row of the lane
+            # attends (not those under pad, past the frontier or dead)
+            reach = int(mask.any(1).sum())
+            nbytes = q.element_size() * (2 * q.numel() + 2 * H * D * reach)
+            # timed over copies of (q, k, v) that together read more than
+            # the L2 holds, so K and V come from device memory
+            pool = _copies(lambda q=q, k=k, v=v: (q.clone(), k.clone(),
+                                                  v.clone()), nbytes)
             lib = None
             if kw["softcap"] is None:
                 amask = mask[:, None]
-                lib = (lambda i, q=q, k=k, v=v, amask=amask:
-                       Fn.scaled_dot_product_attention(q, k, v,
-                                                       attn_mask=amask), 3)
-            tname = str(dtype).split(".")[1]
-            nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+                lib = (lambda i, pool=pool, amask=amask:
+                       Fn.scaled_dot_product_attention(*pool[i],
+                                                       attn_mask=amask),
+                       len(pool))
+
+            def launch(i, pool=pool, kw=kw):
+                return flash_attention(*pool[i], **kw)
+
             ok &= zeros and _measure(
-                rows, "flash_attention", f"{label} {tname}", got,
-                ref.attention_ref(q, k, v, **kw),
-                lambda i, q=q, k=k, v=v, kw=kw: flash_attention(q, k, v,
-                                                                **kw),
+                rows, "flash_attention", f"{label} {tname} route={route}",
+                got, want, launch,
                 lambda q=q, k=k, v=v, kw=kw: ref.attention_ref(q, k, v, **kw),
-                lib, 3, nbytes, 4 * D * H * int(mask.sum()),
+                lib, len(pool), nbytes, 4 * D * H * int(mask.sum()),
                 rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
-                tol=FLASH_TOL[tname], leaf=label, dtype=tname, B=B, H=H,
-                Sq=Sq, Sk=Sk, D=D, dead_rows_zero=zeros)
-            del q, k, v, got, mask
+                tol=FLASH_TOL[tname], leaf=label, dtype=tname, route=route,
+                B=B, H=H, Sq=Sq, Sk=Sk, D=D, dead_rows_zero=zeros)
+            if route == "mma":
+                with _pin_route("fma"):
+                    before = flash_attention(q, k, v, **kw)
+                fma_ok = _within(before, want, FLASH_TOL[tname]) and bool(
+                    (before[dead] == 0).all())
+                turns = device_ms_routes(launch, len(pool), ("mma", "fma"))
+                rows[-1].update(ms=turns["mma"], ms_fma=turns["fma"],
+                                fma_ok=fma_ok)
+                ok &= fma_ok
+                print(f"    in turns: mma {turns['mma']:.4f} ms, fma "
+                      f"(pinned) {turns['fma']:.4f} ms, fma within "
+                      f"tolerance: {fma_ok}")
+                del before
+            del q, k, v, got, want, mask, pool
 
     # fold: K = 576 / 1536 accumulators of the 5- and 7-channel bases
     S = 512 * 1536
@@ -795,14 +886,20 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
                               dtype=torch.int32)
             x[:, :2] = torch.tensor([0, bound - 1], dtype=torch.int32)
             mcol = torch.tensor(mods, dtype=torch.int32, device=dev)[:, None]
+            # timed over copies of x that together outgrow the L2
+            pool = _copies(x.clone, 4 * C * S)
             ok &= _measure(
                 rows, "fold", f"C={C} S={S} bound={bound}",
                 fold(x, mods, bound), ref.fold_ref(x, mods, bound),
-                lambda i, x=x, mods=mods, bound=bound: fold(x, mods, bound),
+                lambda i, pool=pool, mods=mods, bound=bound: fold(
+                    pool[i], mods, bound),
                 lambda x=x, mods=mods, bound=bound: ref.fold_ref(x, mods,
                                                                  bound),
-                (lambda i, x=x, mcol=mcol: torch.remainder(x, mcol), 20),
-                20, 8 * C * S, 0, C=C, S=S, bound=bound)
+                (lambda i, pool=pool, mcol=mcol: torch.remainder(pool[i],
+                                                                 mcol),
+                 len(pool)),
+                len(pool), 8 * C * S, 0, C=C, S=S, bound=bound)
+            del pool
 
     # rns_fused_crt_partial: one smollm layer's float-emit launches
     specs = [(name, basis_for_int8_matmul(k), k, n, "quantize")
@@ -923,6 +1020,8 @@ def reset_launches():
     _counters()[0].residue_in_launches = 0
     for h in tile_launches:
         tile_launches[h] = 0
+    for r in _counters()[5].route_launches:
+        _counters()[5].route_launches[r] = 0
 
 
 def read_launches():
@@ -1207,9 +1306,10 @@ def main() -> int:
     rows3, ok3 = phase_kernels_slice3(layer_shapes, (d, f, qkv_n), lanes,
                                       lanes * bucket, dev)
     # per kernel, the launches of its entry path (phase_entries)
-    flash = _sum([r for r in rows3 if r["kernel"] == "flash_attention"
-                  and r["label"] in ("prefill-pad bfloat16",
-                                     "decode-2048 bfloat16")])
+    flash_rows = {r["leaf"]: r for r in rows3
+                  if r["kernel"] == "flash_attention"
+                  and r["dtype"] == "bfloat16"}
+    flash = _sum([flash_rows["prefill-pad"], flash_rows["decode-2048"]])
     fold = _sum([r for r in rows3 if r["kernel"] == "fold"
                  and r["C"] == 5 and r["bound"] == 1536 * 46 * 46])
     crt = _sum([r for r in rows3 if r["kernel"] == "rns_fused_crt_partial"
@@ -1228,6 +1328,19 @@ def main() -> int:
           f'(5, 512x1536); crt: one layer as one-channel slices)')
     if not (fused_ok and fwd_ok and ok2 and ok3):
         raise AssertionError("a kernel disagrees with its plain version")
+    dec, pre = flash_rows["decode-2048"], flash_rows["prefill-pad"]
+    fold_row = next(r for r in rows3 if r["kernel"] == "fold"
+                    and r["C"] == 5 and r["bound"] == 1536 * 46 * 46)
+    print(f"flash: bf16 decode-2048 ({dec['route']}) "
+          f"{1e3 * dec['ms']:.1f} us, sdpa {1e3 * dec['library_ms']:.1f} "
+          f"us, bound {1e3 * dec['bound_ms']:.2f} us | bf16 prefill-pad "
+          f"({pre['route']}) {1e3 * pre['ms']:.1f} us, fma pinned in turns "
+          f"{1e3 * pre['ms_fma']:.1f} us, sdpa "
+          f"{1e3 * pre['library_ms']:.1f} us, bound "
+          f"{1e3 * pre['bound_ms']:.2f} us | fold (5, 512x1536) "
+          f"{1e3 * fold_row['ms']:.1f} us, torch.remainder "
+          f"{1e3 * fold_row['library_ms']:.1f} us, bound "
+          f"{1e3 * fold_row['bound_ms']:.2f} us | on {dev_info['smi']}")
 
     smi = dev_info["smi"]
     decode = per_layer(rows, rows2, layer_shapes, lanes)
@@ -1285,7 +1398,8 @@ def main() -> int:
     print(f"entry: flash_attention prefill + decode (B {lanes}, 9 heads, "
           f"2048 keys), fold (5, 512x1536), one layer of channel-slice "
           f"launches composed == rns_fused_matmul: {entries['ok']} | "
-          f"launches {entries['launches']}")
+          f"launches {entries['launches']}, flash by route "
+          f"{entries['flash_routes']}")
     if not entries["ok"]:
         raise AssertionError("an entry point's output is wrong")
 
@@ -1346,7 +1460,10 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:115",
               {"entry:flash_attention":
                entries["launches"]["flash_attention"]}, flash,
-              rows_of("flash_attention", rows3)),
+              rows_of("flash_attention", rows3))
+        | {"launches_by_route": entries["flash_routes"],
+           "sources": [src + f for f in ("flash_split.cu", "flash_mma.cu",
+                                         "flash_attention.cu")]},
         entry("fold", src + "rns_kernels.cu", "src/repro/kernels/fold.py:29",
               {"entry:fold": entries["launches"]["fold"]}, fold,
               rows_of("fold", rows3)),

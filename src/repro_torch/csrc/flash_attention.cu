@@ -12,69 +12,45 @@
 // block and attends to the padding when the query and key paddings
 // differ; this kernel masks by the true Sk).
 //
-// Layout: one block of 4 warps per (b*h, tile of 4*ROWS query rows).  Each
-// warp owns ROWS query rows; a tile of 32 keys and values sits in shared
-// memory as float32, and lane j scores key j against the warp's rows, so
-// the softmax max and sum of a tile are warp shuffles.  The running max,
-// sum and the float32 accumulator (lane owns output columns lane + 32t)
-// stay in registers; no score matrix reaches device memory.  Key tiles that
-// no row of the block can attend (past the causal frontier, left of the
-// window, inside the pad) are skipped when positions are implicit; with
-// explicit positions reachability depends on the data, and every tile runs.
+// Three routes, each one launch, picked by the wrapper
+// (`kernels/flash_attention.py::flash_route`):
+//   SPLIT (flash_split.cu): Sq <= 16, float32 or bf16 -- decode and short
+//     query blocks.  Reading K and V bounds it; the keys of a (b, h) are
+//     split over a thread-block cluster and streamed by cp.async.
+//   MMA (flash_mma.cu): Sq > 16, bf16 -- prefill on the tensor cores
+//     (mma.sync m16n8k16), FA2-style.
+//   FMA (this file): Sq > 16, float32 -- the CUDA-core kernel below, kept
+//     because TF32 tensor cores cannot meet the float32 tolerance; also
+//     the pinned "before" that chip_smoke.py times bf16 prefill on.
+//
+// FMA layout: one block of 4 warps per (b*h, tile of 4*ROWS query rows).
+// Each warp owns ROWS query rows; a tile of 32 keys and values sits in
+// shared memory as float32, and lane j scores key j against the warp's
+// rows, so the softmax max and sum of a tile are warp shuffles.  The
+// running max, sum and the float32 accumulator (lane owns output columns
+// lane + 32t) stay in registers; no score matrix reaches device memory.
+// Key tiles that no row of the block can attend (past the causal
+// frontier, left of the window, inside the pad) are skipped when positions
+// are implicit; with explicit positions reachability depends on the data,
+// and every tile runs.
 //
 // What bounds it on an H100: the scores and the value products are
 // 4*B*H*Sq*Sk*D flops (half under a causal mask), far above the bytes of
-// q, k, v and out, so arithmetic bounds it.  This first version computes
-// them with float32 FMAs on the CUDA cores (expf, tanhf and IEEE divides,
-// no fast math), not with the tensor cores: it is the simple, exact-masking
-// kernel, and wgmma tiles are the later redesign.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-// Operands of one launch (mirrors `_FlashArgs` in kernels/_build.py).
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  const int* pad;    // (B,) left-pad counts, or null
-  const int* qpos;   // (B, Sq) explicit query positions, or null
-  const int* kpos;   // (B, Sk) explicit key positions, or null
-  int B, H, Sq, Sk, D;
-  int causal, has_window, window, has_softcap, bf16;
-  float scale, softcap;
-};
+// q, k, v and out, so arithmetic bounds it, at the float32 CUDA-core rate
+// of 67 TFLOP/s on this route (expf, tanhf and IEEE divides, no fast
+// math).
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int WARPS = 4;
 constexpr int BK = 32;             // keys per tile: one per lane
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
-}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_kernel(FlashArgs a) {
+flash_fma_kernel(FlashArgs a) {
   constexpr int ROWS = D <= 64 ? 8 : 4;     // query rows per warp
   constexpr int BQ = WARPS * ROWS;
   constexpr int KS = D + 4;                 // 16-byte rows, no conflicts
@@ -168,15 +144,9 @@ flash_kernel(FlashArgs a) {
                                   : key;
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      float x = __fmul_rn(s[i], a.scale);
-      if (a.has_softcap) {
-        x = __fmul_rn(tanhf(__fdiv_rn(x, a.softcap)), a.softcap);
-      }
-      bool ok = live[i] && key < Sk;
-      if (explicit_pos) ok = ok && kp >= 0 && qp[i] >= 0;
-      if (a.causal) ok = ok && kp <= qp[i];
-      if (a.has_window) ok = ok && kp > qp[i] - a.window;
-      ok = ok && kp >= pad;
+      const float x = scaled(s[i], a);
+      const bool ok = live[i] && key < Sk &&
+                      attends(qp[i], kp, pad, explicit_pos, a);
       const float sm = ok ? x : NEG_INF;
       const float m_new = fmaxf(m_run[i], warp_max(sm));
       // re-mask after the shift: on a fully masked row m_new is -1e30 and
@@ -227,13 +197,13 @@ flash_kernel(FlashArgs a) {
 }
 
 template <int D>
-int launch_d(const FlashArgs& a, cudaStream_t s) {
+int launch_fma(const FlashArgs& a, cudaStream_t s) {
   constexpr int BQ = WARPS * (D <= 64 ? 8 : 4);
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
   if (a.bf16) {
-    flash_kernel<D, __nv_bfloat16><<<grid, WARPS * 32, 0, s>>>(a);
+    flash_fma_kernel<D, __nv_bfloat16><<<grid, WARPS * 32, 0, s>>>(a);
   } else {
-    flash_kernel<D, float><<<grid, WARPS * 32, 0, s>>>(a);
+    flash_fma_kernel<D, float><<<grid, WARPS * 32, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -242,16 +212,26 @@ int launch_d(const FlashArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// One launch; returns 0, a cudaError_t, or -1 for a head size not compiled
-// in (D must be 16, 32, 64 or 128).
+// One launch on a->route; returns 0, a cudaError_t, or -1 for a head size
+// not compiled in (D must be 16, 32, 64 or 128) or a route that does not
+// take the call (MMA: bf16 only; SPLIT: Sq <= 16).
 int flash_attention_launch(const FlashArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a->D) {
-    case 16: return launch_d<16>(*a, s);
-    case 32: return launch_d<32>(*a, s);
-    case 64: return launch_d<64>(*a, s);
-    case 128: return launch_d<128>(*a, s);
-    default: return -1;
+  switch (a->route) {
+    case SPLIT:
+      return flash_launch_split(*a, s);
+    case MMA:
+      return flash_launch_mma(*a, s);
+    case FMA:
+      switch (a->D) {
+        case 16: return launch_fma<16>(*a, s);
+        case 32: return launch_fma<32>(*a, s);
+        case 64: return launch_fma<64>(*a, s);
+        case 128: return launch_fma<128>(*a, s);
+        default: return -1;
+      }
+    default:
+      return -1;
   }
 }
 

@@ -93,6 +93,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_async.cuh"
 
 namespace rns {
 
@@ -201,26 +202,46 @@ __device__ __forceinline__ int mod_c(int x, int c, const FusedPlan& p) {
   return mod_u(static_cast<unsigned>(x + p.madd[c]), c, p);
 }
 
-// Stage 4 for one channel: the fold ladder on |a| (signed plans) or a, the
-// n_sub conditional subtracts, and (-v) mod m = m - v for a negative a.
-__device__ __forceinline__ int fold_channel(int a, int j, const FusedPlan& p) {
-  const int m = p.mods[j];
-  const bool neg = p.is_signed && a < 0;
-  int v = neg ? -a : a;
+// The fold ladder of channel j on a value v >= 0: the plan's R
+// shift/multiply rungs, then the n_sub conditional subtracts.  Built once,
+// it holds the channel's steps in registers (rns_fold_kernel keeps one for
+// a whole block).
+struct ChannelLadder {
+  int m, R, n_sub;
+  int s[MAXR], c[MAXR];
+
+  __device__ __forceinline__ ChannelLadder(const FusedPlan& p, int j)
+      : m(p.mods[j]), R(p.R), n_sub(p.n_sub) {
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < p.R) {
-      const int s = p.sched_s[j][r];
-      const int mask = static_cast<int>((1u << s) - 1u);  // s <= 30
-      v = (v & mask) + (v >> s) * p.sched_c[j][r];
+    for (int r = 0; r < MAXR; ++r) {
+      s[r] = r < R ? p.sched_s[j][r] : 0;
+      c[r] = r < R ? p.sched_c[j][r] : 0;
     }
   }
-  // unrolled and predicated, so folds of several values interleave
+  __device__ __forceinline__ int operator()(int v) const {
 #pragma unroll
-  for (int u = 0; u < MAXSUB; ++u) {
-    if (u < p.n_sub) v = v >= m ? v - m : v;
+    for (int r = 0; r < MAXR; ++r) {
+      if (r < R) {
+        const int mask = static_cast<int>((1u << s[r]) - 1u);  // s <= 30
+        v = (v & mask) + (v >> s[r]) * c[r];
+      }
+    }
+    // unrolled and predicated, so folds of several values interleave
+#pragma unroll
+    for (int u = 0; u < MAXSUB; ++u) {
+      if (u < n_sub) v = v >= m ? v - m : v;
+    }
+    return v;
   }
-  return (neg && v > 0) ? m - v : v;
+};
+
+// Stage 4 for one channel: the ladder on |a| (signed plans) or a, and
+// (-v) mod m = m - v for a negative a.
+__device__ __forceinline__ int fold_channel(int a, int j, const FusedPlan& p) {
+  const ChannelLadder fold(p, j);
+  const bool neg = p.is_signed && a < 0;
+  const int v = fold(neg ? -a : a);
+  return (neg && v > 0) ? fold.m - v : v;
 }
 
 // f32 Horner out = out*2^15 + limb, top limb first (multiword.limbs_to_float).
@@ -802,80 +823,22 @@ struct Tile16 {
   static_assert(2 * WSM >= RECV, "the gather fits the K loop's buffers");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  // src-size 0 zero-fills the 16 bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
 __device__ __forceinline__ void prefetch_l1(const void* p) {
   asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
 }
-// A cluster barrier in two halves, so a block works between them; the
-// arrive is relaxed (a release would fence all of device memory), and
-// orders only the mbarrier's initialization (fence_mbarrier_init).
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// The address of the same shared-memory location in cluster rank `rank`.
-__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-__device__ __forceinline__ void mbar_init(unsigned mbar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mbar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(unsigned mbar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(mbar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void fence_mbarrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned mbar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(mbar), "r"(parity) : "memory");
-  }
-}
-// Generic-proxy writes to shared memory made visible to the bulk copy
-// engine (async proxy) that reads them next.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// One bulk copy of `bytes` (a multiple of 16) from this block's shared
-// memory into another rank's, counted as bytes on that rank's mbarrier.
-__device__ __forceinline__ void bulk_to_rank(unsigned dst, unsigned src,
-                                             unsigned bytes,
-                                             unsigned mbar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
-      "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(src), "r"(bytes),
-      "r"(mbar)
-      : "memory");
-}
+using hopper::bulk_to_rank;
+using hopper::cluster_arrive_relaxed;
+using hopper::cluster_wait;
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::fence_mbarrier_init;
+using hopper::fence_proxy_async;
+using hopper::map_rank;
+using hopper::mbar_expect;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
 
 // The 16-row tile's A operand of one K step, read ahead into registers:
 // thread tid holds the elements e = tid + i*THREADS (row e / TK, k

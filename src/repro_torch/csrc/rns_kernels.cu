@@ -16,10 +16,12 @@
 //     per channel (ChannelPlan.build(moduli, bound), unsigned).
 //
 // All four read and write each element once and do a few dozen integer
-// operations on it: device memory bounds them, and a grid-stride loop over
-// contiguous elements (neighbouring threads on neighbouring addresses) is
-// the whole design.  Every entry returns cudaGetLastError() after its
-// launch.
+// operations on it: device memory bounds them.  rns_forward, rns_reverse
+// and rns_modmul are grid-stride loops over contiguous elements
+// (neighbouring threads on neighbouring addresses).  rns_fold streams: a
+// grid of a few waves, 16-byte loads and stores, several in flight per
+// thread, and the channel's ladder in registers.  Every entry returns
+// cudaGetLastError() after its launch.
 
 #include "rns_common.cuh"
 
@@ -82,17 +84,54 @@ __global__ void rns_modmul_kernel(const T* __restrict__ a,
   }
 }
 
+constexpr int FOLD_THREADS = 256;
+constexpr int FOLD_UNROLL = 4;   // 16-byte loads in flight per thread
+
 // Unsigned plans only: values in [0, bound), one channel per grid row.
-__global__ void rns_fold_kernel(const int* __restrict__ x,
-                                int* __restrict__ out, long long S,
-                                FusedPlan plan) {
-  const int c = blockIdx.y;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < S; i += stride) {
-    const long long at = c * S + i;
-    out[at] = rns::fold_channel(x[at], c, plan);
+// A row whose input and output share their offset within 16 bytes (any
+// row of an aligned tensor) streams as int4 loads and stores,
+// FOLD_UNROLL in flight per thread, its ragged head and tail (< 4
+// elements each) folded one by one; any other row is folded one element
+// at a time.  Index math is 32-bit within a channel (S < 2^31).
+__global__ void __launch_bounds__(FOLD_THREADS)
+rns_fold_kernel(const int* __restrict__ x, int* __restrict__ out, int S,
+                FusedPlan plan) {
+  const int ch = blockIdx.y;
+  const rns::ChannelLadder fold(plan, ch);
+  const int* xc = x + static_cast<size_t>(ch) * S;
+  int* oc = out + static_cast<size_t>(ch) * S;
+  const int tid = blockIdx.x * FOLD_THREADS + threadIdx.x;
+  const int nthreads = gridDim.x * FOLD_THREADS;
+  const unsigned mis = static_cast<unsigned>(
+      reinterpret_cast<uintptr_t>(xc) & 15u);
+  if (mis != (reinterpret_cast<uintptr_t>(oc) & 15u)) {
+    for (int i = tid; i < S; i += nthreads) oc[i] = fold(xc[i]);
+    return;
+  }
+  const int head = min(S, static_cast<int>(((16u - mis) & 15u) >> 2));
+  const int n4 = (S - head) >> 2;
+  const int tail = head + 4 * n4;
+  if (tid < head) oc[tid] = fold(xc[tid]);
+  if (tid < S - tail) oc[tail + tid] = fold(xc[tail + tid]);
+  const int4* xv = reinterpret_cast<const int4*>(xc + head);
+  int4* ov = reinterpret_cast<int4*>(oc + head);
+  const int step = nthreads * FOLD_UNROLL;
+  for (int i0 = blockIdx.x * FOLD_THREADS * FOLD_UNROLL + threadIdx.x;
+       i0 < n4; i0 += step) {
+    int4 v[FOLD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FOLD_UNROLL; ++u) {
+      const int i = i0 + u * FOLD_THREADS;
+      if (i < n4) v[u] = __ldcs(xv + i);
+    }
+#pragma unroll
+    for (int u = 0; u < FOLD_UNROLL; ++u) {
+      const int i = i0 + u * FOLD_THREADS;
+      if (i < n4) {
+        __stcs(ov + i, make_int4(fold(v[u].x), fold(v[u].y), fold(v[u].z),
+                                 fold(v[u].w)));
+      }
+    }
   }
 }
 
@@ -224,11 +263,13 @@ int rns_modmul_launch(const void* a, const void* b, int is_int32, int* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: (C, S) int32; plan carries the moduli and the fold ladder.
-int rns_fold_launch(const int* x, int* out, long long S,
-                    const FusedPlan* plan, int blocks, void* stream) {
+// x, out: (C, S) int32, S < 2^31; plan carries the moduli and the fold
+// ladder.  blocks: the grid's blocks per channel.
+int rns_fold_launch(const int* x, int* out, int S, const FusedPlan* plan,
+                    int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rns_fold_kernel<<<dim3(blocks, plan->C), 256, 0, s>>>(x, out, S, *plan);
+  rns_fold_kernel<<<dim3(blocks, plan->C), FOLD_THREADS, 0, s>>>(x, out, S,
+                                                                 *plan);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,7 @@ launch on a CUDA tensor — never at import.  A failed build raises; nothing
 falls back.
 
 `Plan` and `TileArgs` mirror the structs of `csrc/rns_common.cuh` field for
-field, `FlashArgs` the one of `csrc/flash_attention.cu`; `plan_struct`
+field, `FlashArgs` the one of `csrc/flash_common.cuh`; `plan_struct`
 fills a `Plan` from a fold plan and a conversion plan.
 """
 from __future__ import annotations
@@ -80,7 +80,8 @@ class FlashArgs(ctypes.Structure):
                 ("D", ctypes.c_int), ("causal", ctypes.c_int),
                 ("has_window", ctypes.c_int), ("window", ctypes.c_int),
                 ("has_softcap", ctypes.c_int), ("bf16", ctypes.c_int),
-                ("scale", ctypes.c_float), ("softcap", ctypes.c_float)]
+                ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
+                ("route", ctypes.c_int), ("splits", ctypes.c_int)]
 
 
 def set_moduli(st: Plan, mods) -> None:
@@ -187,7 +188,7 @@ def library() -> ctypes.CDLL:
     lib.rns_forward_launch.argtypes = [p, i, p, i, ll, p, i, p]
     lib.rns_reverse_launch.argtypes = [p, p, p, ll, p, i, p]
     lib.rns_modmul_launch.argtypes = [p, p, i, p, ll, p, i, p]
-    lib.rns_fold_launch.argtypes = [p, p, ll, p, i, p]
+    lib.rns_fold_launch.argtypes = [p, p, i, p, i, p]
     lib.flash_attention_launch.argtypes = [p, p]
     lib.rns_tile16_smem.argtypes = [i, i, i]
     for fn in (lib.rns_tile_launch, lib.rns_tile16_smem,

@@ -5,27 +5,81 @@ Blocked online-softmax attention over (B, H, S, D) tensors with equal head
 counts for q, k and v (a caller with fewer KV heads repeats them): causal
 with the frontier aligned to the end of the keys, a sliding window, a tanh
 softcap, a per-sequence left ``pad``, or explicit ``qpos``/``kpos``
-positions with −1 marking an invalid row.  The CUDA source is
-`csrc/flash_attention.cu`; its header says what bounds the kernel on an
-H100 and how the design answers it.  The plain version is
+positions with −1 marking an invalid row.  The plain version is
 `ref.attention_ref`.
+
+Each call is one launch of one of three CUDA kernels (`flash_route`):
+
+- ``split`` (`csrc/flash_split.cu`), Sq ≤ 16 in either type: decode.
+  The keys of each (b, h) are split over a thread-block cluster of
+  `split_count` blocks, each taking a contiguous run of key tiles
+  (`ref.split_key_ranges`), merged through distributed shared memory.
+- ``mma`` (`csrc/flash_mma.cu`), Sq > 16 in bf16: prefill on the bf16
+  tensor cores (``mma.sync`` m16n8k16), 64 query rows a block.
+- ``fma`` (`csrc/flash_attention.cu`), Sq > 16 in float32: float32 FMAs on
+  the CUDA cores, which the float32 tolerance needs.
+
+Each source's header says what bounds its route on an H100 and how the
+design answers it.
 
 The Pallas kernel's ``block_q``/``block_k`` (its TPU grid) and
 ``interpret`` have no counterpart: the CUDA kernel's tiles are fixed.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
 import torch
 
 from . import _build
-from .ref import _positions, attention_ref
+from .ref import SPLIT_TILE, _positions, attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_route", "split_count", "ROUTES"]
 
 HEAD_SIZES = (16, 32, 64, 128)       # D values compiled into the kernel
+ROUTES = ("split", "mma", "fma")     # csrc/flash_common.cuh: flash::Route
+SPLIT_MAX_ROWS = 16                  # query rows the split route takes
+MAX_SPLITS = 8                       # the portable cluster size
+_PINNED: list[str] = []
+
+
+def flash_route(Sq: int, dtype: torch.dtype) -> str:
+    """The kernel a call with Sq query rows of ``dtype`` launches (or the
+    route pinned by `_pin_route`)."""
+    if _PINNED:
+        return _PINNED[-1]
+    if Sq <= SPLIT_MAX_ROWS:
+        return "split"
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def split_count(bh: int, Sk: int, sms: int) -> int:
+    """Cluster size S of the split route: enough blocks for four an SM
+    over the B·H heads (72 heads on 132 SMs: 8, 576 blocks), at most 8 and
+    at most the key tiles of Sk."""
+    return max(1, min(MAX_SPLITS, -(-4 * sms // bh), -(-Sk // SPLIT_TILE)))
+
+
+@contextlib.contextmanager
+def _pin_route(route: str):
+    """Every launch inside takes ``route`` (tests and `chip_smoke.py`,
+    which time bf16 prefill on ``fma`` in turns with ``mma``)."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    _PINNED.append(route)
+    try:
+        yield
+    finally:
+        _PINNED.pop()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernels read rows by 16-byte copies: a view that starts off a
+    16-byte boundary is copied first."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``pad[b]`` keys of sequence b.  ``qpos``/``kpos`` ((S,) or (B, S) int,
     −1 = invalid row) switch to explicit positions and exclude ``pad``.
     Fully masked rows are 0.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel.
+    tensor launches the kernel of `flash_route`.
     """
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
@@ -69,11 +123,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    route = flash_route(Sq, q.dtype)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     args = _build.FlashArgs()
+    args.route = ROUTES.index(route)
+    args.splits = (split_count(B * H, Sk, _build.num_sms(q.device.index or 0))
+                   if route == "split" else 1)
     if explicit:
         ar = torch.arange(max(Sq, Sk), dtype=torch.int32, device=q.device)
         qp = _positions(qpos, ar[:Sq] + (Sk - Sq), B).contiguous()
@@ -94,9 +152,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args.bf16 = int(q.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.library().flash_attention_launch(ctypes.byref(args), stream)
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

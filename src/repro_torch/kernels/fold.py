@@ -3,9 +3,10 @@
 Stage ④ on its own: (C, S) int32 values in [0, bound) → canonical residues
 in [0, m_c) per channel, by the ``ChannelPlan.build(moduli, bound)`` ladder
 and its conditional subtracts (`csrc/rns_kernels.cu`, ``rns_fold_kernel``,
-the ladder device code that ``rns_modmul`` runs).  It reads and writes one
-int32 per element and does a few integer operations on it, so device
-memory bounds it.
+the ladder device code that ``rns_modmul`` runs, held in registers).  It
+reads and writes one int32 per element and does a few integer operations
+on it, so device memory bounds it: the kernel streams 16-byte loads and
+stores, several in flight per thread, over a grid of a few waves.
 """
 from __future__ import annotations
 
@@ -20,7 +21,17 @@ from repro_torch.core.channel_plan import ChannelPlan
 from . import _build
 from .ref import fold_ref
 
-__all__ = ["fold"]
+__all__ = ["fold", "fold_blocks"]
+
+THREADS, UNROLL = 256, 4       # FOLD_THREADS, FOLD_UNROLL of the kernel
+RESIDENT = 2048 // THREADS     # blocks an SM holds
+
+
+def fold_blocks(S: int, C: int, sms: int) -> int:
+    """Blocks per channel: one per THREADS·UNROLL int4 of a row, capped at
+    four waves of the card over the C channels."""
+    need = -(-S // (4 * THREADS * UNROLL))
+    return max(1, min(need, 4 * RESIDENT * sms // C))
 
 
 @functools.lru_cache(maxsize=64)
@@ -48,8 +59,9 @@ def fold(x: torch.Tensor, moduli: Sequence[int], bound: int) -> torch.Tensor:
     S = x.shape[1]
     if S == 0:
         return out
-    blocks = max(1, min(-(-S // 256), _build.num_sms(x.device.index or 0)
-                        * 16 // len(mods)))
+    if S >= 2**31:
+        raise ValueError(f"fold takes rows of fewer than 2^31 values, got {S}")
+    blocks = fold_blocks(S, len(mods), _build.num_sms(x.device.index or 0))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.library().rns_fold_launch(x.data_ptr(), out.data_ptr(), S,
                                           ctypes.byref(st), blocks, stream)

@@ -24,9 +24,11 @@ from repro_torch.core.quant import QMAX, quantize_int8, requant_const
 
 __all__ = ["rns_forward_ref", "rns_fused_matmul_ref", "rns_matmul_ref",
            "rns_modmul_ref", "rns_reverse_ref", "rns_fused_chain_ref",
-           "rns_fused_crt_partial_ref", "fold_ref", "attention_ref"]
+           "rns_fused_crt_partial_ref", "fold_ref", "attention_ref",
+           "split_key_ranges", "attention_split_ref"]
 
 NEG_INF = -1e30
+SPLIT_TILE = 64      # keys: the unit the flash split route shares out
 
 
 def rns_forward_ref(x: torch.Tensor, moduli: Sequence[int],
@@ -265,3 +267,77 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(mask.any(-1, keepdim=True), torch.softmax(s, -1), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p,
                         v.to(torch.float32)).to(q.dtype)
+
+
+def split_key_ranges(Sq: int, Sk: int, splits: int, *, pad: int = 0,
+                     window: int | None = None, explicit: bool = False
+                     ) -> list[tuple[int, int]]:
+    """The key ranges [lo, hi) of the flash kernel's split route, one per
+    cluster rank, for one sequence of the batch (its ``pad``).
+
+    The keys the Sq rows can reach are [k_lo, Sk): k_lo is the pad and the
+    window's edge for the first row (query i sits at i + Sk − Sq; the last
+    row at Sk − 1 reaches every key under a causal mask), or 0 with
+    explicit positions.  Its SPLIT_TILE-key tiles are shared out in
+    contiguous runs, rank r taking tiles [n·r/S, n·(r+1)/S) of the n;
+    a rank with no tile gets an empty range.  `csrc/flash_split.cu`
+    (``split_range``) computes the same ranges on the card.
+    """
+    k_lo, k_hi = 0, Sk
+    if not explicit:
+        if window is not None:
+            k_lo = max(k_lo, Sk - Sq - window + 1)
+        k_lo = max(k_lo, int(pad))
+    if k_hi <= k_lo:
+        return [(k_lo, k_lo)] * splits
+    t_lo = k_lo // SPLIT_TILE
+    n = -(-k_hi // SPLIT_TILE) - t_lo
+    out = []
+    for r in range(splits):
+        lo = max(k_lo, (t_lo + n * r // splits) * SPLIT_TILE)
+        hi = max(lo, min(k_hi, (t_lo + n * (r + 1) // splits) * SPLIT_TILE))
+        out.append((lo, hi))
+    return out
+
+
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, splits: int, causal: bool = True,
+                        window: int | None = None,
+                        softcap: float | None = None, pad=None, qpos=None,
+                        kpos=None) -> torch.Tensor:
+    """The flash split route's decomposition with plain ops (tests only):
+    per rank of `split_key_ranges`, the masked softmax partial (m, l, acc)
+    over its keys, in float32; then the merge M = max m_r,
+    out = Σ acc_r·e^(m_r − M) / Σ l_r·e^(m_r − M), fully masked rows 0.
+    Equal to `attention_ref` up to float32 rounding."""
+    B, _, Sq, D = q.shape
+    Sk = k.shape[-2]
+    explicit = qpos is not None or kpos is not None
+    mask = attention_mask(B, Sq, Sk, causal=causal, window=window, pad=pad,
+                          qpos=qpos, kpos=kpos, device=q.device)[:, None]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * (1.0 / math.sqrt(D))
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    pads = [0] * B if pad is None else [int(p) for p in torch.as_tensor(
+        pad).reshape(B)]
+    ranges = [split_key_ranges(Sq, Sk, splits, pad=pads[b], window=window,
+                               explicit=explicit) for b in range(B)]
+    parts = []
+    for r in range(splits):
+        member = torch.zeros((B, 1, 1, Sk), dtype=torch.bool,
+                             device=q.device)
+        for b in range(B):
+            lo, hi = ranges[b][r]
+            member[b, ..., lo:hi] = True
+        valid = mask & member
+        sm = torch.where(valid, s, NEG_INF)
+        m = sm.amax(-1, keepdim=True)
+        p = torch.where(valid, torch.exp(sm - m), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhqk,bhkd->bhqd", p,
+                                   v.to(torch.float32))))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = sum(acc * torch.exp(m - M) for m, _, acc in parts)
+    den = sum(l * torch.exp(m - M) for m, l, _ in parts)
+    return (num / torch.where(den == 0, 1.0, den)).to(q.dtype)

@@ -18,6 +18,7 @@ from repro_torch.kernels import (flash_attention, fold, ref, rns_forward,
                                  rns_fused_crt_partial, rns_fused_matmul,
                                  rns_matmul, rns_modmul, rns_reverse)
 from repro_torch.kernels import rns_fused as tile
+from repro_torch.kernels.flash_attention import _pin_route, flash_route
 
 pytestmark = pytest.mark.cuda
 
@@ -464,11 +465,29 @@ FLASH_CASES = [
     (2, 2, 48, 130, 64, True, 40, None, None, True),
     (3, 9, 257, 257, 64, True, None, None, (0, 17, 256), False),
 ]
+# Every route at every head size: Sq 1, 4, 16 take the split route (its
+# 1-, 4- and 16-row instances), Sq 17 the mma (bf16) or fma (float32)
+# route; lane 1's pad leaves the last tile alone, so most cluster ranks
+# have no key, and lane 2 is all padding.
+FLASH_CASES += [(3, 2, Sq, Sk, D, True, None, None, (0, Sk - 10, Sk), False)
+                for D in (16, 32, 64, 128) for Sq in (1, 4, 16, 17)
+                for Sk in (128, 2048, 4096)]
+FLASH_CASES += [
+    # decode with a window (and a softcap); the pad covers whole splits
+    (2, 3, 1, 2048, 64, True, 300, None, (0, 1000), False),
+    (2, 3, 1, 2048, 128, True, 700, 30.0, (5, 1500), False),
+    # short query blocks with explicit positions, and non-causal
+    (2, 2, 4, 300, 64, True, None, None, None, True),
+    (2, 2, 9, 333, 32, False, None, None, (0, 200), False),
+    # prefill with Sq, Sk and Sk - Sq no multiple of 64: the frontier tiles
+    (2, 2, 100, 130, 16, True, None, None, (0, 7), False),
+    (2, 2, 100, 130, 32, True, 50, None, (0, 70), False),
+    (2, 2, 100, 130, 128, True, None, 50.0, (0, 129), False),
+    (2, 2, 70, 70, 128, False, None, None, None, False),
+]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_matches_plain(dev, case, dtype):
+def _flash_case(dev, case, dtype):
     B, H, Sq, Sk, D, causal, window, cap, pad, explicit = case
     g = torch.Generator(device=dev).manual_seed(Sq * Sk + D)
     q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
@@ -484,18 +503,108 @@ def test_flash_matches_plain(dev, case, dtype):
         kp[0, 7:30] = -1
         kp[-1, :] = torch.randperm(Sk, generator=g, device=dev).int()
         kw.update(qpos=qp, kpos=kp)
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, **kw)
-    want = ref.attention_ref(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
+    return q, k, v, kw
+
+
+def _flash_close(got, want, dtype):
     # the plain version computes in float32 too: bf16 outputs agree to one
     # bf16 ulp (2^-7 relative) of the output, float32 ones to 2e-5
     rtol, atol = (2.0**-7, 1e-3) if dtype == torch.bfloat16 else (0.0, 2e-5)
     assert ((got.double() - want.double()).abs()
             <= rtol * want.double().abs() + atol).all()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_matches_plain(dev, case, dtype):
+    B, H, Sq, Sk, D = case[:5]
+    q, k, v, kw = _flash_case(dev, case, dtype)
+    route = flash_route(Sq, dtype)
+    before = flash_attention.launches
+    routes = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert flash_attention.route_launches[route] == routes[route] + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _flash_close(got, want, dtype)
     dead = ~ref.attention_mask(B, Sq, Sk, device=dev, **{
         k_: kw.get(k_) for k_ in ("causal", "window", "pad", "qpos",
                                   "kpos")}).any(-1)
     assert (got[dead[:, None].expand(-1, H, -1)] == 0).all()
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 5, 6)]
+                         + [FLASH_CASES[-3]])
+def test_flash_fma_route_pinned_bf16(dev, case):
+    """bf16 prefill pinned to the CUDA-core route (the "before" that
+    chip_smoke.py times in turns with the mma route) stays within the
+    bf16 tolerance, one launch on that route."""
+    q, k, v, kw = _flash_case(dev, case, torch.bfloat16)
+    before = flash_attention.route_launches["fma"]
+    with _pin_route("fma"):
+        got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["fma"] == before + 1
+    _flash_close(got, ref.attention_ref(q, k, v, **kw), torch.bfloat16)
+
+
+def test_flash_decode_captures(dev):
+    """A decode call (8 lanes, 9 heads, 2048 keys, ragged pad, the split
+    route as one cluster launch) captured in a CUDA graph and replayed on
+    new inputs copied into the captured buffers: bit-equal to the same call
+    made eagerly, and within tolerance of the plain version."""
+    B, H, Sk, D = 8, 9, 2048, 64
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (torch.empty(B, H, S, D, device=dev, dtype=torch.bfloat16)
+               for S in (1, Sk, Sk))
+    pad = torch.tensor([0, 1, 17, 512, 1024, 2047, 2048, 5],
+                       dtype=torch.int32, device=dev)
+
+    def fill():
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+
+    fill()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention(q, k, v, pad=pad)     # build, shared memory limit
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = flash_attention.route_launches["split"]
+    with torch.cuda.graph(graph):
+        out = flash_attention(q, k, v, pad=pad)
+    assert flash_attention.route_launches["split"] == before + 1
+    for _ in range(2):
+        fill()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = flash_attention(q, k, v, pad=pad)
+        assert torch.equal(out, eager)
+        _flash_close(out, ref.attention_ref(q, k, v, pad=pad),
+                     torch.bfloat16)
+        assert (out[6] == 0).all()
+
+
+@pytest.mark.parametrize("S", [8 * 1536 + 1, 8 * 1536 + 2, 4097, 7, 1])
+@pytest.mark.parametrize("layout", ["fresh", "row-slice", "offset"])
+def test_fold_ragged_and_unaligned(dev, S, layout):
+    """Rows of S % 4 = 1, 2 or 3 values (ragged heads and tails), and
+    inputs that start off a 16-byte boundary: the rows of a larger
+    tensor after its first (row-slice), or a flat buffer read from its
+    second value (offset).  Bit-equal to the plain version, one launch."""
+    mods, bound = (47, 43, 41, 39, 37), 1536 * 46 * 46
+    C = len(mods)
+    g = torch.Generator(device=dev).manual_seed(S)
+    big = torch.randint(0, bound, (C + 1, S), generator=g, device=dev,
+                        dtype=torch.int32)
+    x = {"fresh": big[:C].clone(), "row-slice": big[1:],
+         "offset": big.reshape(-1)[1:1 + C * S].view(C, S)}[layout]
+    assert x.is_contiguous()
+    before = fold.launches
+    got = fold(x, mods, bound)
+    torch.cuda.synchronize()
+    assert fold.launches == before + 1
+    assert torch.equal(got, ref.fold_ref(x, mods, bound))
