@@ -18,7 +18,13 @@ Phases, each of which must pass:
      the two timed in turns; `prefill:` lines sum each served path's
      launches of one layer at M = 512 for both, `decode:` lines each
      path's launches of one layer at M = 8 (the 16-row tile, K split over
-     thread-block clusters);
+     thread-block clusters).  The conversion kernels (`rns_forward`,
+     `rns_reverse`) are timed over operand copies that outgrow the L2; an
+     `edge:` line holds both bit-equal to their plain versions on every
+     length 0-33, views off a 16-byte boundary, C = 1-12, moduli up to
+     2^31 - 1, INT32_MIN/MAX and every (C, L) instance of the reverse
+     with and without a scale, and a `convert:` line sums one layer's
+     conversions at decode and prefill;
   3. serve   — three full 30-layer models (published widths, seeded random
      weights) served through `serve.Engine`: `rns-smollm-135m-fused`
      (encoded weights, one fused launch per linear),
@@ -45,7 +51,8 @@ bf16 prefill also pinned to `fma`, held alike and timed in turns with
 `mma`; a `flash:` line sums up decode, prefill and `fold`),
 `fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
 for n = 1 and n = C) against their plain versions.  Lines: per-shape
-kernel rows, a `kernels:` summary, the `decode:` and `prefill:` sums, one
+kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
+`decode:` and `prefill:` sums, one
 `serve:` line per model, a `chain:` line, an `entry:` line, one `check:`
 line per smoke config, the nvidia-smi line, the kernels JSON line and,
 last, the device JSON line.  ``--record
@@ -407,15 +414,23 @@ def phase_kernels(layer_shapes, decode_m, prefill_m, dev):
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         fwd_ok &= same
-        ms = device_ms(lambda i: rns_forward(q, mods, dtype=torch.int8), 5)
-        call = time_ms(lambda i: rns_forward(q, mods, dtype=torch.int8),
-                       reps=10)
+        del got, want
+        # timed over copies of q whose reads and writes outgrow the L2
+        nbytes = q.numel() * (1 + len(mods))
+        pool = _copies(q.clone, nbytes)
+        npool = len(pool)
+        ms = device_ms(lambda i: rns_forward(pool[i], mods,
+                                             dtype=torch.int8), npool)
+        call = time_ms(lambda i: rns_forward(pool[i % npool], mods,
+                                             dtype=torch.int8), reps=10)
         plain = time_ms(lambda i: ref.rns_forward_ref(q, mods, torch.int8),
                         reps=5, warmup=1)
         mcol = torch.tensor(mods, dtype=torch.int8,
                             device=dev).reshape(-1, 1, 1, 1)
-        lib = device_ms(lambda i: torch.remainder(q[None], mcol), 5)
-        b, by = bound_ms(q.numel() * (1 + len(mods)), 0)
+        lib = device_ms(lambda i: torch.remainder(pool[i][None], mcol),
+                        npool)
+        b, by = bound_ms(nbytes, 0)
+        del pool
         rows.append({"kernel": "rns_forward", "leaf": name,
                      "shape": [stack, k, n], "C": len(mods), "equal": same,
                      "max_abs_err": 0 if same else
@@ -628,13 +643,17 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
             .to(torch.int32)
         sc = torch.rand((m, 1), generator=g, device=dev) if scaled else None
         C = len(basis.moduli)
+        nbytes = 4 * C * m * n + 4 * m * n + (4 * m if scaled else 0)
+        # timed over copies of the residues that outgrow the L2
+        pool = _copies(r.clone, nbytes)
         ok &= _measure(
             rows, "rns_reverse", f"{label} M={m} N={n}",
             rns_reverse(r, conv, scale=sc), ref.rns_reverse_ref(r, conv, sc),
-            lambda i, r=r, conv=conv, sc=sc: rns_reverse(r, conv, scale=sc),
+            lambda i, pool=pool, conv=conv, sc=sc: rns_reverse(
+                pool[i], conv, scale=sc),
             lambda r=r, conv=conv, sc=sc: ref.rns_reverse_ref(r, conv, sc),
-            None, 20, 4 * C * m * n + 4 * m * n + (4 * m if scaled else 0),
-            0, leaf=label, M=m, N=n, C=C)
+            None, len(pool), nbytes, 0, leaf=label, M=m, N=n, C=C)
+        del pool
 
     # rns_modmul: the staged chain's gate multiply, (C, M·F) int8
     for m, n in ((decode_m, F), (prefill_m, F), (ms_odd[0], ms_odd[1])):
@@ -671,16 +690,120 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
         mods = basis.moduli
         q = torch.randint(-127, 128, shape, generator=g, device=dev).to(dtype)
         mcol = torch.tensor(mods, dtype=dtype, device=dev).reshape(-1, 1, 1)
+        nbytes = q.numel() * (q.element_size() + len(mods))
+        # timed over copies of q whose reads and writes outgrow the L2
+        pool = _copies(q.clone, nbytes)
         ok &= _measure(
             rows, "rns_forward", f"{label} {shape[0]}x{shape[1]}",
             rns_forward(q, mods, dtype=torch.int8),
             ref.rns_forward_ref(q, mods, torch.int8),
-            lambda i, q=q, mods=mods: rns_forward(q, mods, dtype=torch.int8),
+            lambda i, pool=pool, mods=mods: rns_forward(pool[i], mods,
+                                                        dtype=torch.int8),
             lambda q=q, mods=mods: ref.rns_forward_ref(q, mods, torch.int8),
-            (lambda i, q=q, mcol=mcol: torch.remainder(q[None], mcol), 20),
-            20, q.numel() * (q.element_size() + len(mods)), 0,
-            leaf=label, shape=list(shape), C=len(mods))
+            (lambda i, pool=pool, mcol=mcol: torch.remainder(pool[i][None],
+                                                             mcol),
+             len(pool)),
+            len(pool), nbytes, 0, leaf=label, shape=list(shape),
+            C=len(mods), M=shape[0] if label[0] != "w" else None)
+        del pool
     return rows, ok
+
+
+def phase_edges(dev):
+    """rns_forward and rns_reverse against their plain versions, bit for
+    bit, on the edge cases of `tests/test_torch_cuda.py` (built by
+    `tests/_convert_cases.py`): every length 0-33, lengths at the vector
+    body and input views that start off a 16-byte boundary, C = 1-12
+    moduli (int8 and int32 residues), moduli 2, 64, 2^15 + 3 and 2^31 - 1
+    (int32 residues), INT32_MIN and INT32_MAX, and every (C, L) instance
+    of the reverse without a scale and with one of four broadcast
+    scales."""
+    import torch
+    from repro_torch.core.conversion_plan import ConversionPlan
+    from repro_torch.core.rns import basis_for_int8_matmul
+    from repro_torch.kernels import ref, rns_forward, rns_reverse
+    from repro_torch.kernels.rns_convert import REVERSE_INSTANCES
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _convert_cases as cc
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    counts = {"rns_forward": 0, "rns_reverse": 0}
+    fails = []
+
+    def values(n, dtype, offset=0):
+        return cc.forward_values(n, dtype, sum(counts.values()), offset,
+                                 dev)
+
+    def fwd(name, x, mods, dtype):
+        counts["rns_forward"] += 1
+        got = rns_forward(x, mods, dtype=dtype)
+        if not torch.equal(got, ref.rns_forward_ref(x, mods, dtype)):
+            fails.append(f"rns_forward {name} {tuple(x.shape)} {x.dtype}->"
+                         f"{dtype} {mods}")
+
+    def rev(name, r, conv, sc):
+        counts["rns_reverse"] += 1
+        got = rns_reverse(r, conv, scale=sc)
+        if not torch.equal(got, ref.rns_reverse_ref(r, conv, sc)):
+            fails.append(f"rns_reverse {name} C={conv.k} L={conv.nlimbs} "
+                         f"{tuple(r.shape)} scale="
+                         f"{None if sc is None else tuple(sc.shape)}")
+
+    def scales(shape):
+        """Four scales that broadcast against ``shape`` (M, N): full,
+        per row, per column, one value."""
+        M, N = shape
+        return [torch.rand(s, generator=g, device=dev)
+                for s in ((M, N), (M, 1), (N,), ())]
+
+    # the least lengths the kernels take in 16- and 4-element vectors
+    # (rns_convert.vectors); shorter ones run one element a thread
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fbig, rbig = 32 * 16 * sms, 32 * 4 * sms
+    served = basis_for_int8_matmul(576).moduli
+    types = [(i, o) for i in (torch.int8, torch.int32)
+             for o in (torch.int8, torch.int32)]
+    for it, ot in types:
+        for S in range(34):
+            fwd("ragged", values(S, it), served, ot)
+        for S in (fbig, fbig + 1, fbig + 4, 8 * 576):
+            for off in (0, 1, 3):
+                fwd("misaligned", values(S, it, off), served, ot)
+        for C in range(1, 13):
+            for S in (8 * 576, fbig + 16):
+                fwd(f"C={C}", values(S, it), cc.SMALL_MODULI[:C], ot)
+    for it in (torch.int8, torch.int32):
+        for S in (33, 4096, fbig):
+            fwd("large moduli", values(S, it), cc.LARGE_MODULI, torch.int32)
+            fwd("large moduli", values(S, it, 1), cc.LARGE_MODULI[::-1],
+                torch.int32)
+    for i, (C, L) in enumerate(sorted(REVERSE_INSTANCES)):
+        basis = cc.basis_with_limbs(C, L)
+        conv = ConversionPlan.for_basis(basis)
+        for shape in ((8, 192), (13, 70), (-(-rbig // 192), 192)):
+            r = cc.edge_residues(basis, shape, i, dev)
+            rev("instance", r, conv, None)
+            rev("instance", r, conv, scales(shape)[i % 4])
+    basis = basis_for_int8_matmul(576)
+    conv = ConversionPlan.for_basis(basis)
+    for S in range(34):
+        r = cc.edge_residues(basis, (1, S), S, dev)
+        rev("ragged", r, conv, None)
+        rev("ragged", r, conv, scales((1, S))[S % 4])
+    for S in (rbig, rbig + 1, rbig + 2, rbig + 3, 1536 + 2):
+        r = cc.edge_residues(basis, (S,), S, dev)
+        big = torch.empty(5 * S + 3, dtype=torch.int32, device=dev)
+        for off in (1, 2):
+            view = big[off:off + 5 * S].view(5, S)
+            view.copy_(r)
+            rev("misaligned", view, conv, None)
+            sc = torch.rand(S + 1, generator=g, device=dev)[1:]
+            rev("misaligned", view, conv, sc)
+    if fails:
+        raise AssertionError(f"{len(fails)} edge cases differ from the "
+                             f"plain versions, first: {fails[:5]}")
+    return counts
 
 
 def _flash_inputs(case, dtype, g, dev):
@@ -969,6 +1092,27 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
     return rows, bool(ok)
 
 
+def convert_sums(rows, rows2, names, ms):
+    """Per-layer sums of the conversion kernels: the 7 encodes at Engine
+    init; the staged path's 7 weight conversions (the same at every M);
+    at each M the staged path's 7 reverses and the resident path's 2
+    activation encodes."""
+    def of(kernel, pick):
+        return _sum([r for r in rows2 if r["kernel"] == kernel and pick(r)])
+
+    out = {"init encodes": _sum([r for r in rows
+                                 if r["kernel"] == "rns_forward"]),
+           "staged weight conversions": of(
+               "rns_forward", lambda r: r["leaf"].startswith("weight-"))}
+    for m in ms:
+        out[f"staged reverses M={m}"] = of(
+            "rns_reverse", lambda r: r["leaf"] in names and r["M"] == m)
+        out[f"resident activation encodes M={m}"] = of(
+            "rns_forward", lambda r: r["leaf"] in ("act-qkv", "act-mlp")
+            and r["M"] == m)
+    return out
+
+
 def per_layer(rows, rows2, layer_shapes, m):
     """Each served path's tile-kernel launches of one layer at M = m,
     summed at the heights the launcher picks (``ms``) and, past 16 rows,
@@ -1145,10 +1289,20 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(((e.self_device_time_total, e.key, e.count)
                   for e in kernels), reverse=True)[:8]
+    # the port's own kernels by name (all their instances summed)
+    ours = {}
+    for e in kernels:
+        for name in ("rns_forward_kernel", "rns_reverse_kernel",
+                     "rns_tile_kernel", "rns_modmul_kernel"):
+            if name in e.key:
+                us, n = ours.get(name, (0.0, 0))
+                ours[name] = (us + e.self_device_time_total, n + e.count)
     trace = {"wall_ms": 1e3 * traced_s, "device_busy_ms": busy_us / 1e3,
              "device_busy_share": busy_us / (1e6 * traced_s),
              "top_device": [{"us": u, "name": k[:80], "count": c}
-                            for u, k, c in top if u > 0]}
+                            for u, k, c in top if u > 0],
+             "port_kernels": {k: {"us": us, "count": n}
+                              for k, (us, n) in ours.items()}}
 
     # finite logits at the served shape
     batch, _ = eng._pack(prompts)
@@ -1301,6 +1455,17 @@ def main() -> int:
     matmul = pick("rns_matmul", names)
     reverse = pick("rns_reverse", names)
     modmul = pick("rns_modmul", [f"M={lanes}"])
+    edges = phase_edges(dev)
+    print(f"edge: rns_forward {edges['rns_forward']} cases, rns_reverse "
+          f"{edges['rns_reverse']} cases (every (C, L) instance, with and "
+          f"without a scale): all bit-equal to the plain versions")
+    convert = convert_sums(rows, rows2, names, (lanes, lanes * bucket))
+    print("convert: one layer's conversions (us; bound; torch.remainder): "
+          + " | ".join(
+              f"{k} {1e3 * v['ms']:.2f}; {1e3 * v['bound_ms']:.2f}"
+              + ("" if v["library_ms"] is None
+                 else f"; {1e3 * v['library_ms']:.2f}")
+              for k, v in convert.items()) + f" | on {dev_info['smi']}")
     print("phase kernels slice 3:")
     qkv_n = qd + 2 * kvd
     rows3, ok3 = phase_kernels_slice3(layer_shapes, (d, f, qkv_n), lanes,
@@ -1385,7 +1550,11 @@ def main() -> int:
               f"wall, device busy {tr['device_busy_ms']:.2f} ms "
               f"({100 * tr['device_busy_share']:.1f}%); top: "
               + "; ".join(f"{t['name']} {t['us']:.0f} us x{t['count']}"
-                          for t in tr["top_device"][:4]))
+                          for t in tr["top_device"][:4])
+              + " | port kernels: " + "; ".join(
+                  f"{k} {v['us']:.0f} us x{v['count']} "
+                  f"({100 * v['us'] / (1e3 * tr['device_busy_ms']):.1f}% "
+                  f"of busy)" for k, v in tr["port_kernels"].items()))
 
     chain = phase_chain(d, f, (lanes, lanes * bucket), dev)
     print(f"chain: rns_chain_linear staged == fused bit for bit at "
@@ -1484,6 +1653,7 @@ def main() -> int:
             json.dump({"device": dev_info, "rows": rows + rows2 + rows3,
                        "serve": serves, "chain": chain, "entries": entries,
                        "prefill_per_layer": prefill,
+                       "convert_per_layer": convert, "edges": edges,
                        "decode_per_layer": decode,
                        "check_logit_err": checks, "kernels": kernels},
                       fh, indent=1)

@@ -180,12 +180,6 @@ struct TileArgs {
 
 namespace rns {
 
-__device__ __forceinline__ int floor_mod(int a, int m) {
-  // CUDA % truncates toward zero; the reference's jnp.mod is floored.
-  const int r = a % m;
-  return r < 0 ? r + m : r;
-}
-
 // |u|_{m_c} of an unsigned u < 2^32 by the plan's reciprocal mu_c: the
 // quotient estimate __umulhi(u, mu_c) is exact or one short (u < 2^32,
 // mu_c * m_c > 2^32 - m_c), so one conditional subtract finishes it.  No

@@ -9,6 +9,8 @@ import contextlib
 import pytest
 import torch
 
+import _convert_cases as cc
+
 from repro_torch.core import rns_tensor as trt
 from repro_torch.core.conversion_plan import ConversionPlan
 from repro_torch.core.quant import quant_scale, quantize_int8, requant_const
@@ -19,6 +21,7 @@ from repro_torch.kernels import (flash_attention, fold, ref, rns_forward,
                                  rns_matmul, rns_modmul, rns_reverse)
 from repro_torch.kernels import rns_fused as tile
 from repro_torch.kernels.flash_attention import _pin_route, flash_route
+from repro_torch.kernels.rns_convert import REVERSE_INSTANCES
 
 pytestmark = pytest.mark.cuda
 
@@ -608,3 +611,171 @@ def test_fold_ragged_and_unaligned(dev, S, layout):
     torch.cuda.synchronize()
     assert fold.launches == before + 1
     assert torch.equal(got, ref.fold_ref(x, mods, bound))
+
+
+FWD_TYPES = [(torch.int8, torch.int8), (torch.int8, torch.int32),
+             (torch.int32, torch.int8), (torch.int32, torch.int32)]
+
+
+def _vector_size(V):
+    """The least length the kernels take in V-element vectors (a warp of
+    them for every SM, `rns_convert.vectors`); shorter ones run one
+    element a thread."""
+    return 32 * V * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _forward_same(x, mods, dtype):
+    before = rns_forward.launches
+    got = rns_forward(x, mods, dtype=dtype)
+    torch.cuda.synchronize()
+    assert rns_forward.launches == before + (x.numel() > 0)
+    assert got.dtype == dtype
+    assert torch.equal(got, ref.rns_forward_ref(x, mods, dtype))
+
+
+@pytest.mark.parametrize("itype,otype", FWD_TYPES)
+def test_forward_ragged_and_misaligned(dev, itype, otype):
+    """Every length 0-33 (one element a thread), lengths at the vector
+    body (16-value vectors, their scalar tail with int32 residues, and
+    planes off the 16-byte boundary, which take one element a thread),
+    each fresh and starting 1 or 3 elements off a 16-byte boundary; the
+    type's extremes (INT32_MIN, INT32_MAX, -128) among the values."""
+    mods = basis_for_int8_matmul(576).moduli
+    for S in range(34):
+        _forward_same(cc.forward_values(S, itype, S, device=dev), mods, otype)
+    big = _vector_size(16)
+    for S in (big, big + 1, big + 4, 8 * 576):
+        for off in (0, 1, 3):
+            _forward_same(cc.forward_values(S, itype, S + off, off, dev),
+                          mods, otype)
+
+
+@pytest.mark.parametrize("C", range(1, 13))
+@pytest.mark.parametrize("itype,otype", FWD_TYPES)
+def test_forward_every_channel_count(dev, C, itype, otype):
+    for S in (8 * 576, _vector_size(16) + 16):
+        x = cc.forward_values(S, itype, C, device=dev)
+        _forward_same(x.reshape(8, -1), cc.SMALL_MODULI[:C], otype)
+
+
+@pytest.mark.parametrize("itype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("S", [33, 12 * 1536, "vectors"])
+def test_forward_large_moduli(dev, itype, S):
+    """Moduli 2, 64, 2^15 + 3 and 2^31 - 1 with int32 residues: the
+    reciprocal's quotient estimate at its extremes."""
+    S = _vector_size(16) if S == "vectors" else S
+    for off, mods in ((0, cc.LARGE_MODULI), (1, cc.LARGE_MODULI[::-1])):
+        _forward_same(cc.forward_values(S, itype, S, off, dev), mods,
+                      torch.int32)
+
+
+def _reverse_same(r, conv, scale):
+    before = rns_reverse.launches
+    got = rns_reverse(r, conv, scale=scale)
+    torch.cuda.synchronize()
+    assert rns_reverse.launches == before + (got.numel() > 0)
+    assert torch.equal(got, ref.rns_reverse_ref(r, conv, scale))
+
+
+def _scales(shape, seed, device):
+    """Scales that broadcast against an (M, N) output: full, per row, per
+    column, one value."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    M, N = shape
+    return [torch.rand(s, generator=g, device=device)
+            for s in ((M, N), (M, 1), (N,), ())]
+
+
+@pytest.mark.parametrize("C,L", sorted(REVERSE_INSTANCES))
+def test_reverse_every_instance(dev, C, L):
+    """Each (C, L) instance of the kernel, on a basis whose plan has those
+    counts: (8, 192) and ragged (13, 70) outputs (one element a thread)
+    and one that the 4-element vectors take, without a scale and with
+    each of four broadcast scales; the signed range's corners among the
+    values."""
+    basis = cc.basis_with_limbs(C, L)
+    conv = ConversionPlan.for_basis(basis)
+    assert (conv.k, conv.nlimbs) == (C, L)
+    for shape in ((8, 192), (13, 70), (-(-_vector_size(4) // 192), 192)):
+        r = cc.edge_residues(basis, shape, C * 8 + L, dev)
+        for sc in [None] + _scales(shape, L, dev):
+            _reverse_same(r, conv, sc)
+
+
+def test_reverse_ragged_and_misaligned(dev):
+    """Every length 0-33, lengths at the vector body (4-element vectors
+    and their scalar tail), and residue planes that start 1 or 2 elements
+    off a 16-byte boundary (with a scale off it too)."""
+    basis = basis_for_int8_matmul(576)
+    conv = ConversionPlan.for_basis(basis)
+    for S in range(34):
+        r = cc.edge_residues(basis, (S,), S, dev)
+        _reverse_same(r, conv, None)
+        _reverse_same(r, conv, torch.rand(S, device=dev))
+    big = _vector_size(4)
+    for S in (big, big + 1, big + 2, big + 3, 1538):
+        r = cc.edge_residues(basis, (S,), S, dev)
+        _reverse_same(r, conv, None)
+        _reverse_same(r, conv, torch.rand(S, device=dev))
+        _reverse_same(r, conv, torch.rand(S + 1, device=dev)[1:])
+        r = cc.edge_residues(basis, (S,), S, dev)
+        big = torch.empty(5 * S + 3, dtype=torch.int32, device=dev)
+        for off in (1, 2):
+            view = big[off:off + 5 * S].view(5, S)
+            view.copy_(r)
+            _reverse_same(view, conv, None)
+            _reverse_same(view, conv, torch.rand(S + 1, device=dev)[1:])
+
+
+def test_staged_layer_conversions_capture(dev):
+    """One staged layer's conversions at decode (M = 8): the 7 weight
+    conversions and the 7 reverses of the broadcast products, captured in
+    one CUDA graph (counters +7 and +7) and replayed on new inputs copied
+    into the captured buffers: each replay bit-equal to eager calls."""
+    shapes = [(576, 576), (576, 192), (576, 192), (576, 576), (576, 1536),
+              (576, 1536), (1536, 576)]
+    g = torch.Generator(device=dev).manual_seed(18)
+    ws = [torch.empty(K, N, dtype=torch.int8, device=dev)
+          for K, N in shapes]
+    convs = [ConversionPlan.for_basis(basis_for_int8_matmul(K))
+             for K, _ in shapes]
+    rs = [torch.empty(c.k, 8 * N, dtype=torch.int32, device=dev)
+          for c, (_, N) in zip(convs, shapes)]
+
+    def fill():
+        for w in ws:
+            w.copy_(torch.randint(-128, 128, w.shape, generator=g,
+                                  device=dev, dtype=torch.int8))
+        for r, c in zip(rs, convs):
+            r.copy_(torch.stack([torch.randint(0, m, r.shape[1:],
+                                               generator=g, device=dev,
+                                               dtype=torch.int32)
+                                 for m in c.moduli]))
+
+    def run():
+        return ([rns_forward(w, c.moduli, dtype=torch.int8)
+                 for w, c in zip(ws, convs)],
+                [rns_reverse(r, c) for r, c in zip(rs, convs)])
+
+    fill()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (rns_forward.launches, rns_reverse.launches)
+    with torch.cuda.graph(graph):
+        fwd, rev = run()
+    assert (rns_forward.launches, rns_reverse.launches) == (
+        before[0] + 7, before[1] + 7)
+    for _ in range(2):
+        fill()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager_fwd, eager_rev = run()
+        for got, want in zip(fwd + rev, eager_fwd + eager_rev):
+            assert torch.equal(got, want)
+        for got, w, c in zip(fwd, ws, convs):
+            assert torch.equal(got, ref.rns_forward_ref(w, c.moduli,
+                                                        torch.int8))

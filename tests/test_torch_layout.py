@@ -1,6 +1,8 @@
-"""Layout rules of the port: `src/repro_torch`, `chip_smoke.py` and
-`tile_phases.py` import neither JAX nor the reference package, and entry
-points use the CPU only when asked."""
+"""Layout rules of the port: `src/repro_torch`, `chip_smoke.py`,
+`tile_phases.py`, `convert_bench.py` and the edge cases `chip_smoke.py`
+shares with the card tests (`tests/_convert_cases.py`) import neither JAX
+nor the reference package, and entry points use the CPU only when
+asked."""
 import ast
 import pathlib
 
@@ -13,7 +15,8 @@ from repro_torch.serve.engine import Engine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tile_phases.py"]
+    ROOT / "chip_smoke.py", ROOT / "tile_phases.py",
+    ROOT / "convert_bench.py", ROOT / "tests" / "_convert_cases.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -40,7 +43,7 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert {"chip_smoke.py", "tile_phases.py",
+    assert {"chip_smoke.py", "tile_phases.py", "convert_bench.py",
             "src/repro_torch/kernels/rns_fused.py",
             "src/repro_torch/kernels/rns_matmul.py",
             "src/repro_torch/kernels/rns_modmul.py",
