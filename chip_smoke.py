@@ -24,15 +24,24 @@ Phases, each of which must pass:
      length 0-33, views off a 16-byte boundary, C = 1-12, moduli up to
      2^31 - 1, INT32_MIN/MAX and every (C, L) instance of the reverse
      with and without a scale, and a `convert:` line sums one layer's
-     conversions at decode and prefill;
+     conversions at decode and prefill; `rns_modmul` at the staged
+     chain's (7, 8·1536) and (7, 512·1536), int8 and int32 out, over
+     operand pairs that outgrow the L2 (`modmul:` line);
   3. serve   — three full 30-layer models (published widths, seeded random
      weights) served through `serve.Engine`: `rns-smollm-135m-fused`
      (encoded weights, one fused launch per linear),
      `rns-smollm-135m-resident` (residue-resident QKV and MLP chains) and
      `rns-smollm-135m-pallas` (live weights on the staged kernels); each
-     with its launch counts (the prefill's tile launches at 32 rows,
-     every decode step's at 16), batch invariance with pinned lanes,
-     prefill and decode times;
+     under both engines, the per-token loop (``engine="host"``: its
+     launch counts, the prefill's tile launches at 32 rows, every decode
+     step's at 16) and the captured decode step replayed
+     (``engine="scan"``: the warm-up's and the capture's launches equal
+     to one host step's, one replay a token, greedy tokens equal to the
+     host loop's), batch invariance with pinned lanes under both, prefill
+     time, decode ms a token of both engines timed in turns, and one
+     traced generate of each (host 4 tokens, scan 32: device busy share;
+     the scan's kernels by name equal to its eager prefill's counted
+     launches plus the captured step's times the replays);
   4. chain   — `rns_chain_linear` on the staged kernels equal bit for bit
      to the fused kernel at the full-width MLP shapes;
   5. entry   — the entry points no served model calls, once each at full
@@ -655,24 +664,36 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
             None, len(pool), nbytes, 0, leaf=label, M=m, N=n, C=C)
         del pool
 
-    # rns_modmul: the staged chain's gate multiply, (C, M·F) int8
+    # rns_modmul: the staged chain's gate multiply, (C, M·F) int8 into the
+    # chain's int8 residues (as the chain launches it) and into int32 (the
+    # reference's contract), timed over operand pairs that outgrow the L2
     for m, n in ((decode_m, F), (prefill_m, F), (ms_odd[0], ms_odd[1])):
         basis = basis_for_chain(F if n == F else n)
         mods = basis.moduli
         C = len(mods)
-        a = act(m, n, basis).residues
-        b = act(m, n, basis).residues
         mcol = torch.tensor(mods, dtype=torch.int32,
                             device=dev).reshape(-1, 1, 1)
-        a32, b32 = a.int(), b.int()
-        ok &= _measure(
-            rows, "rns_modmul", f"M={m} F={n}", rns_modmul(a, b, mods),
-            ref.rns_modmul_ref(a, b, mods),
-            lambda i, a=a, b=b, mods=mods: rns_modmul(a, b, mods),
-            lambda a=a, b=b, mods=mods: ref.rns_modmul_ref(a, b, mods),
-            (lambda i, a32=a32, b32=b32, mcol=mcol:
-             torch.remainder(a32 * b32, mcol), 20),
-            20, 2 * C * m * n + 4 * C * m * n, 0, M=m, N=n, C=C)
+        for otype in (torch.int8, torch.int32):
+            osize = torch.empty((), dtype=otype).element_size()
+            nbytes = (2 + osize) * C * m * n
+            pool = _copies(lambda m=m, n=n, basis=basis: (
+                act(m, n, basis).residues, act(m, n, basis).residues),
+                nbytes)
+            a, b = pool[0]
+            lib = [(x.int(), y.int()) for x, y in pool]
+            ok &= _measure(
+                rows, "rns_modmul", f"M={m} F={n} out={str(otype)[6:]} "
+                f"C={C}",
+                rns_modmul(a, b, mods, out_dtype=otype),
+                ref.rns_modmul_ref(a, b, mods, out_dtype=otype),
+                lambda i, pool=pool, mods=mods, otype=otype: rns_modmul(
+                    *pool[i], mods, out_dtype=otype),
+                lambda a=a, b=b, mods=mods, otype=otype:
+                ref.rns_modmul_ref(a, b, mods, out_dtype=otype),
+                (lambda i, lib=lib, mcol=mcol: torch.remainder(
+                    lib[i][0] * lib[i][1], mcol), len(lib)),
+                len(pool), nbytes, 0, M=m, N=n, C=C, out=str(otype)[6:])
+            del pool, lib
 
     # rns_forward at its per-step shapes: activation encodes, the staged
     # path's weight conversion, the staged chain's gate and requantized up
@@ -1195,7 +1216,64 @@ def expected_launches(cfg, steps):
     return want
 
 
+# the port's kernels by the name the profiler shows, and the launch
+# counters (`read_launches`) each is counted by
+KERNEL_COUNTERS = {"rns_tile_kernel": ("rns_fused_matmul", "rns_matmul"),
+                   "rns_forward_kernel": ("rns_forward",),
+                   "rns_reverse_kernel": ("rns_reverse",),
+                   "rns_modmul_kernel": ("rns_modmul",)}
+
+
+def _step_launches(cfg):
+    """Launches of one decode step (a host-loop step or the captured one)."""
+    one, two = expected_launches(cfg, 1), expected_launches(cfg, 2)
+    return {k: two[k] - one[k] for k in COUNTED}
+
+
+def _traced(eng, prompts, n, engine):
+    """One profiled ``generate`` of ``n`` tokens: wall and device busy
+    time, the longest kernels, the port's kernels by name, and the launch
+    counters' and the scan replays' increase over it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    reset_launches()
+    replays = eng.scan_replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=n, engine=engine)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+    counted = read_launches()
+    # kernel rows only: an aten op's row repeats its kernels' device time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(((e.self_device_time_total, e.key, e.count)
+                  for e in kernels), reverse=True)[:8]
+    ours = {}
+    for e in kernels:
+        for name in KERNEL_COUNTERS:
+            if name in e.key:
+                us, c = ours.get(name, (0.0, 0))
+                ours[name] = (us + e.self_device_time_total, c + e.count)
+    return {"engine": engine, "tokens": n, "wall_ms": 1e3 * traced_s,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / (1e6 * traced_s),
+            "top_device": [{"us": u, "name": k[:80], "count": c}
+                           for u, k, c in top if u > 0],
+            "port_kernels": {k: {"us": us, "count": c}
+                             for k, (us, c) in ours.items()},
+            "counted": counted, "replays": eng.scan_replays - replays}
+
+
 def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
+    """One served config under both engines: the per-token loop
+    (``engine="host"``) and the captured decode step replayed
+    (``engine="scan"``), their launches, tokens, timings in turns and
+    traced busy shares."""
     import numpy as np
     import torch
     from repro_torch.kernels.rns_fused import TM, TM_MMA, tile_launches
@@ -1208,15 +1286,15 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     lens = [5, 17, 38, 60][:n_prompts]
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
 
-    # the path: encode at init (if the config encodes), then one batched
-    # generate, with every launch count set to 0 just before
+    # the host path: encode at init (if the config encodes), then one
+    # batched generate, with every launch count set to 0 just before
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = Engine(cfg, params, smax=smax, lanes=lanes, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    out = eng.generate(prompts, max_new_tokens=new_tokens)
+    out = eng.generate(prompts, max_new_tokens=new_tokens, engine="host")
     torch.cuda.synchronize()
     launches = read_launches()
     heights = dict(tile_launches)
@@ -1240,26 +1318,50 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
                 not all(0 <= t < cfg.vocab_size for t in gen):
             raise AssertionError("malformed generate output")
 
+    # the scan path: prefill, a warm-up step and the captured step counted
+    # per step function call (the counters count at capture, not replay),
+    # then new_tokens - 1 replays
+    steps = []
+    step = eng._step
+
+    def counted_step(st):
+        reset_launches()
+        step(st)
+        steps.append(read_launches())
+
+    eng._step = counted_step
+    scan = eng.generate(prompts, max_new_tokens=new_tokens, engine="scan")
+    torch.cuda.synchronize()
+    del eng._step
+    one = _step_launches(cfg)
+    if eng.scan_captures != 1 or eng.scan_replays != new_tokens - 1 or \
+            steps != [one, one]:
+        raise AssertionError(f"{cfg.name} scan: {eng.scan_captures} "
+                             f"captures, {eng.scan_replays} replays, step "
+                             f"launches (warm-up, capture) {steps}, "
+                             f"expected {one} each")
+    if scan != out:
+        raise AssertionError(f"{cfg.name}: greedy scan tokens differ from "
+                             "the host loop's")
+
     # batch invariance: each prompt alone (same lanes) == its batched run
     for i, p in enumerate(prompts):
-        solo = eng.generate([p], max_new_tokens=new_tokens)[0]
-        if solo != out[i]:
-            raise AssertionError(f"prompt {i} alone differs from its "
-                                 f"batched tokens")
+        for engine in ("scan", "host"):
+            solo = eng.generate([p], max_new_tokens=new_tokens,
+                                engine=engine)[0]
+            if solo != out[i]:
+                raise AssertionError(f"prompt {i} alone ({engine}) differs "
+                                     "from its batched tokens")
 
     # timing: prefill = generate(1 token), at the launcher's tile heights
     # and with every tile launch pinned to 16 rows, in turns; decode = the
-    # rest, per step
-    def once(n):
+    # rest, per step, host and scan in turns
+    def once(n, engine="host"):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = eng.generate(prompts, max_new_tokens=n)
+        res = eng.generate(prompts, max_new_tokens=n, engine=engine)
         torch.cuda.synchronize()
         return time.perf_counter() - t, res
-
-    def wall(n):
-        ts = [once(n) for _ in range(3)]
-        return sorted(t for t, _ in ts)[1], ts[-1][1]
 
     pre = {TM_MMA: [], TM: []}
     for r in range(4):
@@ -1267,42 +1369,34 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
             pre[pin or TM_MMA].append(
                 _pinned(lambda: once(1)[0], pin) if pin else once(1)[0])
     pre_s, pre16_s = (statistics.median(pre[h]) for h in (TM_MMA, TM))
-    full_s, again = wall(new_tokens)
-    if again != out:
-        raise AssertionError("greedy generate is not deterministic")
-    dec_ms = 1e3 * (full_s - pre_s) / (new_tokens - 1)
+    full = {"host": [], "scan": []}
+    for r in range(4):
+        for engine in (("host", "scan") if r % 2 == 0 else ("scan", "host")):
+            t, res = once(new_tokens, engine)
+            if res != out:
+                raise AssertionError(f"greedy generate ({engine}) is not "
+                                     "deterministic")
+            full[engine].append(t)
+    dec_ms = {e: 1e3 * (statistics.median(ts) - pre_s) / (new_tokens - 1)
+              for e, ts in full.items()}
 
-    # one traced generate (prefill + 3 decode steps): device busy share
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=4)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t
-
-    # kernel rows only: an aten op's row repeats its kernels' device time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(((e.self_device_time_total, e.key, e.count)
-                  for e in kernels), reverse=True)[:8]
-    # the port's own kernels by name (all their instances summed)
-    ours = {}
-    for e in kernels:
-        for name in ("rns_forward_kernel", "rns_reverse_kernel",
-                     "rns_tile_kernel", "rns_modmul_kernel"):
-            if name in e.key:
-                us, n = ours.get(name, (0.0, 0))
-                ours[name] = (us + e.self_device_time_total, n + e.count)
-    trace = {"wall_ms": 1e3 * traced_s, "device_busy_ms": busy_us / 1e3,
-             "device_busy_share": busy_us / (1e6 * traced_s),
-             "top_device": [{"us": u, "name": k[:80], "count": c}
-                            for u, k, c in top if u > 0],
-             "port_kernels": {k: {"us": us, "count": n}
-                              for k, (us, n) in ours.items()}}
+    # traced generates: the device busy share of each engine (the host
+    # loop over 4 tokens, as before the scan existed: its trace is the
+    # profiler's costliest), and the scan's launches by kernel name == its
+    # eager prefill's (counted) + the captured step's x the replays
+    traces = {"host": _traced(eng, prompts, 4, "host"),
+              "scan": _traced(eng, prompts, new_tokens, "scan")}
+    tr = traces["scan"]
+    seen = {k: v["count"] for k, v in tr["port_kernels"].items()}
+    want_seen = {name: sum(tr["counted"][c] + one[c] * tr["replays"]
+                           for c in cs)
+                 for name, cs in KERNEL_COUNTERS.items()}
+    want_seen = {k: v for k, v in want_seen.items() if v}
+    if tr["replays"] != new_tokens - 1 or seen != want_seen:
+        raise AssertionError(f"{cfg.name} traced scan generate: kernels by "
+                             f"name {seen}, expected {want_seen} (prefill "
+                             f"{tr['counted']} + {tr['replays']} replays "
+                             f"of {one})")
 
     # finite logits at the served shape
     batch, _ = eng._pack(prompts)
@@ -1315,13 +1409,17 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
                 for k, v in want.items()}
     return {"arch": cfg.name, "layers": cfg.num_layers,
             "launches": launches, "launches_per_step": per_step,
+            "captured_step_launches": one,
             "tile_launches_by_rows": heights,
             "init_s": init_s, "prefill_ms": 1e3 * pre_s,
             "prefill_ms_tm16": 1e3 * pre16_s,
-            "decode_ms_per_token": dec_ms,
-            "decode_tokens_per_s": n_prompts * 1e3 / dec_ms,
+            "decode_ms_per_token": dec_ms["host"],
+            "decode_ms_per_token_scan": dec_ms["scan"],
+            "decode_tokens_per_s": n_prompts * 1e3 / dec_ms["host"],
+            "decode_tokens_per_s_scan": n_prompts * 1e3 / dec_ms["scan"],
             "prompt_lens": lens, "lanes": lanes, "new_tokens": new_tokens,
-            "smax": smax, "batch_invariant": True, "trace": trace}
+            "smax": smax, "batch_invariant": True, "scan_equals_host": True,
+            "trace": traces["host"], "trace_scan": traces["scan"]}
 
 
 def phase_check(smoke_cfg, dev):
@@ -1428,7 +1526,15 @@ def main() -> int:
                     ("w_down", f, d, L)]
     lanes, bucket = 8, 64
 
+    t_start = time.perf_counter()
+    marks = {}
+
+    def mark(phase):
+        marks[phase] = round(time.perf_counter() - t_start - sum(
+            marks.values()), 1)
+
     dev_info = phase_device(layer_shapes, lanes, lanes * bucket)
+    mark("device")
     dev = torch.device("cuda")
     print("phase kernels:")
     rows, fused_ok, fwd_ok, max_err = phase_kernels(
@@ -1454,7 +1560,8 @@ def main() -> int:
     names = [name for name, _, _ in staged_shapes]
     matmul = pick("rns_matmul", names)
     reverse = pick("rns_reverse", names)
-    modmul = pick("rns_modmul", [f"M={lanes}"])
+    # the staged chain's launch: int8 operands into int8 residues
+    modmul = pick("rns_modmul", [f"M={lanes} F={f} out=int8"])
     edges = phase_edges(dev)
     print(f"edge: rns_forward {edges['rns_forward']} cases, rns_reverse "
           f"{edges['rns_reverse']} cases (every (C, L) instance, with and "
@@ -1466,6 +1573,14 @@ def main() -> int:
               + ("" if v["library_ms"] is None
                  else f"; {1e3 * v['library_ms']:.2f}")
               for k, v in convert.items()) + f" | on {dev_info['smi']}")
+    mm_rows = [r for r in rows2 if r["kernel"] == "rns_modmul"
+               and r["N"] == f]
+    print("modmul: the staged chain's gate multiply (7, M·1536) int8, over "
+          "operand pairs that outgrow the L2 (us; bound; torch.remainder): "
+          + " | ".join(f"M={r['M']} out={r['out']} {1e3 * r['ms']:.2f}; "
+                       f"{1e3 * r['bound_ms']:.2f}; "
+                       f"{1e3 * r['library_ms']:.2f}" for r in mm_rows)
+          + f" | on {dev_info['smi']}")
     print("phase kernels slice 3:")
     qkv_n = qd + 2 * kvd
     rows3, ok3 = phase_kernels_slice3(layer_shapes, (d, f, qkv_n), lanes,
@@ -1529,6 +1644,7 @@ def main() -> int:
               f"{1e3 * agg['ms_tm16']:.1f} us, bf16 torch.matmul "
               f"{1e3 * agg['library_ms']:.1f} us, bound "
               f"{1e3 * agg['bound_ms']:.1f} us | on {smi}")
+    mark("kernels")
     print("phase serve:")
     serves = {}
     for arch in (ARCH, RESIDENT, STAGED):
@@ -1539,23 +1655,29 @@ def main() -> int:
               f"{serve['prompt_lens']}, lanes {lanes}), "
               f"{serve['new_tokens']} greedy tokens | prefill "
               f"{serve['prefill_ms']:.1f} ms (all tile launches on 16 rows: "
-              f"{serve['prefill_ms_tm16']:.1f} ms) | decode "
-              f"{serve['decode_ms_per_token']:.2f} ms/token | "
-              f"{serve['decode_tokens_per_s']:.1f} tokens/s | launches "
+              f"{serve['prefill_ms_tm16']:.1f} ms) | decode in turns: host "
+              f"{serve['decode_ms_per_token']:.2f} ms/token, scan "
+              f"{serve['decode_ms_per_token_scan']:.2f} ms/token | "
+              f"{serve['decode_tokens_per_s']:.1f} / "
+              f"{serve['decode_tokens_per_s_scan']:.1f} tokens/s | launches "
               f"{serve['launches']} (tile by rows "
-              f"{serve['tile_launches_by_rows']}) | batch-invariant | on "
-              f"{smi}")
-        tr = serve["trace"]
-        print(f"trace: {arch} generate(4 tokens) {tr['wall_ms']:.1f} ms "
-              f"wall, device busy {tr['device_busy_ms']:.2f} ms "
-              f"({100 * tr['device_busy_share']:.1f}%); top: "
-              + "; ".join(f"{t['name']} {t['us']:.0f} us x{t['count']}"
-                          for t in tr["top_device"][:4])
-              + " | port kernels: " + "; ".join(
-                  f"{k} {v['us']:.0f} us x{v['count']} "
-                  f"({100 * v['us'] / (1e3 * tr['device_busy_ms']):.1f}% "
-                  f"of busy)" for k, v in tr["port_kernels"].items()))
+              f"{serve['tile_launches_by_rows']}) | captured step "
+              f"{serve['captured_step_launches']} | scan == host, "
+              f"batch-invariant | on {smi}")
+        for tr in (serve["trace"], serve["trace_scan"]):
+            print(f"trace: {arch} {tr['engine']} generate({tr['tokens']} "
+                  f"tokens) {tr['wall_ms']:.1f} ms wall, device busy "
+                  f"{tr['device_busy_ms']:.2f} ms "
+                  f"({100 * tr['device_busy_share']:.1f}%), "
+                  f"{tr['replays']} replays; top: "
+                  + "; ".join(f"{t['name']} {t['us']:.0f} us x{t['count']}"
+                              for t in tr["top_device"][:4])
+                  + " | port kernels: " + "; ".join(
+                      f"{k} {v['us']:.0f} us x{v['count']} "
+                      f"({100 * v['us'] / (1e3 * tr['device_busy_ms']):.1f}%"
+                      f" of busy)" for k, v in tr["port_kernels"].items()))
 
+    mark("serve")
     chain = phase_chain(d, f, (lanes, lanes * bucket), dev)
     print(f"chain: rns_chain_linear staged == fused bit for bit at "
           f"{[(c['M'], c['K'], c['F']) for c in chain['shapes']]}: "
@@ -1572,6 +1694,7 @@ def main() -> int:
     if not entries["ok"]:
         raise AssertionError("an entry point's output is wrong")
 
+    mark("chain+entry")
     checks = {}
     for arch in (ARCH, RESIDENT, STAGED):
         err, finite = phase_check(get_smoke_config(arch), dev)
@@ -1581,6 +1704,10 @@ def main() -> int:
         if not (finite and err <= LOGIT_ATOL[arch]):
             raise AssertionError(f"{arch} smoke logits card vs CPU differ "
                                  f"by {err}")
+
+    mark("check")
+    print(f"time: seconds by phase {marks}, "
+          f"{time.perf_counter() - t_start:.0f} s in all")
 
     def by_path(key):
         out = {arch: sv["launches"][key] for arch, sv in serves.items()
@@ -1655,7 +1782,8 @@ def main() -> int:
                        "prefill_per_layer": prefill,
                        "convert_per_layer": convert, "edges": edges,
                        "decode_per_layer": decode,
-                       "check_logit_err": checks, "kernels": kernels},
+                       "check_logit_err": checks, "kernels": kernels,
+                       "phase_seconds": marks},
                       fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the conversion kernels of one or more checkouts of the port on one
-NVIDIA GPU, in turns.
+"""Time the conversion and residue-multiply kernels of one or more checkouts
+of the port on one NVIDIA GPU, in turns.
 
-    python3 convert_bench.py [--tree DIR ...] [--rounds N] [--record PATH]
+    python3 convert_bench.py [--tree DIR ...] [--rounds N] [--only KERNEL]
+                             [--record PATH]
 
 Each ``--tree`` is the root of a checkout (default: this one); list the
 "before" first.  Every tree's kernel library is built first, all at once,
@@ -17,7 +18,11 @@ by CUDA-graph replay over copies of the operands that together outgrow the
                (prefill): the resident path's 2 activation encodes, the
                staged chain's gate and requantized-up encodes;
   rns_reverse  per step of one layer at M = 8 and 512: the staged path's
-               7 reverses and the staged chain's gate/up and down.
+               7 reverses and the staged chain's gate/up and down;
+  rns_modmul   the staged chain's gate multiply (7, M·1536) of int8
+               residues at M = 8 and 512, into int32 (the reference's
+               contract) and, where the tree's wrapper takes
+               ``out_dtype``, into the chain's int8 residues.
 
 Where the tree's `rns_convert` can pin its grid (`_pin_launch`), the
 decode rows are also timed at each block size (64, 128, 256 threads) and
@@ -60,7 +65,9 @@ def _rows(dev):
     import torch
     from repro_torch.core.conversion_plan import ConversionPlan
     from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
-    from repro_torch.kernels import rns_forward, rns_reverse
+    import inspect
+
+    from repro_torch.kernels import rns_forward, rns_modmul, rns_reverse
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -87,6 +94,21 @@ def _rows(dev):
         return ("rns_reverse", label, m, make,
                 lambda r: rns_reverse(r, conv), 4 * (len(mods) + 1) * m * n)
 
+    def modmul(m, basis, otype):
+        mods = basis.moduli
+        C = len(mods)
+
+        def make():
+            return tuple(torch.stack([
+                torch.randint(0, mm, (m, F), generator=g, device=dev)
+                for mm in mods]).to(torch.int8) for _ in range(2))
+        kw = {} if otype is None else {"out_dtype": otype}
+        osize = 1 if otype == torch.int8 else 4
+        return ("rns_modmul", f"modmul M={m} F={F} out="
+                f"{'int8' if otype == torch.int8 else 'int32'}", m, make,
+                lambda ab: rns_modmul(*ab, mods, **kw),
+                (2 + osize) * C * m * F)
+
     rows = [fwd("rns_forward", f"init-{name} {LAYERS}x{k}x{n}", None,
                 basis_for_int8_matmul(k), (LAYERS, k, n), torch.int8)
             for name, k, n in LINEARS]
@@ -107,6 +129,9 @@ def _rows(dev):
                  for name, k, n in LINEARS]
         rows += [rev(f"chain-gate/up M={m} N={F}", m, chain, F),
                  rev(f"chain-down M={m} N={D}", m, chain, D)]
+        rows.append(modmul(m, chain, None))
+        if "out_dtype" in inspect.signature(rns_modmul).parameters:
+            rows.append(modmul(m, chain, torch.int8))
     return rows
 
 
@@ -138,7 +163,7 @@ def _device_ms(fn, pool, reps=7):
     return statistics.median(times[1:])
 
 
-def worker(tree):
+def worker(tree, only=None):
     import torch
 
     sys.path.insert(0, os.path.join(tree, "src"))
@@ -148,6 +173,8 @@ def worker(tree):
     pin = getattr(rns_convert, "_pin_launch", None)
     out = {}
     for kernel, label, m, make, call, nbytes in _rows(torch.device("cuda")):
+        if only and kernel != only:
+            continue
         pool = [make() for _ in range(max(1, min(
             256, math.ceil(COLD_L2_BYTES / nbytes))))]
         row = {"kernel": kernel, "M": m, "bytes": nbytes,
@@ -166,10 +193,11 @@ def worker(tree):
     print("ROWS " + json.dumps(out))
 
 
-def _run_worker(tree):
+def _run_worker(tree, only=None):
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--worker", tree], capture_output=True,
-                          text=True)
+                           "--worker", tree]
+                          + (["--only", only] if only else []),
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"worker for {tree} failed:\n{proc.stderr}")
     line = next(ln for ln in proc.stdout.splitlines()
@@ -196,6 +224,7 @@ def main():
                     help="root of a checkout (repeat; default: this one)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--record", help="write every row as JSON here")
+    ap.add_argument("--only", help="time only the rows of this kernel")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -204,7 +233,7 @@ def main():
         print("convert_bench: no CUDA device", file=sys.stderr)
         return 1
     if args.worker:
-        worker(os.path.abspath(args.worker))
+        worker(os.path.abspath(args.worker), args.only)
         return 0
     trees = [os.path.abspath(t) for t in (args.tree or [ROOT])]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -214,7 +243,7 @@ def main():
     runs = {t: [] for t in trees}
     for r in range(args.rounds):
         for t in (trees if r % 2 == 0 else trees[::-1]):
-            runs[t].append(_run_worker(t))
+            runs[t].append(_run_worker(t, args.only))
     result = {}
     for t in trees:
         rows = {}
@@ -229,18 +258,22 @@ def main():
              for t in trees}
     print(f"convert_bench: {len(trees)} trees x {args.rounds} rounds in "
           f"turns | on {smi}")
-    for label in result[trees[0]]:
-        row = result[trees[0]][label]
+    labels = list(dict.fromkeys(lab for t in trees for lab in result[t]))
+    for label in labels:
+        row = next(result[t][label] for t in trees if label in result[t])
         b = 1e6 * row["bytes"] / HBM_BYTES_PER_S
         times = " | ".join(
-            f"{names[t]} {1e3 * result[t][label]['ms']:.2f}"
-            + "".join(f" {k[3:]}={1e3 * v:.2f}"
-                      for k, v in result[t][label].items()
-                      if k.startswith("ms_"))
+            f"{names[t]} " + ("none" if label not in result[t] else
+                              f"{1e3 * result[t][label]['ms']:.2f}"
+                              + "".join(f" {k[3:]}={1e3 * v:.2f}"
+                                        for k, v in result[t][label].items()
+                                        if k.startswith("ms_")))
             for t in trees)
         print(f"  {row['kernel']} {label}: {times} us, bound {b:.2f} us")
     sums = {}
     for name, kernel, prefixes, m in SUMS:
+        if args.only and kernel != args.only:
+            continue
         sums[name] = {}
         for t in trees:
             rs = [r for lab, r in result[t].items() if r["kernel"] == kernel

@@ -190,9 +190,10 @@ def matmul_broadcast(x: torch.Tensor, w: torch.Tensor, moduli: Sequence[int],
     return rns_matmul(x[None], w_res, mods, signed_a=True, plan=plan)
 
 
-def modmul(a_res: torch.Tensor, b_res: torch.Tensor,
-           moduli: Sequence[int]) -> torch.Tensor:
-    """|a·b|_{m_c} elementwise over (C, …) residue planes → int32."""
+def modmul(a_res: torch.Tensor, b_res: torch.Tensor, moduli: Sequence[int],
+           *, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """|a·b|_{m_c} elementwise over (C, …) residue planes → ``out_dtype``
+    (int32, or int8 for moduli <= 128)."""
     from repro_torch.kernels.rns_modmul import rns_modmul
 
-    return rns_modmul(a_res, b_res, moduli)
+    return rns_modmul(a_res, b_res, moduli, out_dtype=out_dtype)

@@ -125,7 +125,7 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = 
     x_res = x.residues
     if gate is not None:
         g_res = forward(gate, moduli, plan.residue_dtype)
-        x_res = cp.modmul(x_res, g_res, moduli).to(plan.residue_dtype)
+        x_res = cp.modmul(x_res, g_res, moduli, out_dtype=plan.residue_dtype)
     res = cp.matmul(x_res, wt.residues, moduli, plan=plan)
     val = ConversionPlan.for_basis(basis).reverse(res)
     scol = wt.scale.to(torch.float32).reshape(1, N)

@@ -10,7 +10,8 @@
 //     standalone MRC reverse: digits, 15-bit limb Horner, signed fix,
 //     float32, optional fused scale multiply.
 //   rns_modmul — replaces src/repro/kernels/rns_modmul.py: rns_modmul, the
-//     elementwise |a*b|_m: one int32 product and the plan's fold ladder.
+//     elementwise |a*b|_m of canonical residues: one int32 product and a
+//     divide-free floored mod, into int32 or (moduli <= 128) int8.
 //   rns_fold — replaces src/repro/kernels/fold.py: fold, the standalone
 //     Stage-4 ladder that canonicalizes (C, S) int32 values in [0, bound)
 //     per channel (ChannelPlan.build(moduli, bound), unsigned).
@@ -18,9 +19,8 @@
 // All four read and write each element once and do a few dozen integer
 // operations on it: device memory bounds them, and at the staged path's
 // decode sizes (0.04-5 MB a launch) the fixed cost of a launch does.
-// rns_modmul is a grid-stride loop over contiguous elements.  The other
-// three stream: 16-byte loads and stores, a grid of a few waves, and what
-// a channel needs in registers or kernel parameters.
+// All four stream: 16-byte loads and stores, a grid of a few waves, and
+// what a channel needs in registers or kernel parameters.
 //
 //   rns_forward: a thread takes 16 consecutive values (one int4 of int8,
 //   four of int32) and writes each channel's 16 residues as one int4 of
@@ -43,11 +43,18 @@
 //   Each (C, L) has a second instance without the vector loop for the
 //   launches that take none.
 //
+//   rns_modmul: one plane a grid row, 16 products a thread (an int4 of
+//   each int8 operand), the floored mod read from the low word of mu*p
+//   (fwd_mod8's two multiplies) where that is exact for the basis, else
+//   fwd_mod32's quotient estimate; the output in the caller's residue
+//   type, so the staged chain needs no cast launch after it.
+//
 // A thread of a large launch takes several vectors (the wrappers cap the
-// grid at 1,024 threads an SM for the forward, 512 for the reverse, whose
-// integer work is the larger) and reads its next vector while it converts
-// one, so loads overlap the integer work.  The wrappers pass
-// the count of 16-value (forward) or 4-element (reverse) vectors: all of
+// grid at 1,024 threads an SM for the forward and the multiply, 512 for
+// the reverse, whose integer work is the larger) and reads its next
+// vector while it converts one, so loads overlap the integer work.  The
+// wrappers pass the count of 16-value (forward, multiply: a plane's) or
+// 4-element (reverse) vectors: all of
 // S when every output plane is 16-byte aligned and the vectors give each
 // SM at least a warp, else none (a decode step's launches: one element a
 // thread, as many threads as elements, each a shorter dependent chain),
@@ -142,6 +149,29 @@ struct Raw16 {
     } else {
 #pragma unroll
       for (int k = 0; k < W; ++k) w[k] = x[k];
+    }
+  }
+  // the same 16 values as 4 groups of 4 consecutive ones, group q at
+  // x + q * stride: one word of int8 or one int4 of int32 a group
+  __device__ __forceinline__ void load_groups(const IT* x, int stride,
+                                              bool aligned) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const IT* g = x + q * stride;
+      if constexpr (sizeof(IT) == 1) {
+        w[q] = aligned ? __ldcs(reinterpret_cast<const int*>(g))
+                       : (g[0] & 255) | (g[1] & 255) << 8 |
+                             (g[2] & 255) << 16 | (g[3] & 255) << 24;
+      } else if (aligned) {
+        const int4 t = __ldcs(reinterpret_cast<const int4*>(g));
+        w[4 * q] = t.x;
+        w[4 * q + 1] = t.y;
+        w[4 * q + 2] = t.z;
+        w[4 * q + 3] = t.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[4 * q + j] = g[j];
+      }
     }
   }
   // value k, sign-extended
@@ -305,20 +335,87 @@ rns_reverse_kernel(const int* __restrict__ res,
   }
 }
 
-// Unsigned plans only (canonical factors): fold_channel with is_signed = 0.
-template <typename T>
-__global__ void rns_modmul_kernel(const T* __restrict__ a,
-                                  const T* __restrict__ b,
-                                  int* __restrict__ out, long long S,
-                                  FusedPlan plan) {
+// a, b: (C, S) canonical residues (0 <= r < m_c); out: (C, S) floored
+// products |a*b|_{m_c}.  Grid (blocks, C): the channel is the grid row,
+// so a block's modulus and reciprocal are two registers read once and no
+// thread loops over channels.  Vectors [0, nvec) of FWD_V values a plane,
+// the next pair read ahead (avec: a and b 16-byte aligned, else read one
+// value at a time into the same vector); then the elements from
+// FWD_V*nvec one a thread, grid-stride.  An int8 output's vector is 16
+// consecutive values (an int4 of each operand, one int4 store).  An
+// int32 output's is 4 groups of 4, 128 values apart in its warp's run of
+// 512 (lane l: 4l, 128 + 4l, ...; nvec a multiple of 32), so that each of
+// the warp's four 16-byte stores writes 512 contiguous bytes (16
+// consecutive int32 a thread strided a warp's stores 64 bytes apart and
+// ran at 1.4 TB/s).  DIRECT: the remainder of the product p is read from
+// the low word of mu*p (fwd_mod8 with no lift), exact when
+// p*(mu*m - 2^32) < 2^32 for every product of the plane (the wrapper
+// checks it per basis and operand type: every served basis passes); else
+// the quotient estimate of fwd_mod32 (p >= 0, so no negative fix).
+// Launches without vectors (decode) take the instance compiled without
+// the vector loop (VEC = false), as the reverse's do.
+template <typename IT, typename OT, bool DIRECT, bool VEC>
+__global__ void __launch_bounds__(CONV_THREADS)
+rns_modmul_kernel(const IT* __restrict__ a, const IT* __restrict__ b,
+                  OT* __restrict__ out, long long S, long long nvec, int avec,
+                  ForwardMods mods) {
   const int c = blockIdx.y;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < S; i += stride) {
-    const long long at = c * S + i;
-    const int p = static_cast<int>(a[at]) * static_cast<int>(b[at]);
-    out[at] = rns::fold_channel(p, c, plan);
+  const unsigned m = static_cast<unsigned>(mods.m[c]), mu = mods.mu[c];
+  const long long plane = c * S;
+  a += plane;
+  b += plane;
+  out += plane;
+  const auto mod = [m, mu](int p) {
+    return DIRECT ? fwd_mod8(p, m, mu, 0u) : fwd_mod32(p, m, mu, 0u);
+  };
+  const long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  const long long nt = static_cast<long long>(gridDim.x) * blockDim.x;
+  if constexpr (VEC) {
+    constexpr bool SPREAD = sizeof(OT) == 4;
+    constexpr int GAP = 128;   // values between a spread vector's groups
+    // where vector i starts
+    const auto at = [](long long i) {
+      return SPREAD ? (i >> 5) * (32 * FWD_V) + (i & 31) * 4 : i * FWD_V;
+    };
+    const auto load = [avec](Raw16<IT>& v, const IT* x) {
+      if constexpr (SPREAD) {
+        v.load_groups(x, GAP, avec);
+      } else {
+        v.load(x, avec);
+      }
+    };
+    Raw16<IT> va, vb;
+    if (t0 < nvec) {
+      load(va, a + at(t0));
+      load(vb, b + at(t0));
+    }
+    for (long long i = t0; i < nvec; i += nt) {
+      Raw16<IT> na = va, nb = vb;
+      if (i + nt < nvec) {
+        load(na, a + at(i + nt));
+        load(nb, b + at(i + nt));
+      }
+      unsigned r[FWD_V];
+#pragma unroll
+      for (int k = 0; k < FWD_V; ++k) r[k] = mod(va[k] * vb[k]);
+      if constexpr (SPREAD) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          __stcs(reinterpret_cast<int4*>(out + at(i) + q * GAP),
+                 make_int4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                           r[4 * q + 3]));
+        }
+      } else {
+        store16(out + at(i), r);
+      }
+      va = na;
+      vb = nb;
+    }
+  }
+  for (long long e = nvec * FWD_V + t0; e < S; e += nt) {
+    out[e] = static_cast<OT>(mod(static_cast<int>(a[e]) *
+                                 static_cast<int>(b[e])));
   }
 }
 
@@ -524,21 +621,47 @@ int rns_reverse_launch(const int* res, const float* scale, const ScaleMap* sm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a, b: (C, S) int8 (is_int32 = 0) or int32 residues; out: (C, S) int32.
-int rns_modmul_launch(const void* a, const void* b, int is_int32, int* out,
-                      long long S, const FusedPlan* plan, int blocks,
-                      void* stream) {
+// a, b: (C, S) int8 (a_int32 = 0) or int32 canonical residues; out: (C, S)
+// int8 (out_int32 = 0) or int32.  nvec: 16-value vectors of every plane
+// (each output plane 16-byte aligned; a multiple of 32 for an int32
+// output); avec: a and b planes 16-byte aligned; direct: the DIRECT mod is exact for this basis and operand
+// type (always so for an int8 output).  Returns -1 for an int8 output
+// without it.
+int rns_modmul_launch(const void* a, const void* b, int a_int32, void* out,
+                      int out_int32, long long S, long long nvec, int avec,
+                      int direct, const ForwardMods* mods, int blocks,
+                      int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks, plan->C);
-  if (is_int32) {
-    rns_modmul_kernel<int32_t><<<grid, 256, 0, s>>>(
-        static_cast<const int32_t*>(a), static_cast<const int32_t*>(b), out, S,
-        *plan);
-  } else {
-    rns_modmul_kernel<int8_t><<<grid, 256, 0, s>>>(
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), out, S,
-        *plan);
+  const dim3 grid(blocks, mods->C);
+#define RNS_MODMUL(IT, OT, D)                                           \
+  if (nvec) {                                                           \
+    rns_modmul_kernel<IT, OT, D, true><<<grid, threads, 0, s>>>(        \
+        static_cast<const IT*>(a), static_cast<const IT*>(b),           \
+        static_cast<OT*>(out), S, nvec, avec, *mods);                   \
+  } else {                                                              \
+    rns_modmul_kernel<IT, OT, D, false><<<grid, threads, 0, s>>>(       \
+        static_cast<const IT*>(a), static_cast<const IT*>(b),           \
+        static_cast<OT*>(out), S, nvec, avec, *mods);                   \
   }
+  if (!out_int32 && !direct) return -1;
+  if (!out_int32) {
+    if (a_int32) {
+      RNS_MODMUL(int32_t, int8_t, true);
+    } else {
+      RNS_MODMUL(int8_t, int8_t, true);
+    }
+  } else if (a_int32) {
+    if (direct) {
+      RNS_MODMUL(int32_t, int32_t, true);
+    } else {
+      RNS_MODMUL(int32_t, int32_t, false);
+    }
+  } else if (direct) {
+    RNS_MODMUL(int8_t, int32_t, true);
+  } else {
+    RNS_MODMUL(int8_t, int32_t, false);
+  }
+#undef RNS_MODMUL
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -187,7 +187,8 @@ def library() -> ctypes.CDLL:
     lib.rns_tile_launch.argtypes = [i, p, p, p]
     lib.rns_forward_launch.argtypes = [p, i, p, i, ll, ll, i, p, i, i, p]
     lib.rns_reverse_launch.argtypes = [p, p, p, p, ll, ll, i, p, i, i, p]
-    lib.rns_modmul_launch.argtypes = [p, p, i, p, ll, p, i, p]
+    lib.rns_modmul_launch.argtypes = [p, p, i, p, i, ll, ll, i, i, p, i,
+                                      i, p]
     lib.rns_fold_launch.argtypes = [p, p, i, p, i, p]
     lib.flash_attention_launch.argtypes = [p, p]
     lib.rns_tile16_smem.argtypes = [i, i, i]

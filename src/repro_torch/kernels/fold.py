@@ -3,7 +3,7 @@
 Stage ④ on its own: (C, S) int32 values in [0, bound) → canonical residues
 in [0, m_c) per channel, by the ``ChannelPlan.build(moduli, bound)`` ladder
 and its conditional subtracts (`csrc/rns_kernels.cu`, ``rns_fold_kernel``,
-the ladder device code that ``rns_modmul`` runs, held in registers).  It
+the tile kernel's ladder device code, held in registers).  It
 reads and writes one int32 per element and does a few integer operations
 on it, so device memory bounds it: the kernel streams 16-byte loads and
 stores, several in flight per thread, over a grid of a few waves.

@@ -110,12 +110,15 @@ def rns_matmul_ref(a_res: torch.Tensor, b_res: torch.Tensor,
 
 
 def rns_modmul_ref(a_res: torch.Tensor, b_res: torch.Tensor,
-                   moduli: Sequence[int]) -> torch.Tensor:
+                   moduli: Sequence[int], *,
+                   out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """|a·b|_{m_c} elementwise over (C, …) residues: one int32 product and
-    the ``ChannelPlan.for_product`` fold ladder → int32."""
+    the ``ChannelPlan.for_product`` fold ladder → int32, cast to
+    ``out_dtype``."""
     plan = ChannelPlan.for_product(tuple(int(m) for m in moduli))
     p = a_res.to(torch.int32) * b_res.to(torch.int32)
-    return torch.stack([plan.apply_ladder(p[c], c) for c in range(plan.k)])
+    return torch.stack([plan.apply_ladder(p[c], c)
+                        for c in range(plan.k)]).to(out_dtype)
 
 
 def rns_reverse_ref(residues: torch.Tensor, plan: ConversionPlan,

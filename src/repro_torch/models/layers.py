@@ -220,10 +220,20 @@ def attention(q, k, v, qpos, kpos, *, block_kv: int = 1024):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
 
 
-def update_cache_full(cache_k, cache_v, k, v, pos: int):
+def update_cache_full(cache_k, cache_v, k, v, pos):
     """Write k, v (B, S, Hk, D) at slot ``pos`` of (B, smax, Hk, D) caches.
-    Updates in place (the reference returns new arrays) and returns them."""
+    Updates in place (the reference returns new arrays) and returns them.
+
+    ``pos`` is an int, checked against the cache length, or a 0-d integer
+    tensor on the caches' device, written through an indexed copy along
+    the slot axis without reading it on the host (a captured decode step);
+    its caller checks the bound before the step."""
     S = k.shape[1]
+    if isinstance(pos, torch.Tensor):
+        idx = pos.to(torch.int64) + torch.arange(S, device=cache_k.device)
+        cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
+        return cache_k, cache_v
     if pos + S > cache_k.shape[1]:
         raise ValueError(f"cache of {cache_k.shape[1]} slots cannot hold "
                          f"positions {pos}..{pos + S - 1}")

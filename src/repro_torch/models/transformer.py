@@ -107,9 +107,10 @@ def _attn_full(p, h, cfg: ModelConfig, positions):
     return linear(o.reshape(B, S, H * dh), p["attn"]["wo"], spec), (k, v)
 
 
-def _attn_decode(p, h, cfg: ModelConfig, pos: int, cache_k, cache_v,
+def _attn_decode(p, h, cfg: ModelConfig, pos, cache_k, cache_v,
                  positions=None):
-    """One-token attention; writes this step's K/V at slot ``pos``.
+    """One-token attention; writes this step's K/V at slot ``pos`` (an int
+    or a 0-d integer tensor on the device, never read on the host).
 
     ``positions`` ((B,), optional) are the per-sequence real positions
     ``pos − pad[i]`` of a left-padded batch: they drive RoPE and the mask.
@@ -125,7 +126,10 @@ def _attn_decode(p, h, cfg: ModelConfig, pos: int, cache_k, cache_v,
     kpad = torch.arange(cache_k.shape[1], dtype=torch.int32,
                         device=h.device)
     if positions is None:
-        qpos = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+        qpos = (pos.reshape(1).to(torch.int32)
+                if isinstance(pos, torch.Tensor)
+                else torch.full((1,), pos, dtype=torch.int32,
+                                device=h.device))
         kpos = kpad
     else:
         qpos = positions[:, None]
@@ -167,17 +171,27 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
                                       device=device)}}
 
 
-def prefill(cfg: ModelConfig, params, batch, smax: int):
+def prefill(cfg: ModelConfig, params, batch, smax: int, cache=None):
     """Forward over the prompt + cache build.
 
     ``batch``: {"tokens": (B, S) int, optional "pad": (B,) left-pad
     counts}.  Returns (last-token logits (B, vocab) float32, cache, S).
     Prompts are right-aligned, so the last position is always real; only
-    it goes through the LM head.
+    it goes through the LM head.  ``cache`` (as from `init_cache`) is
+    zeroed and written in place instead of allocating one, so a captured
+    decode step keeps reading the buffers it was captured on.
     """
     h, positions = _embed(params, batch)
     B, S = h.shape[0], h.shape[1]
-    cache = init_cache(cfg, B, smax, h.device)
+    if cache is None:
+        cache = init_cache(cfg, B, smax, h.device)
+    else:
+        shape = (cfg.n_blocks, B, smax, cfg.num_kv_heads, cfg.head_dim)
+        for t in cache["sub0"].values():
+            if tuple(t.shape) != shape or t.device != h.device:
+                raise ValueError(f"cache {tuple(t.shape)} on {t.device}, "
+                                 f"prefill needs {shape} on {h.device}")
+            t.zero_()
     ck, cv = cache["sub0"]["k"], cache["sub0"]["v"]
     blocks = params["blocks"]["sub0"]
     for b in range(cfg.n_blocks):
@@ -189,11 +203,13 @@ def prefill(cfg: ModelConfig, params, batch, smax: int):
     return _lm_head(cfg, params, h[:, -1:])[:, 0], cache, S
 
 
-def decode_step(cfg: ModelConfig, params, cache, batch, pos: int,
+def decode_step(cfg: ModelConfig, params, cache, batch, pos,
                 positions=None):
     """One decode step: batch {"tokens": (B, 1)}, ``pos`` the shared cache
-    slot, ``positions`` ((B,), optional) the real per-sequence positions.
-    Returns (logits (B, vocab) float32, cache updated in place)."""
+    slot (an int, or a 0-d integer tensor on the device that the step never
+    reads on the host, as a captured step needs), ``positions`` ((B,),
+    optional) the real per-sequence positions.  Returns (logits (B, vocab)
+    float32, cache updated in place)."""
     h = params["embed"][batch["tokens"]]
     ck, cv = cache["sub0"]["k"], cache["sub0"]["v"]
     blocks = params["blocks"]["sub0"]

@@ -5,9 +5,22 @@ length, prefilled together, then decoded together for ``max_new_tokens``.
 Ragged prompts batch correctly through the per-sequence positions
 ``arange(S) − pad[i]``; ``lanes=`` pins the batch width by adding fully
 padded dummy rows, so a prompt decodes at the same shapes alone or in a
-batch.  Decode is a Python loop over `models.transformer.decode_step` with
-sampling, the EOS latch and the token buffer on the device; the tokens reach
-the host once, at the end.
+batch.
+
+Decode runs on the device (``engine="scan"``, the default, the reference's
+one ``lax.scan`` over the new tokens): one decode step — `models.transformer.
+decode_step` at a device-side cache position, sampling, the EOS latch and
+the position increment — is captured once per (lanes, smax, greedy or
+sampled) into a CUDA graph over persistent buffers (the KV cache, the
+current token, the done latch, the position, the temperature, the EOS id
+and a (smax, B) token buffer written at a device-side step index) and
+replayed ``max_new_tokens − 1`` times after an eager prefill into the same
+cache; the tokens reach the host once, at the end.  Captures are kept in a
+small LRU (`_SCAN_CACHE_MAX`).  On the CPU there is no graph: ``"scan"``
+runs the same step function eagerly over the same buffers.
+``engine="host"`` is the per-token Python loop over the same
+`decode_step` with an int position (the measured baseline).  Both check
+that the prompt bucket plus the new tokens fit ``smax`` before any step.
 
 The linear weights are encoded to residues once at construction when the
 config asks for it (``encode_weights``), so decode does no per-step weight
@@ -18,10 +31,14 @@ converts its weight per call (the staged ``rns_int8:pallas`` datapath).
 
 Sampling is greedy (``temperature <= 0``) or Gumbel-max at the given
 temperature from a ``torch.Generator`` seeded with ``seed`` on the engine's
-device: deterministic per seed, but not the reference's JAX PRNG stream.
+device: deterministic per seed and the same draws in both engines (the
+scan's generator is registered with its graph, so a replay draws what the
+eager step would), but not the reference's JAX PRNG stream.  The
+temperature is a device scalar, so every temperature reuses one capture.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import List, Optional
 
 import numpy as np
@@ -33,6 +50,9 @@ from repro_torch.core.rns_tensor import encode_params
 from repro_torch.models import transformer as T
 
 __all__ = ["Engine", "bucket_plen"]
+
+# decode captures kept per engine: (lanes, smax, sampled) keys
+_SCAN_CACHE_MAX = 8
 
 
 def bucket_plen(plen: int) -> int:
@@ -50,14 +70,37 @@ def _to_device(node, device):
     return node.to(device)
 
 
-def _sample(logits: torch.Tensor, temperature: float,
+def _sample(logits: torch.Tensor, temperature: Optional[torch.Tensor],
             generator: torch.Generator) -> torch.Tensor:
-    if temperature <= 0.0:
+    """Greedy (``temperature`` None) or Gumbel-max at a 0-d float32
+    temperature on the logits' device; (B,) int64 tokens."""
+    if temperature is None:
         return torch.argmax(logits, dim=-1)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
     return torch.argmax(logits / temperature + gumbel, dim=-1)
+
+
+class _ScanState:
+    """The persistent buffers of one decode capture: a batch of ``B`` lanes
+    over a cache of ``smax`` slots.  ``toks[t]`` holds the token of step t
+    (row 0 the prefill's), −1 once the sequence has met its EOS."""
+
+    def __init__(self, cfg: ModelConfig, B: int, smax: int, sampled: bool,
+                 device: torch.device):
+        self.cache = T.init_cache(cfg, B, smax, device)
+        self.cur = torch.zeros(B, dtype=torch.int64, device=device)
+        self.done = torch.zeros(B, dtype=torch.bool, device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+        self.pad = torch.zeros(B, dtype=torch.int32, device=device)
+        self.eos = torch.full((), -1, dtype=torch.int64, device=device)
+        self.temp = (torch.ones((), dtype=torch.float32, device=device)
+                     if sampled else None)
+        self.toks = torch.zeros((smax, B), dtype=torch.int64, device=device)
+        self.gen = torch.Generator(device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
 
 
 class Engine:
@@ -66,6 +109,8 @@ class Engine:
 
     ``device`` defaults to "cuda"; an engine runs on the CPU only when asked
     with ``device="cpu"``, and raises when CUDA is asked for but absent.
+    ``scan_replays`` counts the captured decode steps replayed,
+    ``scan_captures`` the graphs captured.
     """
 
     def __init__(self, cfg: ModelConfig, params, smax: int = 2048,
@@ -91,6 +136,9 @@ class Engine:
             with torch.inference_mode():
                 params = encode_params(params, group_basis=gb)
         self.params = params
+        self._scan: "OrderedDict[tuple, _ScanState]" = OrderedDict()
+        self.scan_replays = 0
+        self.scan_captures = 0
 
     def _pack(self, prompts: List[List[int]]):
         """Left-pad ragged prompts to a bucketed common length; dummy lanes
@@ -109,9 +157,15 @@ class Engine:
 
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
                  temperature: float = 0.0, seed: int = 0,
-                 eos_id: Optional[int] = None) -> List[List[int]]:
+                 eos_id: Optional[int] = None,
+                 engine: str = "scan") -> List[List[int]]:
         """Batched generation; returns each prompt followed by its new
-        tokens, up to and including an ``eos_id`` token."""
+        tokens, up to and including an ``eos_id`` token.  ``engine="scan"``
+        replays a captured decode step on CUDA (the same step eagerly on
+        the CPU); ``"host"`` runs the per-token Python loop."""
+        if engine not in ("scan", "host"):
+            raise ValueError(f"engine must be 'scan' or 'host', got "
+                             f"{engine!r}")
         if not prompts or any(len(p) == 0 for p in prompts):
             raise ValueError("generate needs non-empty prompts")
         if max_new_tokens < 1:
@@ -120,33 +174,116 @@ class Engine:
         if plen + max_new_tokens - 1 > self.smax:
             raise ValueError(f"prompt bucket {plen} + {max_new_tokens} new "
                              f"tokens exceeds smax={self.smax}")
-        cfg, params = self.cfg, self.params
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
         eos = -1 if eos_id is None else int(eos_id)
-        pad = batch["pad"]
+        run = self._generate_scan if engine == "scan" else \
+            self._generate_host
         with torch.inference_mode():
-            logits, cache, pos0 = T.prefill(cfg, params, batch, self.smax)
-            cur = _sample(logits, temperature, gen)
-            first = cur
-            done = cur == eos
-            toks, emit = [], []
-            for t in range(pos0, pos0 + max_new_tokens - 1):
-                logits, cache = T.decode_step(cfg, params, cache,
-                                              {"tokens": cur[:, None]}, t,
-                                              positions=t - pad)
-                cur = _sample(logits, temperature, gen)
-                toks.append(cur)
-                emit.append(~done)          # EOS itself is emitted
-                done = done | (cur == eos)
-            first = first.cpu().numpy()
-            if toks:
-                toks = torch.stack(toks).cpu().numpy()   # (T-1, B)
-                emit = torch.stack(emit).cpu().numpy()
+            toks = run(batch, max_new_tokens, float(temperature), int(seed),
+                       eos)
         out = [list(p) for p in prompts]
         for i in range(len(prompts)):
-            out[i].append(int(first[i]))
-            for t in range(len(toks)):
-                if emit[t, i]:
-                    out[i].append(int(toks[t, i]))
+            out[i].extend(int(t) for t in toks[:, i] if t >= 0)
         return out
+
+    def _temperature(self, temperature: float) -> Optional[torch.Tensor]:
+        if temperature <= 0.0:
+            return None
+        return torch.full((), temperature, dtype=torch.float32,
+                          device=self.device)
+
+    def _generate_host(self, batch, new: int, temperature: float, seed: int,
+                       eos: int) -> np.ndarray:
+        """The per-token loop: (new, B) tokens, −1 after a sequence's EOS."""
+        cfg, params, pad = self.cfg, self.params, batch["pad"]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        temp = self._temperature(temperature)
+        logits, cache, pos0 = T.prefill(cfg, params, batch, self.smax)
+        cur = _sample(logits, temp, gen)
+        done = cur == eos
+        toks = [cur]
+        for t in range(pos0, pos0 + new - 1):
+            logits, cache = T.decode_step(cfg, params, cache,
+                                          {"tokens": cur[:, None]}, t,
+                                          positions=t - pad)
+            cur = _sample(logits, temp, gen)
+            toks.append(torch.where(done, -1, cur))   # EOS itself is kept
+            done = done | (cur == eos)
+        return torch.stack(toks).cpu().numpy()
+
+    def _state(self, B: int, sampled: bool) -> _ScanState:
+        """The capture state of (B lanes, smax, sampled), LRU-bounded."""
+        key = (B, self.smax, sampled)
+        if key in self._scan:
+            self._scan.move_to_end(key)
+            return self._scan[key]
+        st = _ScanState(self.cfg, B, self.smax, sampled, self.device)
+        self._scan[key] = st
+        while len(self._scan) > _SCAN_CACHE_MAX:
+            self._scan.popitem(last=False)
+        return st
+
+    def _step(self, st: _ScanState) -> None:
+        """One decode step over the state's buffers, reading nothing on the
+        host: the captured graph's body, and the CPU's eager step."""
+        logits, _ = T.decode_step(self.cfg, self.params, st.cache,
+                                  {"tokens": st.cur[:, None]}, st.pos,
+                                  positions=st.pos - st.pad)
+        nxt = _sample(logits, st.temp, st.gen)
+        st.toks.index_copy_(0, st.step, torch.where(st.done, -1, nxt)[None])
+        st.done |= nxt == st.eos
+        st.cur.copy_(nxt)
+        st.pos += 1
+        st.step += 1
+
+    def _capture(self, st: _ScanState) -> None:
+        """Warm the step up once on a side stream (first launches, cached
+        tables), then capture one step into the state's CUDA graph, the
+        sampling generator registered with it."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step(st)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        if st.temp is not None:
+            graph.register_generator_state(st.gen)
+        with torch.cuda.graph(graph):
+            self._step(st)
+        st.graph = graph
+        self.scan_captures += 1
+
+    def _generate_scan(self, batch, new: int, temperature: float, seed: int,
+                       eos: int) -> np.ndarray:
+        """Eager prefill into the capture's cache, then ``new − 1`` replays
+        of the captured step (eager steps on the CPU): (new, B) tokens, −1
+        after a sequence's EOS, read from the device once."""
+        pad = batch["pad"]
+        st = self._state(pad.shape[0], temperature > 0.0)
+        logits, _, pos0 = T.prefill(self.cfg, self.params, batch, self.smax,
+                                    cache=st.cache)
+        st.pad.copy_(pad)
+        st.eos.fill_(eos)
+        if st.temp is not None:
+            st.temp.fill_(temperature)
+        if st.graph is None and self.device.type == "cuda" and new > 1:
+            # a valid step input for the warm-up; it writes only the slot
+            # and the row that the first replay writes again
+            st.cur.copy_(torch.argmax(logits, dim=-1))
+            st.pos.fill_(pos0)
+            st.step.fill_(1)
+            self._capture(st)
+        st.gen.manual_seed(seed)
+        first = _sample(logits, st.temp, st.gen)
+        st.toks[0].copy_(first)
+        st.cur.copy_(first)
+        torch.eq(first, st.eos, out=st.done)
+        st.pos.fill_(pos0)
+        st.step.fill_(1)
+        for _ in range(new - 1):
+            if st.graph is not None:
+                st.graph.replay()
+                self.scan_replays += 1
+            else:
+                self._step(st)
+        return st.toks[:new].cpu().numpy()

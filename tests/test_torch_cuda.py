@@ -349,6 +349,78 @@ def test_modmul_matches_plain(dev, dtype):
     assert torch.equal(got, ref.rns_modmul_ref(a, b, mods))
 
 
+MODMUL_TYPES = [(torch.int8, torch.int32), (torch.int8, torch.int8),
+                (torch.int32, torch.int32), (torch.int32, torch.int8)]
+# int32 residues past the two-multiply mod's reach (`direct_mod`): 46,337
+# and 2^15 + 3 take the quotient estimate, 1,667 and 1,649 (just past its
+# first miss) too, beside moduli that alone would not
+MODMUL_LARGE = (2**15 + 3, 46337, 1667, 1649, 131, 2)
+
+
+def _modmul_operands(mods, S, dtype, seed, dev, offset=0):
+    """Two (C, S) canonical residue planes of ``dtype``, each m − 1 at its
+    first and last element, stored ``offset`` elements into a fresh buffer
+    (an offset > 0 puts every plane off the 16-byte boundary)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(2):
+        r = torch.stack([torch.randint(0, m, (S,), generator=g, device=dev)
+                         for m in mods]).to(dtype)
+        if S:
+            top = torch.tensor([m - 1 for m in mods], device=dev)
+            r[:, 0] = r[:, -1] = top.to(dtype)
+        buf = torch.empty(len(mods) * S + offset, dtype=dtype, device=dev)
+        view = buf[offset:].view(len(mods), S)
+        view.copy_(r)
+        out.append(view)
+    return out
+
+
+def _modmul_same(a, b, mods, otype):
+    before = rns_modmul.launches
+    got = rns_modmul(a, b, mods, out_dtype=otype)
+    torch.cuda.synchronize()
+    assert rns_modmul.launches == before + (a.numel() > 0)
+    assert got.dtype == otype
+    assert torch.equal(got, ref.rns_modmul_ref(a, b, mods, out_dtype=otype))
+
+
+@pytest.mark.parametrize("itype,otype", MODMUL_TYPES)
+def test_modmul_ragged_and_misaligned(dev, itype, otype):
+    """Every length 0-33 (one element a thread); the vector body at its
+    least length, with a ragged end (planes off the 16-byte boundary,
+    one element a thread) and at the staged chain's decode and prefill
+    shapes (7, 8·1536) and (7, 512·1536); each fresh and starting 1 or 3
+    elements off a 16-byte boundary.  Bit-equal to the plain version in
+    both output types, one launch."""
+    mods = basis_for_chain(1536).moduli
+    for S in range(34):
+        _modmul_same(*_modmul_operands(mods, S, itype, S, dev), mods, otype)
+    big = _vector_size(16)
+    for S in (big, big + 1, big + 16, 8 * 1536, 512 * 1536):
+        for off in (0, 1, 3):
+            a, b = _modmul_operands(mods, S, itype, S + off, dev, off)
+            _modmul_same(a, b, mods, otype)
+
+
+@pytest.mark.parametrize("C", range(1, 13))
+@pytest.mark.parametrize("itype,otype", MODMUL_TYPES)
+def test_modmul_every_channel_count(dev, C, itype, otype):
+    mods = cc.SMALL_MODULI[:C]
+    for S in (8 * 1536, _vector_size(16) + 16):
+        _modmul_same(*_modmul_operands(mods, S, itype, C, dev), mods, otype)
+
+
+@pytest.mark.parametrize("S", [33, 12 * 1536, "vectors"])
+def test_modmul_large_moduli(dev, S):
+    """int32 residues of moduli where the two-multiply mod is not exact:
+    the quotient estimate and its correction, at the largest products."""
+    S = _vector_size(16) + 16 if S == "vectors" else S
+    for off in (0, 1):
+        a, b = _modmul_operands(MODMUL_LARGE, S, torch.int32, S, dev, off)
+        _modmul_same(a, b, MODMUL_LARGE, torch.int32)
+
+
 @pytest.mark.parametrize("basis_of", [lambda: basis_for_int8_matmul(576),
                                       lambda: basis_for_chain(1536)])
 @pytest.mark.parametrize("with_scale", [False, True])
@@ -390,6 +462,31 @@ def test_chain_staged_equals_fused(dev):
         gq, sg = q8(silu(gf), dim=-1)
         outs.append(rns_chain_linear(up, wd, gate=gq, gate_scale=sg,
                                      backend=backend))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_chain_staged_equals_fused_prefill(dev):
+    """The staged chain at M = 512 (its gate multiply on the vector path,
+    int8 out, one launch) equals the fused chain bit for bit."""
+    from repro_torch.core.quant import quantize_int8 as q8
+    from repro_torch.core.rns_linear import rns_chain_linear
+    from repro_torch.models.layers import silu
+
+    xa, wg, g = _chain_operands(dev, 512, 576, 1536, 12)
+    wu = trt.encode(torch.randn(576, 1536, generator=g, device=dev) / 24,
+                    xa.basis)
+    wd = trt.encode(torch.randn(1536, 576, generator=g, device=dev) / 40,
+                    xa.basis)
+    outs = []
+    for backend in ("pallas", "pallas_fused"):
+        before = rns_modmul.launches
+        gf = rns_chain_linear(xa, wg, backend=backend)
+        up = rns_chain_linear(xa, wu, emit="residues", backend=backend)
+        gq, sg = q8(silu(gf), dim=-1)
+        outs.append(rns_chain_linear(up, wd, gate=gq, gate_scale=sg,
+                                     backend=backend))
+        assert rns_modmul.launches == before + (backend == "pallas")
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
 
@@ -779,3 +876,42 @@ def test_staged_layer_conversions_capture(dev):
         for got, w, c in zip(fwd, ws, convs):
             assert torch.equal(got, ref.rns_forward_ref(w, c.moduli,
                                                         torch.int8))
+
+
+@pytest.mark.parametrize("name", ["rns-smollm-135m-fused",
+                                  "rns-smollm-135m-resident",
+                                  "rns-smollm-135m-pallas"])
+def test_engine_scan_replays_captured_step(dev, name, monkeypatch):
+    """The smoke model's decode step captured once through the engine's
+    scan path and replayed: greedy and sampled tokens equal to the host
+    loop's for the same seed, one capture per (lanes, smax, sampled) and
+    one replay a new token after the first; once captured, the scan path
+    runs no Python decode step (decode_step made to raise)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = get_smoke_config(name)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    eng = E.Engine(cfg, params, smax=64, lanes=4, device=dev)
+    prompts = [[5, 6, 7], list(range(1, 12)), [9] * 14]
+    host = eng.generate(prompts, 8, engine="host")
+    assert eng.generate(prompts, 8, engine="scan") == host
+    assert (eng.scan_captures, eng.scan_replays) == (1, 7)
+    for temp, seed in ((0.8, 3), (1.3, 4)):
+        want = eng.generate(prompts, 8, temperature=temp, seed=seed,
+                            engine="host")
+        assert eng.generate(prompts, 8, temperature=temp, seed=seed) == want
+    assert (eng.scan_captures, eng.scan_replays) == (2, 21)
+
+    def no_decode(*a, **k):
+        raise AssertionError("the scan path ran a Python decode step")
+
+    monkeypatch.setattr(E.T, "decode_step", no_decode)
+    assert eng.generate(prompts, 8, engine="scan") == host
+    assert eng.generate([prompts[1]], 8, engine="scan")[0] == host[1]
+    assert eng.generate(prompts, 1, engine="scan") == [p + h[len(p):][:1]
+                                                       for p, h in
+                                                       zip(prompts, host)]
+    assert (eng.scan_captures, eng.scan_replays) == (2, 35)

@@ -1,6 +1,7 @@
 """The port's serving engine on the smoke `rns-smollm-135m-fused` config, on
-the CPU: greedy tokens against the reference `Engine.generate`, batch
-invariance with pinned lanes, the EOS latch, and sampling determinism.
+the CPU: greedy tokens against the reference `Engine.generate` under both
+engines (``scan``, the default, and ``host``), batch invariance with pinned
+lanes, the EOS latch, and sampling determinism.
 
 Greedy tokens are held to the reference wherever the reference's top-2
 logit gap exceeds 2·LOGIT_ATOL: `tests/test_torch_model.py` bounds each
@@ -60,11 +61,10 @@ def _reference_gaps(eng, prompts, tokens):
     return np.stack(gaps, axis=1)                  # (B, NEW)
 
 
-def test_greedy_tokens_match_reference_where_decisive(engines):
-    jeng, teng = engines
+def _match_reference_where_decisive(jeng, teng, engine):
     prompts = _prompts(jeng.cfg.vocab_size, [3, 9, 14])
-    want = jeng.generate(prompts, max_new_tokens=NEW)
-    got = teng.generate(prompts, max_new_tokens=NEW)
+    want = jeng.generate(prompts, max_new_tokens=NEW, engine=engine)
+    got = teng.generate(prompts, max_new_tokens=NEW, engine=engine)
     gaps = _reference_gaps(jeng, prompts, want)
     decisive, equal, flips = 0, 0, []
     for i, p in enumerate(prompts):
@@ -77,9 +77,18 @@ def test_greedy_tokens_match_reference_where_decisive(engines):
                 flips.append((i, t, float(gaps[i, t])))
                 break
             equal += 1
-    print(f"{equal} tokens equal ({decisive} decisive); near-tie flips "
-          f"{flips}")
+    print(f"{engine}: {equal} tokens equal ({decisive} decisive); near-tie "
+          f"flips {flips}")
     assert decisive > 0
+
+
+def test_greedy_tokens_match_reference_where_decisive(engines):
+    """Both packages' default engine, the on-device scan."""
+    _match_reference_where_decisive(*engines, "scan")
+
+
+def test_host_engine_tokens_match_reference_where_decisive(engines):
+    _match_reference_where_decisive(*engines, "host")
 
 
 def test_batch_invariance_with_lanes(engines):
