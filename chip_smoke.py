@@ -42,16 +42,29 @@ Phases, each of which must pass:
      traced generate of each (host 4 tokens, scan 32: device busy share;
      the scan's kernels by name equal to its eager prefill's counted
      launches plus the captured step's times the replays);
-  4. chain   — `rns_chain_linear` on the staged kernels equal bit for bit
+  4. sched   — `serve.SlotScheduler` on the full fused and resident
+     models: 8 slots of 256 tokens over a paged pool of 65 blocks of 16
+     (half the static reservation), decode chunks of 8 replayed steps of
+     one captured paged step, a synthetic trace of 24 seeded requests
+     with Poisson arrivals (six sharing a 2-block head): outputs equal to
+     the engine's solo generate (greedy, and sampled on a second
+     scheduler), peak blocks, prefix hits and pool bytes against the
+     static reservation, the captured step's launches equal to one eager
+     paged step's, a traced burst serve's kernels by name (8 admissions,
+     8 replays) equal to its counted prefills plus the step's times its
+     replays, and serves of the trace and of the same requests as a
+     burst timed in turns with the static engine's one-batch generate of
+     the same prompts;
+  5. chain   — `rns_chain_linear` on the staged kernels equal bit for bit
      to the fused kernel at the full-width MLP shapes;
-  5. entry   — the entry points no served model calls, once each at full
+  6. entry   — the entry points no served model calls, once each at full
      width with their launches counted: `flash_attention` (8 lanes, 9
      heads, head_dim 64, 2048 keys, prefill and decode; outputs held
      against the plain version), `fold`, and one smollm layer's linears as
      one-channel `rns_fused_crt_partial` slices composed by
      `dist.rns_shard.channel_sliced_matmul` and held bit for bit against
      `rns_fused_matmul`;
-  6. check   — finite logits of each served batch, and each smoke config's
+  7. check   — finite logits of each served batch, and each smoke config's
      logits on the card against the same model on the CPU (plain versions).
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
@@ -62,7 +75,8 @@ bf16 prefill also pinned to `fma`, held alike and timed in turns with
 for n = 1 and n = C) against their plain versions.  Lines: per-shape
 kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
 `decode:` and `prefill:` sums, one
-`serve:` line per model, a `chain:` line, an `entry:` line, one `check:`
+`serve:` line per model, one `sched:` line per scheduled model, a
+`chain:` line, an `entry:` line, one `check:`
 line per smoke config, the nvidia-smi line, the kernels JSON line and,
 last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
@@ -1422,6 +1436,254 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
             "trace": traces["host"], "trace_scan": traces["scan"]}
 
 
+# the scheduled serve: 8 slots of 256 tokens over a pool of half the
+# static reservation (1 + 8·16 blocks), so admissions defer
+SCHED = {"slots": 8, "block_size": 16, "slot_tokens": 256, "n_blocks": 65,
+         "decode_chunk": 8}
+
+
+def sched_requests(vocab, n=24, seed=0):
+    """``n`` requests from a seeded generator, a synthetic trace that
+    exercises the scheduler's mechanisms (it follows no public serving
+    trace, so its numbers say nothing of real traffic): prompts of 5-120
+    tokens, six of them (three pairs of neighbours in arrival order)
+    opening with one 32-token head (2 blocks), 16-64 new tokens each,
+    Poisson arrivals at one every 4 virtual steps on average, so slots
+    turn over mid-flight."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1, vocab, 32).tolist()
+    sharers = {2, 3, 9, 10, 16, 17}
+    arrivals = np.cumsum(rng.exponential(4.0, n)) - 4.0
+    reqs = []
+    for i in range(n):
+        if i in sharers:
+            prompt = head + rng.integers(
+                1, vocab, int(rng.integers(8, 89))).tolist()
+        else:
+            prompt = rng.integers(1, vocab, int(rng.integers(5, 121))).tolist()
+        reqs.append(Request(prompt, int(rng.integers(16, 65)), seed=i,
+                            arrival=max(0.0, float(arrivals[i]))))
+    return reqs, sorted(sharers)
+
+
+def _traced_serve(sched, reqs):
+    """One whole serve of ``reqs`` under the profiler, after the capture
+    (a whole serve of the Poisson trace costs the profiler minutes, so the
+    caller passes a small fixed burst).  Its wall and device busy time,
+    the port's kernels by name, and the launch counters', the replays' and
+    the admissions' increase over it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    replays, admissions = sched.chunk_replays, sched.admissions
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = sched.serve(reqs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    counted = read_launches()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    ours = {}
+    for e in kernels:
+        for name in KERNEL_COUNTERS:
+            if name in e.key:
+                ours[name] = ours.get(name, 0) + e.count
+    return out, {"requests": len(reqs),
+                 "new_tokens": sched.stats["new_tokens"],
+                 "wall_ms": 1e3 * wall_s,
+                 "device_busy_ms": busy_us / 1e3,
+                 "device_busy_share": busy_us / (1e6 * wall_s),
+                 "port_kernels": ours, "counted": counted,
+                 "replays": sched.chunk_replays - replays,
+                 "admissions": sched.admissions - admissions}
+
+
+def phase_sched(cfg, dev):
+    """The continuous-batching scheduler on one full model: `SCHED` over
+    `sched_requests`, greedy.  Gates: four requests and every head-sharer
+    equal to the engine's solo generate; the pool within n_blocks - 1
+    blocks, prefix hits, pool bytes below the static reservation; the
+    captured paged step's launches equal to one eager paged step's (the
+    warm-up); sampled outputs (a second scheduler at temperature 0.8, the
+    first 8 requests) equal to the solo sampled generate; the kernels by
+    name of a traced serve (the first 8 requests as a burst at step 0, 9
+    new tokens each: 8 admissions, one chunk of 8 replays) equal to its
+    admissions' counted prefill launches plus the step's times its
+    replays.  Timed in
+    turns: serves of the trace, serves of the same 24 requests as a burst
+    at step 0, and the static engine's one-batch generate of the same
+    prompts (scan, the longest request's new tokens for every prompt):
+    the burst and the static generate face the same requests, all present
+    at the start.  Each serve's share of wall time spent in admissions
+    (prefill, splice, first token) comes from the scheduler's own timer
+    (`time_admissions`)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, SlotScheduler
+    from repro_torch.serve.paged_cache import paged_cache_nbytes
+
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    sched = SlotScheduler(cfg, params, device=dev, **SCHED)
+    reqs, sharers = sched_requests(cfg.vocab_size)
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    # the first serve: the paged step captured (warm-up and capture
+    # counted), then the chunks replayed; every count set to 0 before it
+    steps = []
+    step = sched._step
+
+    def counted_step():
+        before = read_launches()
+        step()
+        steps.append({k: v - before[k] for k, v in read_launches().items()})
+
+    sched._step = counted_step
+    torch.cuda.synchronize()
+    reset_launches()
+    out = sched.serve(reqs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    del sched._step
+    part("first serve")
+    one = _step_launches(cfg)
+    stats = dict(sched.stats)
+    if sched.chunk_captures != 1 or steps != [one, one] or \
+            sched.chunk_replays != stats["chunks"] * SCHED["decode_chunk"]:
+        raise AssertionError(f"{cfg.name} sched: {sched.chunk_captures} "
+                             f"captures, {sched.chunk_replays} replays over "
+                             f"{stats['chunks']} chunks, step launches "
+                             f"(warm-up, capture) {steps}, expected {one}")
+    static = T.init_cache(cfg, SCHED["slots"], SCHED["slot_tokens"], "meta")
+    static_bytes = paged_cache_nbytes(static)
+    if not (stats["peak_blocks"] <= SCHED["n_blocks"] - 1
+            and stats["prefix_hits"] > 0
+            and stats["pool_bytes"] < static_bytes):
+        raise AssertionError(f"{cfg.name} sched stats {stats}, static "
+                             f"reservation {static_bytes} bytes")
+    checked = sorted({0, 7, 13, 21} | set(sharers))
+    for i in checked:
+        r = reqs[i]
+        solo = sched.engine.generate([r.prompt], r.max_new_tokens)[0]
+        if out[i] != solo:
+            raise AssertionError(f"{cfg.name} sched: request {i} differs "
+                                 "from the engine's solo generate")
+    for r, o in zip(reqs, out):
+        gen = o[len(r.prompt):]
+        if len(gen) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab_size for t in gen):
+            raise AssertionError("malformed scheduled output")
+    part("solo")
+
+    # sampled: a second scheduler at temperature 0.8, every slot's
+    # generator registered with its graph, over the first 8 requests (16
+    # new tokens at most): each equal to the engine's solo sampled generate
+
+    samp = SlotScheduler(cfg, params, device=dev, temperature=0.8, **SCHED)
+    few = [Request(r.prompt, min(r.max_new_tokens, 16), seed=r.seed,
+                   arrival=r.arrival) for r in reqs[:8]]
+    sampled = samp.serve(few)
+    for r, o in zip(few, sampled):
+        solo = samp.engine.generate([r.prompt], r.max_new_tokens,
+                                    temperature=0.8, seed=r.seed)[0]
+        if o != solo:
+            raise AssertionError(f"{cfg.name} sampled sched: request seed "
+                                 f"{r.seed} differs from its solo generate")
+    del samp
+    part("sampled")
+
+    # traced: a fixed burst (8 admissions, one chunk of 8 replays); kernels
+    # by name == its admissions' counted prefills + its replays of the step
+    burst8 = [Request(r.prompt, 9, seed=r.seed) for r in reqs[:8]]
+    traced_out, tr = _traced_serve(sched, burst8)
+    want_seen = {name: sum(tr["counted"][c] + one[c] * tr["replays"]
+                           for c in cs)
+                 for name, cs in KERNEL_COUNTERS.items()}
+    want_seen = {k: v for k, v in want_seen.items() if v}
+    want_out = [o[:len(r.prompt) + 9] for r, o in zip(burst8, out)]
+    if traced_out != want_out or tr["port_kernels"] != want_seen or \
+            (tr["admissions"], tr["replays"]) != (8, 8):
+        raise AssertionError(f"{cfg.name} traced serve: kernels by name "
+                             f"{tr['port_kernels']}, expected {want_seen} "
+                             f"(prefills {tr['counted']} + {tr['replays']} "
+                             f"replays of {one}, {tr['admissions']} "
+                             f"admissions, expected 8 and 8); tokens "
+                             f"equal to the trace's {traced_out == want_out}")
+
+    part("trace")
+
+    # timed in turns: trace, burst, static, static, burst, trace; every
+    # serve's admissions timed by the scheduler
+    burst = [Request(r.prompt, r.max_new_tokens, seed=r.seed)
+             for r in reqs]
+    prompts = [r.prompt for r in reqs]
+    longest = max(r.max_new_tokens for r in reqs)
+    sched.engine.generate(prompts, longest)         # capture at 24 lanes
+    kinds = ("trace", "burst", "static")
+    times = {k: [] for k in kinds}
+    admit_share = {"trace": [], "burst": []}
+    burst_stats = None
+    sched.time_admissions = True
+    for order in (kinds, kinds[::-1]):
+        for kind in order:
+            admitted, sched.admit_seconds = sched.admissions, 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "static":
+                sched.engine.generate(prompts, longest)
+            else:
+                res = sched.serve(reqs if kind == "trace" else burst)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            times[kind].append(dt)
+            if kind != "static":
+                if res != out:
+                    raise AssertionError(f"{cfg.name} {kind}: greedy "
+                                         "outputs differ from the first "
+                                         "serve's")
+                if sched.admissions - admitted != len(reqs) or \
+                        not sched.admit_seconds > 0.0:
+                    raise AssertionError(
+                        f"{cfg.name} {kind}: {sched.admissions - admitted}"
+                        f" admissions timed at {sched.admit_seconds} s, "
+                        f"expected {len(reqs)} taking some time")
+                admit_share[kind].append(sched.admit_seconds / dt)
+                if kind == "burst":
+                    burst_stats = dict(sched.stats)
+    sched.time_admissions = False
+    wall = {k: statistics.median(v) for k, v in times.items()}
+    new = stats["new_tokens"]
+    part("timed")
+    return {"arch": cfg.name, "layers": cfg.num_layers, **SCHED,
+            "stats": stats, "static_cache_bytes": static_bytes,
+            "launches": launches, "captured_step_launches": one,
+            "solo_checked": checked, "sharers": sharers,
+            "times_s": times, "wall_s": wall["trace"],
+            "tokens_per_s": new / wall["trace"],
+            "burst_wall_s": wall["burst"],
+            "burst_tokens_per_s": new / wall["burst"],
+            "burst_stats": burst_stats,
+            "static_wall_s": wall["static"],
+            "static_tokens_per_s": new / wall["static"],
+            "static_new_tokens": longest,
+            "admit_share": {k: statistics.median(v)
+                            for k, v in admit_share.items()},
+            "trace": tr, "part_s": parts}
+
+
 def phase_check(smoke_cfg, dev):
     """Smoke model on the card (kernels) vs the CPU (plain versions), each
     through an Engine on its device (which encodes as the config says)."""
@@ -1678,6 +1940,41 @@ def main() -> int:
                       f" of busy)" for k, v in tr["port_kernels"].items()))
 
     mark("serve")
+    print("phase sched:")
+    scheds = {}
+    for arch in (ARCH, RESIDENT):
+        sc = phase_sched(get_config(arch), dev)
+        scheds[arch] = sc
+        st, tr, bs = sc["stats"], sc["trace"], sc["burst_stats"]
+        print(f"sched: {arch} {sc['layers']} layers, slots "
+              f"{sc['slots']} x {sc['slot_tokens']} tokens, block "
+              f"{sc['block_size']}, {sc['n_blocks']} blocks, chunk "
+              f"{sc['decode_chunk']}, greedy | synthetic Poisson trace: "
+              f"{st['requests']} requests, {st['new_tokens']} new tokens, "
+              f"{st['chunks']} chunks, {st['steps']} steps, wall "
+              f"{sc['wall_s']:.3f} s, {sc['tokens_per_s']:.1f} new "
+              f"tokens/s, latency p50/p99 {st['latency_steps_p50']}/"
+              f"{st['latency_steps_p99']} steps, admissions "
+              f"{100 * sc['admit_share']['trace']:.1f}% of wall | pool "
+              f"{st['pool_bytes']} bytes vs static "
+              f"{sc['static_cache_bytes']}, peak {st['peak_blocks']} "
+              f"blocks, prefix hits {st['prefix_hits']} | the same "
+              f"requests as a burst at step 0, in turns: scheduler "
+              f"{sc['burst_wall_s']:.3f} s ({bs['chunks']} chunks, "
+              f"admissions {100 * sc['admit_share']['burst']:.1f}% of "
+              f"wall), static Engine.generate (scan, one batch, "
+              f"{sc['static_new_tokens']} new tokens each) "
+              f"{sc['static_wall_s']:.3f} s, requested tokens/s "
+              f"{sc['burst_tokens_per_s']:.1f} / "
+              f"{sc['static_tokens_per_s']:.1f} | traced burst of "
+              f"{tr['requests']} x 9 tokens ({tr['admissions']} "
+              f"admissions, {tr['replays']} replays) busy "
+              f"{tr['device_busy_ms']:.2f} ms of {tr['wall_ms']:.1f} "
+              f"({100 * tr['device_busy_share']:.1f}%) | captured step "
+              f"{sc['captured_step_launches']} | solo == scheduled for "
+              f"requests {sc['solo_checked']} | on {smi}")
+
+    mark("sched")
     chain = phase_chain(d, f, (lanes, lanes * bucket), dev)
     print(f"chain: rns_chain_linear staged == fused bit for bit at "
           f"{[(c['M'], c['K'], c['F']) for c in chain['shapes']]}: "
@@ -1712,11 +2009,14 @@ def main() -> int:
     def by_path(key):
         out = {arch: sv["launches"][key] for arch, sv in serves.items()
                if sv["launches"][key]}
+        out.update({f"sched:{arch}": sc["launches"][key]
+                    for arch, sc in scheds.items() if sc["launches"][key]})
         if chain["launches"][key]:
             out["rns_chain_linear:pallas"] = chain["launches"][key]
         return out
 
-    quantize = {a: n - serves[a]["launches"]["residue_in"]
+    runs = {**serves, **{f"sched:{a}": sc for a, sc in scheds.items()}}
+    quantize = {a: n - runs[a]["launches"]["residue_in"]
                 for a, n in by_path("rns_fused_matmul").items()}
     src = "src/repro_torch/csrc/"
 
@@ -1778,7 +2078,8 @@ def main() -> int:
                     exist_ok=True)
         with open(args.record, "w") as fh:
             json.dump({"device": dev_info, "rows": rows + rows2 + rows3,
-                       "serve": serves, "chain": chain, "entries": entries,
+                       "serve": serves, "sched": scheds, "chain": chain,
+                       "entries": entries,
                        "prefill_per_layer": prefill,
                        "convert_per_layer": convert, "edges": edges,
                        "decode_per_layer": decode,

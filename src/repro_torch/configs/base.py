@@ -52,7 +52,7 @@ class ModelConfig:
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
-ARCH_MODULES = ("rns_paper",)
+ARCH_MODULES = ("smollm_135m", "rns_paper")
 
 
 def register(name: str, full: Callable[[], ModelConfig],

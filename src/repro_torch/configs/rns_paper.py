@@ -1,7 +1,10 @@
-"""The paper's RNS-accelerator LM, port of the `rns-smollm-135m-{fused,
-resident,pallas}` entries of `repro/configs/rns_paper.py`: the smollm
-backbone with every linear on the RNS datapath.
+"""The paper's RNS-accelerator LM, port of `repro/configs/rns_paper.py`
+but for its two `-sharded` entries (the port has no multi-device layout):
+the smollm backbone with every linear on the RNS datapath.
 
+  (none)    — `rns-smollm-135m`: live weights on the ``auto`` backend (the
+              fused kernel), each linear quantizing its weight per call;
+  -encoded  — the same backend with the weights encoded once at load;
   -fused    — one fused-kernel launch per linear, weights encoded once at
               load;
   -resident — the fused cell with residue-domain residency: stacked QKV in
@@ -15,6 +18,26 @@ import dataclasses
 
 from . import smollm_135m
 from .base import ModelConfig, register
+
+
+def full() -> ModelConfig:
+    return dataclasses.replace(smollm_135m.full(), name="rns-smollm-135m",
+                               linear_backend="rns_int8")
+
+
+def smoke() -> ModelConfig:
+    return dataclasses.replace(smollm_135m.smoke(), name="rns-smollm-smoke",
+                               linear_backend="rns_int8")
+
+
+def full_encoded() -> ModelConfig:
+    return dataclasses.replace(full(), name="rns-smollm-135m-encoded",
+                               encode_weights=True)
+
+
+def smoke_encoded() -> ModelConfig:
+    return dataclasses.replace(smoke(), name="rns-smollm-smoke-encoded",
+                               encode_weights=True)
 
 
 def full_fused() -> ModelConfig:
@@ -54,6 +77,8 @@ def smoke_pallas() -> ModelConfig:
                                linear_backend="rns_int8:pallas")
 
 
+register("rns-smollm-135m", full, smoke)
+register("rns-smollm-135m-encoded", full_encoded, smoke_encoded)
 register("rns-smollm-135m-fused", full_fused, smoke_fused)
 register("rns-smollm-135m-resident", full_resident, smoke_resident)
 register("rns-smollm-135m-pallas", full_pallas, smoke_pallas)

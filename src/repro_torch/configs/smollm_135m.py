@@ -1,7 +1,8 @@
 """smollm-135m [dense] (hf:HuggingFaceTB/SmolLM-135M): 30L d_model=576 9H
 (GQA kv=3) d_ff=1536 vocab=49152, SwiGLU, RoPE, tied embeddings — the
-published widths, as in `repro/configs/smollm_135m.py`."""
-from .base import ModelConfig
+published widths, as in `repro/configs/smollm_135m.py`: every linear a
+plain bf16 matmul."""
+from .base import ModelConfig, register
 
 
 def full() -> ModelConfig:
@@ -16,3 +17,6 @@ def smoke() -> ModelConfig:
         name="smollm-smoke", family="dense",
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=128, tie_embeddings=True)
+
+
+register("smollm-135m", full, smoke)

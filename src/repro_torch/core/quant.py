@@ -13,8 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["QMAX", "quant_scale", "quantize_int8", "requant_const",
-           "requant_scale"]
+__all__ = ["QMAX", "quant_scale", "quantize_int8", "dequantize",
+           "requant_const", "requant_scale"]
 
 # Symmetric clip point: ±127 (−128 is never emitted).
 QMAX = 127.0
@@ -33,6 +33,12 @@ def quantize_int8(x: torch.Tensor, dim: int = -1):
     scale = quant_scale(x, dim)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -QMAX, QMAX)
     return q.to(torch.int8), scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """q · scale in float32, cast to ``dtype``."""
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 def requant_const(scale_col: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,20 +1,30 @@
 """RNS bases, port of `repro/core/rns.py`: moduli sets, the dynamic range,
-the Mixed-Radix inverse table, and the basis-sizing rules of the int8 matmul
-and of the residue-resident chain.
+the per-channel 2^n±δ descriptors, forward conversion, the CRT and
+Mixed-Radix reverse oracles over Python ints, the paper's case-study and τ
+bases, and the basis-sizing rules of the int8 matmul and of the
+residue-resident chain.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
-__all__ = ["RNSBasis", "PAPER_N5_MODULI", "basis_for_accumulation",
+import numpy as np
+import torch
+
+from .twit import Modulus, is_power_of_two
+
+__all__ = ["RNSBasis", "PAPER_N5_MODULI", "PAPER_N5_DYNAMIC_RANGE",
+           "paper_n5_basis", "tau_basis", "basis_for_accumulation",
            "basis_for_chain", "basis_for_int8_matmul"]
 
 # The paper's Section IV-D case-study set (order as printed).
 PAPER_N5_MODULI: Tuple[int, ...] = (17, 19, 23, 29, 31, 1024, 35, 37, 39, 41,
                                     43, 47)
+# Exact dynamic range claimed in Section IV-D.
+PAPER_N5_DYNAMIC_RANGE = 28_620_324_425_937_054_720
 
 
 def _egcd(a: int, b: int) -> Tuple[int, int, int]:
@@ -33,10 +43,12 @@ def _modinv(a: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class RNSBasis:
-    """A pairwise-coprime RNS basis."""
+    """A pairwise-coprime RNS basis; channels of the form 2^n ± δ carry a
+    :class:`Modulus` descriptor, power-of-two channels none."""
 
     name: str
     moduli: Tuple[int, ...]
+    channel_n: int | None = None     # force the 2^n±δ channel width
 
     def __post_init__(self):
         ms = self.moduli
@@ -57,6 +69,47 @@ class RNSBasis:
         return math.prod(self.moduli)
 
     @functools.cached_property
+    def channels(self) -> Tuple[Modulus | None, ...]:
+        """Per-channel 2^n±δ descriptors (None for power-of-two channels)."""
+        return tuple(None if is_power_of_two(m)
+                     else Modulus.from_value(m, n=self.channel_n)
+                     for m in self.moduli)
+
+    @functools.cached_property
+    def _crt_weights(self) -> Tuple[int, ...]:
+        """w_i = M_i · |M_i^{-1}|_{m_i} with M_i = M / m_i."""
+        return tuple((self.M // m) * _modinv(self.M // m, m)
+                     for m in self.moduli)
+
+    def to_int(self, residues: Sequence[int]) -> int:
+        """CRT reverse conversion over Python ints (the oracle)."""
+        if len(residues) != self.k:
+            raise ValueError(f"{len(residues)} residues for a basis of "
+                             f"{self.k} channels")
+        return sum(int(r) * w for r, w in
+                   zip(residues, self._crt_weights)) % self.M
+
+    def to_signed(self, residues: Sequence[int]) -> int:
+        """Reverse conversion into the centered range [−M/2, M/2)."""
+        v = self.to_int(residues)
+        return v - self.M if v >= (self.M + 1) // 2 else v
+
+    def forward(self, x):
+        """Binary → residues, channel i holding |x|_{m_i} (floored, so a
+        negative input maps to its coset representative).  A torch tensor
+        goes through THE forward converter (`conversion_plan.forward`: the
+        `rns_forward` kernel on CUDA) as int32 into the residue dtype; Python
+        ints and numpy arrays take the exact big-int path of the oracle."""
+        if isinstance(x, torch.Tensor):
+            from .conversion_plan import forward
+
+            return forward(x.to(torch.int32), self.moduli)
+        xs = np.asarray(x)
+        if xs.dtype == object or xs.dtype.kind not in "iu":
+            xs = xs.astype(object)
+        return np.stack([np.mod(xs, m) for m in self.moduli], axis=0)
+
+    @functools.cached_property
     def mrc_inverses(self) -> Tuple[Tuple[int, ...], ...]:
         """inv[j][i] = |m_i^{-1}|_{m_j} for i < j, 0 elsewhere."""
         k = self.k
@@ -65,6 +118,37 @@ class RNSBasis:
             for i in range(j):
                 inv[j][i] = _modinv(self.moduli[i], self.moduli[j])
         return tuple(tuple(row) for row in inv)
+
+    def mrc_digits(self, residues: Sequence[int]) -> List[int]:
+        """Mixed-radix digits d_i with x = d_0 + m_0(d_1 + m_1(d_2 + …))."""
+        d: List[int] = []
+        for j, mj in enumerate(self.moduli):
+            t = int(residues[j]) % mj
+            for i in range(j):
+                t = ((t - d[i]) * self.mrc_inverses[j][i]) % mj
+            d.append(t)
+        return d
+
+    def from_mrc(self, digits: Sequence[int]) -> int:
+        """Horner recombination of mixed-radix digits (oracle form)."""
+        v = 0
+        for dj, mj in zip(reversed(digits), reversed(self.moduli)):
+            v = v * mj + int(dj)
+        return v
+
+
+@functools.lru_cache(maxsize=None)
+def paper_n5_basis() -> RNSBasis:
+    """The Section IV-D 12-modulus case-study set (DR ≈ 2^65), every
+    non-power-of-two channel a 2^5±δ datapath."""
+    return RNSBasis(name="paper-n5-12mod", moduli=PAPER_N5_MODULI,
+                    channel_n=5)
+
+
+@functools.lru_cache(maxsize=None)
+def tau_basis(n: int = 22) -> RNSBasis:
+    """The classical 3-modulus set τ = {2^n − 1, 2^n, 2^n + 1} (Table II)."""
+    return RNSBasis(name=f"tau-{n}", moduli=(2**n - 1, 2**n, 2**n + 1))
 
 
 def basis_for_accumulation(max_abs: int, name: str | None = None) -> RNSBasis:

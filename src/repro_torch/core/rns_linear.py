@@ -23,16 +23,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.rns_fused import rns_fused_matmul
-
 from . import channel_plan as cp
 from .conversion_plan import ConversionPlan, forward
 from .linear_spec import BACKENDS
 from .quant import QMAX, quant_scale, quantize_int8, requant_const
-from .rns import basis_for_int8_matmul
+from .rns import RNSBasis, basis_for_int8_matmul
 from .rns_tensor import RNSTensor
 
-__all__ = ["rns_dense", "rns_int_matmul", "rns_chain_linear"]
+__all__ = ["rns_dense", "rns_int_matmul", "rns_chain_linear",
+           "reconstruct_mrc"]
 
 
 def _fused(backend: str) -> bool:
@@ -40,6 +39,14 @@ def _fused(backend: str) -> bool:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     return backend != "pallas"
+
+
+def reconstruct_mrc(residues: torch.Tensor, basis: RNSBasis, *,
+                    scale: torch.Tensor | None = None) -> torch.Tensor:
+    """(C, …) canonical residues → signed value as float32, times ``scale``
+    when given: `ConversionPlan.reverse` of ``basis`` (the `rns_reverse`
+    kernel on a CUDA tensor)."""
+    return ConversionPlan.for_basis(basis).reverse(residues, scale=scale)
 
 
 def rns_int_matmul(xq: torch.Tensor, wq) -> torch.Tensor:
@@ -59,6 +66,8 @@ def rns_int_matmul(xq: torch.Tensor, wq) -> torch.Tensor:
 def rns_dense(x: torch.Tensor, w, backend: str = "auto", *,
               broadcast: bool = True) -> torch.Tensor:
     """(M, K) float activations × weight → (M, N) in x's dtype."""
+    # deferred: the kernel modules import the core package
+    from repro_torch.kernels.rns_fused import rns_fused_matmul
     if not broadcast:
         raise NotImplementedError("the per-channel (broadcast=False) "
                                   "datapath is not ported")
@@ -94,6 +103,8 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = 
     ``emit="residues"`` the requantized product as the next launch's
     activation RNSTensor.
     """
+    # deferred: the kernel modules import the core package
+    from repro_torch.kernels.rns_fused import rns_fused_matmul
     if emit not in ("float", "residues"):
         raise ValueError(f"emit must be 'float' or 'residues', got {emit!r}")
     if not isinstance(x, RNSTensor) or x.residues.ndim != 3:

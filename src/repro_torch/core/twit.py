@@ -38,10 +38,15 @@ class Modulus:
         return 2**self.n + self.sign * self.delta
 
     @classmethod
-    def from_value(cls, m: int) -> "Modulus":
-        """Factor m into 2^n ± δ with the smallest admissible δ."""
+    def from_value(cls, m: int, n: int | None = None) -> "Modulus":
+        """Factor m into 2^n ± δ: at the width ``n`` when given (the paper's
+        case study keeps every channel at n = 5, e.g. 17 = 2^5 − 15), else
+        with the smallest admissible δ."""
         if m < 3:
             raise ValueError(f"modulus too small: {m}")
+        if n is not None:
+            delta = m - 2**n
+            return cls(n=n, delta=abs(delta), sign=-1 if delta < 0 else 1)
         best = None
         for nn in range(2, m.bit_length() + 1):
             delta = m - 2**nn

@@ -1,6 +1,7 @@
 """Shared layers of the dense stack, port of `repro/models/layers.py`:
 the linear dispatch (with the residue-resident chains `linear_qkv` and
-`mlp_chain`), RMSNorm, RoPE, GQA attention and the full KV cache.
+`mlp_chain`), RMSNorm, RoPE, GQA attention, the full KV cache and the paged
+KV pool's per-slot write and gather.
 
 Layouts follow the reference: activations (B, S, d), attention heads
 (B, S, H, D), weights (d_in, d_out).
@@ -27,7 +28,8 @@ from repro_torch.core.rns_linear import rns_chain_linear, rns_dense
 from repro_torch.core.rns_tensor import RNSTensor, encode_activation
 
 __all__ = ["linear", "linear_qkv", "mlp_chain", "rms_norm", "rope",
-           "apply_rope", "attention", "update_cache_full", "silu"]
+           "apply_rope", "attention", "update_cache_full", "silu",
+           "paged_write", "paged_gather", "paged_kpos"]
 
 NEG_INF = -1e30
 
@@ -240,3 +242,39 @@ def update_cache_full(cache_k, cache_v, k, v, pos):
     cache_k[:, pos:pos + S] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def paged_write(pool_k, pool_v, k, v, block_table, pos):
+    """Write one token's k, v (B, Hk, D) per slot into the physical pools
+    (n_phys, block, Hk, D), in place, at slot b's position ``pos[b]``:
+    block ``block_table[b, pos // block]``, offset ``pos % block``.  A slot
+    whose block is unmapped (−1) or past the table writes to the trash
+    block 0, which is never read unmasked.  Every index is a device
+    tensor; nothing is read on the host."""
+    bs, nlog = pool_k.shape[1], block_table.shape[1]
+    blk = pos // bs
+    phys = torch.gather(block_table, 1, blk.clamp(max=nlog - 1)[:, None])
+    phys = torch.where(blk < nlog, phys[:, 0], 0).clamp_min(0)
+    off = pos % bs
+    pool_k.index_put_((phys, off), k.to(pool_k.dtype))
+    pool_v.index_put_((phys, off), v.to(pool_v.dtype))
+
+
+def paged_gather(pool, block_table):
+    """Each slot's logical view of a pool: (B, nlog·block, Hk, D), unmapped
+    blocks read from the trash block (their keys are masked by
+    `paged_kpos`)."""
+    B, nlog = block_table.shape
+    g = pool[block_table.clamp_min(0)]
+    return g.reshape(B, nlog * pool.shape[1], *pool.shape[2:])
+
+
+def paged_kpos(block_table, pos, block: int):
+    """(B, nlog·block) key positions of the gathered view: the logical
+    index where the block is mapped and the key is at or before the slot's
+    position, −1 (invalid) elsewhere."""
+    nlog = block_table.shape[1]
+    kpad = torch.arange(nlog * block, dtype=torch.int64,
+                        device=block_table.device)
+    mapped = block_table[:, kpad // block] >= 0
+    return torch.where(mapped & (kpad[None] <= pos[:, None]), kpad[None], -1)

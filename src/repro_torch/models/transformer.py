@@ -18,7 +18,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from .layers import (apply_rope, attention, linear, linear_qkv, mlp_chain,
-                     rms_norm, rope, silu, update_cache_full)
+                     paged_gather, paged_kpos, paged_write, rms_norm, rope,
+                     silu, update_cache_full)
 
 __all__ = ["make_params", "init_cache", "prefill", "decode_step"]
 
@@ -108,12 +109,19 @@ def _attn_full(p, h, cfg: ModelConfig, positions):
 
 
 def _attn_decode(p, h, cfg: ModelConfig, pos, cache_k, cache_v,
-                 positions=None):
+                 positions=None, block_table=None):
     """One-token attention; writes this step's K/V at slot ``pos`` (an int
     or a 0-d integer tensor on the device, never read on the host).
 
     ``positions`` ((B,), optional) are the per-sequence real positions
     ``pos − pad[i]`` of a left-padded batch: they drive RoPE and the mask.
+
+    ``block_table`` ((B, nlog) int64, optional) switches to the paged
+    layout (`serve/paged_cache.py`): ``cache_k``/``cache_v`` are physical
+    pools (n_phys, block, Hk, dh) shared by all slots, ``pos`` is the
+    per-slot (B,) write position and ``positions`` equals it.  Each slot
+    attends over its gathered logical view, nlog·block keys long; keys of
+    unmapped blocks or past the slot's position are masked.
     """
     B = h.shape[0]
     H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -123,22 +131,26 @@ def _attn_decode(p, h, cfg: ModelConfig, pos, cache_k, cache_v,
     q = q.reshape(B, 1, H, dh)
     k = k.reshape(B, 1, Hk, dh)
     v = v.reshape(B, 1, Hk, dh)
-    kpad = torch.arange(cache_k.shape[1], dtype=torch.int32,
-                        device=h.device)
     if positions is None:
         qpos = (pos.reshape(1).to(torch.int32)
                 if isinstance(pos, torch.Tensor)
                 else torch.full((1,), pos, dtype=torch.int32,
                                 device=h.device))
-        kpos = kpad
     else:
         qpos = positions[:, None]
-        # slot-aligned padded indices → real positions; pad slots are −1
-        kpos = kpad[None] - (pos - positions)[:, None]
-        kpos = torch.where(kpos >= 0, kpos, -1)
     cos, sin = rope(qpos, dh, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    ck, cv = update_cache_full(cache_k, cache_v, k, v, pos)
+    if block_table is not None:
+        paged_write(cache_k, cache_v, k[:, 0], v[:, 0], block_table, pos)
+        ck, cv = (paged_gather(c, block_table) for c in (cache_k, cache_v))
+        kpos = paged_kpos(block_table, pos, cache_k.shape[1])
+    else:
+        ck, cv = update_cache_full(cache_k, cache_v, k, v, pos)
+        kpos = torch.arange(ck.shape[1], dtype=torch.int32, device=h.device)
+        if positions is not None:
+            # slot-aligned padded indices → real positions; pad slots are −1
+            kpos = kpos[None] - (pos - positions)[:, None]
+            kpos = torch.where(kpos >= 0, kpos, -1)
     o = attention(q, ck.to(q.dtype), cv.to(q.dtype), qpos, kpos,
                   block_kv=cfg.attn_block_kv)
     return linear(o.reshape(B, 1, H * dh), p["attn"]["wo"], spec)
@@ -204,17 +216,30 @@ def prefill(cfg: ModelConfig, params, batch, smax: int, cache=None):
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, pos,
-                positions=None):
+                positions=None, block_tables=None):
     """One decode step: batch {"tokens": (B, 1)}, ``pos`` the shared cache
     slot (an int, or a 0-d integer tensor on the device that the step never
     reads on the host, as a captured step needs), ``positions`` ((B,),
     optional) the real per-sequence positions.  Returns (logits (B, vocab)
-    float32, cache updated in place)."""
+    float32, cache updated in place).
+
+    ``block_tables`` ((B, nlog) int64, optional) selects the paged layout:
+    ``cache`` holds the physical pools of `serve/paged_cache.
+    init_paged_cache`, ``pos`` becomes the per-slot (B,) write position and
+    the real positions default to it (scheduler slots carry no pad)."""
     h = params["embed"][batch["tokens"]]
+    if block_tables is not None:
+        pos = torch.as_tensor(pos, device=h.device).expand(h.shape[0])
+        positions = pos if positions is None else positions
+    elif isinstance(pos, torch.Tensor) and pos.ndim:
+        raise ValueError("per-slot (B,) decode positions need block_tables "
+                         "paging; the contiguous cache layout shares one "
+                         "scalar write position")
     ck, cv = cache["sub0"]["k"], cache["sub0"]["v"]
     blocks = params["blocks"]["sub0"]
     for b in range(cfg.n_blocks):
         p = _layer(blocks, b)
-        h = h + _attn_decode(p, h, cfg, pos, ck[b], cv[b], positions)
+        h = h + _attn_decode(p, h, cfg, pos, ck[b], cv[b], positions,
+                             block_tables)
         h = h + _mlp(p, h, cfg)
     return _lm_head(cfg, params, h)[:, 0], cache

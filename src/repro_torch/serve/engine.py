@@ -39,7 +39,7 @@ temperature is a device scalar, so every temperature reuses one capture.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,9 +77,37 @@ def _sample(logits: torch.Tensor, temperature: Optional[torch.Tensor],
     if temperature is None:
         return torch.argmax(logits, dim=-1)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return gumbel_argmax(logits, temperature, u)
+
+
+def gumbel_argmax(logits: torch.Tensor, temperature: torch.Tensor,
+                  u: torch.Tensor) -> torch.Tensor:
+    """argmax(logits / temperature + Gumbel(u)) per row, ``u`` uniform
+    draws of the logits' shape."""
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
     return torch.argmax(logits / temperature + gumbel, dim=-1)
+
+
+def capture_graph(step: Callable[[], None],
+                  generators: Sequence[torch.Generator],
+                  device: torch.device) -> torch.cuda.CUDAGraph:
+    """Warm ``step`` up once on a side stream (first launches, cached
+    tables), then capture one call of it into a CUDA graph with every
+    generator it draws from registered, so a replay draws what the eager
+    step would.  ``step`` must read and write only persistent buffers:
+    the warm-up call runs it for real."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph):
+        step()
+    return graph
 
 
 class _ScanState:
@@ -155,6 +183,15 @@ class Engine:
                  "pad": torch.from_numpy(pad).to(self.device)}
         return batch, plen
 
+    def _first(self, logits: torch.Tensor,
+               temperature: Optional[torch.Tensor],
+               generator: torch.Generator, seed: int) -> torch.Tensor:
+        """The first token of every row: ``generator`` seeded with
+        ``seed``, then one draw over the prefill's (B, V) logits; the
+        generator's chain goes on from there."""
+        generator.manual_seed(seed)
+        return _sample(logits, temperature, generator)
+
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
                  temperature: float = 0.0, seed: int = 0,
                  eos_id: Optional[int] = None,
@@ -196,10 +233,9 @@ class Engine:
         """The per-token loop: (new, B) tokens, −1 after a sequence's EOS."""
         cfg, params, pad = self.cfg, self.params, batch["pad"]
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
         temp = self._temperature(temperature)
         logits, cache, pos0 = T.prefill(cfg, params, batch, self.smax)
-        cur = _sample(logits, temp, gen)
+        cur = self._first(logits, temp, gen, seed)
         done = cur == eos
         toks = [cur]
         for t in range(pos0, pos0 + new - 1):
@@ -237,20 +273,11 @@ class Engine:
         st.step += 1
 
     def _capture(self, st: _ScanState) -> None:
-        """Warm the step up once on a side stream (first launches, cached
-        tables), then capture one step into the state's CUDA graph, the
-        sampling generator registered with it."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._step(st)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        if st.temp is not None:
-            graph.register_generator_state(st.gen)
-        with torch.cuda.graph(graph):
-            self._step(st)
-        st.graph = graph
+        """Capture one step into the state's CUDA graph, the sampling
+        generator registered with it."""
+        st.graph = capture_graph(lambda: self._step(st),
+                                 [] if st.temp is None else [st.gen],
+                                 self.device)
         self.scan_captures += 1
 
     def _generate_scan(self, batch, new: int, temperature: float, seed: int,
@@ -273,8 +300,7 @@ class Engine:
             st.pos.fill_(pos0)
             st.step.fill_(1)
             self._capture(st)
-        st.gen.manual_seed(seed)
-        first = _sample(logits, st.temp, st.gen)
+        first = self._first(logits, st.temp, st.gen, seed)
         st.toks[0].copy_(first)
         st.cur.copy_(first)
         torch.eq(first, st.eos, out=st.done)

@@ -915,3 +915,78 @@ def test_engine_scan_replays_captured_step(dev, name, monkeypatch):
                                                        for p, h in
                                                        zip(prompts, host)]
     assert (eng.scan_captures, eng.scan_replays) == (2, 35)
+
+
+def _step_launch_counts():
+    from repro_torch.kernels import rns_forward, rns_fused_matmul
+
+    return (rns_fused_matmul.launches, rns_fused_matmul.residue_in_launches,
+            rns_forward.launches)
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "rns-smollm-135m-fused",
+                                  "rns-smollm-135m-resident"])
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_scheduler_replays_captured_paged_step(dev, name, temperature,
+                                               monkeypatch):
+    """The smoke model served by `SlotScheduler` on the card: one paged
+    step captured (the warm-up's and the capture's RNS launches equal to
+    one eager step's: 7 fused a layer; 5 fused, 4 of them residue-in, and
+    2 `rns_forward` resident; none for bf16), one replay a step of every
+    chunk; greedy and sampled outputs equal to the engine's solo generate
+    under staggered arrivals; tokens and pool equal to the same serve run
+    eagerly on the card (the trash block aside); once captured, no Python
+    decode step runs."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, SlotScheduler
+    from repro_torch.serve import scheduler as S
+
+    cfg = get_smoke_config(name)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    kw = dict(slots=2, block_size=4, slot_tokens=24, decode_chunk=2,
+              temperature=temperature, device=dev)
+    sched = SlotScheduler(cfg, params, **kw)
+    prompts = [[5, 6, 7], list(range(1, 10)), [9] * 6, list(range(3, 14))]
+    news, seeds, arrivals = [8, 3, 6, 4], [3, 4, 3, 8], [0, 0, 3, 5]
+    reqs = [Request(p, m, seed=s, arrival=a)
+            for p, m, s, a in zip(prompts, news, seeds, arrivals)]
+    solo = [sched.engine.generate([p], m, temperature=temperature,
+                                  seed=s)[0]
+            for p, m, s in zip(prompts, news, seeds)]
+
+    counts = []
+    step = sched._step
+
+    def counted_step():
+        before = _step_launch_counts()
+        step()
+        counts.append(tuple(a - b for a, b in
+                            zip(_step_launch_counts(), before)))
+
+    sched._step = counted_step
+    out = sched.serve(reqs)
+    del sched._step
+    L = cfg.num_layers
+    one = {"smollm-135m": (0, 0, 0), "rns-smollm-135m-fused": (7 * L, 0, 0),
+           "rns-smollm-135m-resident": (5 * L, 4 * L, 2 * L)}[name]
+    assert counts == [one, one]
+    assert sched.chunk_captures == 1
+    assert sched.chunk_replays == 2 * sched.stats["chunks"]
+    assert out == solo
+
+    eager = SlotScheduler(cfg, params, **kw)
+    monkeypatch.setattr(eager, "_capture", lambda: None)
+    assert eager.serve(reqs) == out
+    assert eager.chunk_replays == 0
+    for k in ("k", "v"):       # block 0, the trash, takes racing writes
+        assert torch.equal(eager._cache["sub0"][k][:, 1:],
+                           sched._cache["sub0"][k][:, 1:])
+
+    def no_decode(*a, **k):
+        raise AssertionError("the scheduler ran a Python decode step")
+
+    monkeypatch.setattr(S.T, "decode_step", no_decode)
+    assert sched.serve(reqs) == out
+    assert sched.chunk_captures == 1

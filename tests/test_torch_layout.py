@@ -1,10 +1,16 @@
 """Layout rules of the port: `src/repro_torch`, `chip_smoke.py`,
 `tile_phases.py`, `convert_bench.py` and the edge cases `chip_smoke.py`
 shares with the card tests (`tests/_convert_cases.py`) import neither JAX
-nor the reference package, and entry points use the CPU only when
-asked."""
+nor the reference package; every module of the port imports first, in a
+fresh set of modules (no import cycle); and entry points use the CPU only
+when asked."""
 import ast
+import functools
+import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -12,6 +18,7 @@ import torch
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.scheduler import SlotScheduler
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -41,6 +48,45 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+
+# one interpreter imports torch once, then each module of the port with
+# every `repro_torch` module dropped from sys.modules before it, as a
+# program that imports that module first would
+_FIRST_IMPORTS = """
+import importlib, json, sys, traceback
+import torch
+errors = {}
+for name in sys.argv[1:]:
+    for m in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[m]
+    try:
+        importlib.import_module(name)
+    except Exception:
+        errors[name] = traceback.format_exc(limit=-2)
+print(json.dumps(errors))
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _first_import_errors():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", _FIRST_IMPORTS,
+                          *PORT_MODULES], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert run.returncode == 0, run.stderr
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", PORT_MODULES)
+def test_module_imports_first(name):
+    err = _first_import_errors().get(name)
+    assert err is None, f"importing {name} first fails:\n{err}"
+
+
 def test_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "tile_phases.py", "convert_bench.py",
@@ -53,7 +99,9 @@ def test_scan_sees_the_port():
             "src/repro_torch/dist/rns_shard.py",
             "src/repro_torch/core/linear_spec.py",
             "src/repro_torch/core/rns_linear.py",
-            "src/repro_torch/serve/engine.py"} <= names
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/serve/paged_cache.py",
+            "src/repro_torch/serve/scheduler.py"} <= names
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):
@@ -64,3 +112,16 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(cfg, params, smax=32)
     assert Engine(cfg, params, smax=32, device="cpu").device.type == "cpu"
+
+
+def test_scheduler_without_device_needs_cuda(monkeypatch):
+    cfg = get_smoke_config("rns-smollm-135m-fused")
+    params = T.make_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlotScheduler(cfg, params, slots=2, block_size=4, slot_tokens=16)
+    sched = SlotScheduler(cfg, params, slots=2, block_size=4, slot_tokens=16,
+                          device="cpu")
+    assert sched.device.type == "cpu"
+    assert sched._cache["sub0"]["k"].device.type == "cpu"
