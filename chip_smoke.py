@@ -15,7 +15,8 @@ Phases, each of which must pass:
      over the int8 peak, whichever is larger).  Past 16 rows the tile
      kernel runs at both heights, the 32-row tensor-core tile it picks
      and pinned to the 16-row `__dp4a` tile, each held bit for bit and
-     the two timed in turns; `prefill:` lines sum each served path's
+     the two timed in turns (a row's own time is the launch as the tuner
+     resolves it); `prefill:` lines sum each served path's
      launches of one layer at M = 512 for both, `decode:` lines each
      path's launches of one layer at M = 8 (the 16-row tile, K split over
      thread-block clusters).  The conversion kernels (`rns_forward`,
@@ -39,9 +40,12 @@ Phases, each of which must pass:
      to one host step's, one replay a token, greedy tokens equal to the
      host loop's), batch invariance with pinned lanes under both, prefill
      time, decode ms a token of both engines timed in turns, and one
-     traced generate of each (host 4 tokens, scan 32: device busy share;
-     the scan's kernels by name equal to its eager prefill's counted
-     launches plus the captured step's times the replays);
+     traced generate of each (host 4 tokens, scan 32: device busy share).
+     Launch counts are exact without the profiler: the captured step's
+     kernel nodes, read from the CUDA graph by function name
+     (`kernels._build.graph_kernels`), equal its counted launches, the
+     replays the engine's counter, the eager prefill's counted launches one
+     prefill's;
   4. sched   — `serve.SlotScheduler` on the full fused and resident
      models: 8 slots of 256 tokens over a paged pool of 65 blocks of 16
      (half the static reservation), decode chunks of 8 replayed steps of
@@ -50,11 +54,11 @@ Phases, each of which must pass:
      the engine's solo generate (greedy, and sampled on a second
      scheduler), peak blocks, prefix hits and pool bytes against the
      static reservation, the captured step's launches equal to one eager
-     paged step's, a traced burst serve's kernels by name (8 admissions,
-     8 replays) equal to its counted prefills plus the step's times its
-     replays, and serves of the trace and of the same requests as a
-     burst timed in turns with the static engine's one-batch generate of
-     the same prompts;
+     paged step's, a traced burst serve (8 admissions, 8 replays): the
+     paged graph's kernel nodes equal the step's counted launches and the
+     admissions' counted launches 8 prefills', and serves of the trace and
+     of the same requests as a burst timed in turns with the static
+     engine's one-batch generate of the same prompts;
   5. chain   — `rns_chain_linear` on the staged kernels equal bit for bit
      to the fused kernel at the full-width MLP shapes;
   6. entry   — the entry points no served model calls, once each at full
@@ -64,7 +68,23 @@ Phases, each of which must pass:
      one-channel `rns_fused_crt_partial` slices composed by
      `dist.rns_shard.channel_sliced_matmul` and held bit for bit against
      `rns_fused_matmul`;
-  7. check   — finite logits of each served batch, and each smoke config's
+  7. tune    — before serve: the tile kernel's autotuner
+     (`kernels/tune.py`, reading and writing a copy of the committed H100
+     table under build/) on the three full models: every decode shape an
+     Engine warms is a table hit and init sweeps nothing; greedy tokens and
+     prefill logits bit-equal between the tuned and the static choices in
+     turns; a `tune:` line per distinct shape with both choices' device µs.
+     Over the serve and sched phases: no tuner miss inside a graph capture
+     and no sweep inside a timed call;
+  8. verify  — ``Engine(verify="static")`` accepts every registered config
+     at full width, refuses another ``verify`` value, and `check_pipeline`
+     refuses the undersized chain basis with AnalysisError;
+  9. twit    — the paper's twit multiplier and adder as tensors on the
+     card: every pair of every modulus at n = 5 and 8, 2^16 seeded pairs
+     of each at n = 11, bit-equal to (a·b, a+b) mod m and to the scalar
+     models; on the paper's n = 5 basis equal to the `rns_modmul` kernel;
+     timed;
+  10. check  — finite logits of each served batch, and each smoke config's
      logits on the card against the same model on the CPU (plain versions).
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
@@ -74,9 +94,9 @@ bf16 prefill also pinned to `fma`, held alike and timed in turns with
 `fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
 for n = 1 and n = C) against their plain versions.  Lines: per-shape
 kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
-`decode:` and `prefill:` sums, one
+`decode:` and `prefill:` sums, the `tune:` lines, a `verify:` line, one
 `serve:` line per model, one `sched:` line per scheduled model, a
-`chain:` line, an `entry:` line, one `check:`
+`chain:` line, an `entry:` line, the `twit:` lines, one `check:`
 line per smoke config, the nvidia-smi line, the kernels JSON line and,
 last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
@@ -87,6 +107,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -230,12 +251,14 @@ def _both_heights(again, want):
     return {h: torch.equal(_pinned(again, h), want) for h in (TM_MMA, TM)}
 
 
-def _picked(m, n, c):
-    """The tile height the launcher picks for an (m, n) launch."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.rns_fused import tile_rows
+def _launched_rows(fn):
+    """The tile height the launcher takes for ``fn()`` (one launch), read
+    off the launch counters: the tuner's choice."""
+    from repro_torch.kernels.rns_fused import tile_launches
 
-    return tile_rows(m, n, c, _build.num_sms(0))
+    before = dict(tile_launches)
+    fn()
+    return next(h for h in tile_launches if tile_launches[h] != before[h])
 
 
 def _height_info(eq, hts, picked):
@@ -252,7 +275,7 @@ def _height_info(eq, hts, picked):
 
 
 def _clusters(layer_shapes, decode_m, prefill_m):
-    """The K splits (cluster sizes) the launcher picks for one layer's
+    """The K splits (cluster sizes) the static rule picks for one layer's
     16-row launches at decode and at prefill, by (K, N)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.rns_fused import TM, _split_k, tile_rows
@@ -313,7 +336,8 @@ def phase_device(layer_shapes, decode_m, prefill_m):
           f"{min(t16_regs, default=0)}-{max(t16_regs, default=0)} "
           f"registers and {min(smem) / 1024:.1f}-{max(smem) / 1024:.1f} KB "
           f"dynamic shared memory; spills: {spills or 'none'}) | "
-          f"16-row clusters (K splits) of one layer: {clusters}")
+          f"16-row clusters (K splits) of one layer, static rule: "
+          f"{clusters}")
     print("build: flash_attention routes (instance: registers/spill "
           "bytes): " + "; ".join(
               f"{route} {len(ins)} instances "
@@ -404,8 +428,8 @@ def phase_kernels(layer_shapes, decode_m, prefill_m, dev):
         def launch(i):
             rns_fused_matmul(x, pool[i], basis, scale_row=sx, scale_col=scol)
         hts = device_ms_heights(launch, len(pool)) if eq else None
-        picked = _picked(m, n, C)
-        ms = hts[picked] if eq else device_ms(launch, len(pool))
+        picked = _launched_rows(lambda: launch(0)) if eq else None
+        ms = device_ms(launch, len(pool))
         hinfo, htext = _height_info(eq, hts, picked)
         call = time_ms(lambda i: launch(i % len(pool)))
         plain = time_ms(lambda i: ref.rns_fused_matmul_ref(
@@ -484,8 +508,8 @@ def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
     and yardstick; appends the row and returns the verdict.  ``again``
     recomputes ``got`` for a tile-kernel launch past 16 rows: it is run
     pinned to each tile height, each held bit for bit against ``want``,
-    and the two timed in turns; ``ms`` is the height the launcher picks
-    (``info`` holds M, N and C)."""
+    and the two timed in turns; ``ms`` is the launch as the tuner resolves
+    it (``info`` holds M, N and C)."""
     import torch
 
     eq = None if again is None else _both_heights(again, want)
@@ -495,8 +519,8 @@ def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
     ok = same if tol is None else _within(got, want, tol)
     ok &= eq is None or all(eq.values())
     hts = device_ms_heights(launch, pool_n) if eq else None
-    picked = _picked(info["M"], info["N"], info["C"]) if eq else None
-    ms = hts[picked] if eq else device_ms(launch, pool_n)
+    picked = _launched_rows(lambda: launch(0)) if eq else None
+    ms = device_ms(launch, pool_n)
     hinfo, htext = _height_info(eq, hts, picked)
     call = time_ms(lambda i: launch(i % pool_n))
     plain_ms = time_ms(lambda i: plain(), reps=5, warmup=1)
@@ -1244,10 +1268,35 @@ def _step_launches(cfg):
     return {k: two[k] - one[k] for k in COUNTED}
 
 
+def _prefill_launches(cfg):
+    """Launches of one eager prefill (a generate's first step, less the
+    weight encodes at Engine init)."""
+    one, init = expected_launches(cfg, 1), expected_launches(cfg, 0)
+    return {k: one[k] - init[k] for k in COUNTED}
+
+
+def _graph_launches(graph):
+    """The port's kernels in a captured graph by name (`KERNEL_COUNTERS`),
+    read from the graph's kernel nodes (`_build.graph_kernels`), with no
+    profiler: what one replay launches."""
+    from repro_torch.kernels import _build
+
+    nodes = _build.graph_kernels(graph)
+    return {k: sum(c for name, c in nodes.items() if k in name)
+            for k in KERNEL_COUNTERS}
+
+
+def _by_kernel(launches):
+    """Counted launches by the kernel name they launch (`KERNEL_COUNTERS`)."""
+    return {k: sum(launches[c] for c in cs)
+            for k, cs in KERNEL_COUNTERS.items()}
+
+
 def _traced(eng, prompts, n, engine):
     """One profiled ``generate`` of ``n`` tokens: wall and device busy
-    time, the longest kernels, the port's kernels by name, and the launch
-    counters' and the scan replays' increase over it."""
+    time, the longest kernels, the port's kernels by name as the profiler
+    saw them (informative only: it drops a record now and then), and the
+    launch counters' and the scan replays' increase over it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1290,6 +1339,7 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     traced busy shares."""
     import numpy as np
     import torch
+    from repro_torch.kernels import tune
     from repro_torch.kernels.rns_fused import TM, TM_MMA, tile_launches
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import Engine
@@ -1317,15 +1367,16 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
         raise AssertionError(f"{cfg.name} launches {launches}, expected "
                              f"{want} over {new_tokens} prefill/decode "
                              "steps")
-    # the prefill (M = lanes x bucket) on the 32-row tile but for its
-    # narrow launches, every decode step on the 16-row one
+    # the prefill (M = lanes x bucket) at the heights the tuner picks,
+    # every decode step on the 16-row tile (the only decode candidate)
     tiles = (want["rns_fused_matmul"] + want["rns_matmul"]) // new_tokens
     if sum(heights.values()) != tiles * new_tokens or \
-            not 0 < heights[TM_MMA] <= tiles:
+            not heights[TM] >= tiles * (new_tokens - 1) or \
+            heights[TM_MMA] > tiles:
         raise AssertionError(f"{cfg.name} tile launches by height "
-                             f"{heights}: expected the {TM_MMA}-row ones "
-                             f"among the {tiles} prefill launches, the "
-                             f"rest at {TM}")
+                             f"{heights}: expected every decode launch at "
+                             f"{TM} rows, the {TM_MMA}-row ones among the "
+                             f"{tiles} prefill launches")
     for p, o in zip(prompts, out):
         gen = o[len(p):]
         if o[:len(p)] != p or len(gen) != new_tokens or \
@@ -1377,6 +1428,7 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
         torch.cuda.synchronize()
         return time.perf_counter() - t, res
 
+    sweeps = tune.stats["sweeps"]
     pre = {TM_MMA: [], TM: []}
     for r in range(4):
         for pin in ((None, TM) if r % 2 == 0 else (TM, None)):
@@ -1393,24 +1445,30 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
             full[engine].append(t)
     dec_ms = {e: 1e3 * (statistics.median(ts) - pre_s) / (new_tokens - 1)
               for e, ts in full.items()}
+    if tune.stats["sweeps"] != sweeps:
+        raise AssertionError(f"{cfg.name}: the tuner swept "
+                             f"{tune.stats['sweeps'] - sweeps} shapes "
+                             "inside timed generates")
 
     # traced generates: the device busy share of each engine (the host
     # loop over 4 tokens, as before the scan existed: its trace is the
-    # profiler's costliest), and the scan's launches by kernel name == its
-    # eager prefill's (counted) + the captured step's x the replays
+    # profiler's costliest).  The scan's launches, exactly and without the
+    # profiler: the captured graph's kernel nodes by name == the step's
+    # counted launches, its replays == new_tokens - 1 by the engine's
+    # counter, and its eager prefill's counted launches == one prefill's
     traces = {"host": _traced(eng, prompts, 4, "host"),
               "scan": _traced(eng, prompts, new_tokens, "scan")}
     tr = traces["scan"]
-    seen = {k: v["count"] for k, v in tr["port_kernels"].items()}
-    want_seen = {name: sum(tr["counted"][c] + one[c] * tr["replays"]
-                           for c in cs)
-                 for name, cs in KERNEL_COUNTERS.items()}
-    want_seen = {k: v for k, v in want_seen.items() if v}
-    if tr["replays"] != new_tokens - 1 or seen != want_seen:
-        raise AssertionError(f"{cfg.name} traced scan generate: kernels by "
-                             f"name {seen}, expected {want_seen} (prefill "
-                             f"{tr['counted']} + {tr['replays']} replays "
-                             f"of {one})")
+    nodes = _graph_launches(eng._scan[(lanes, smax, False)].graph)
+    tr["graph_nodes"] = nodes
+    if tr["replays"] != new_tokens - 1 or nodes != _by_kernel(one) or \
+            tr["counted"] != _prefill_launches(cfg):
+        raise AssertionError(f"{cfg.name} traced scan generate: graph "
+                             f"kernel nodes {nodes}, expected "
+                             f"{_by_kernel(one)}; {tr['replays']} replays, "
+                             f"expected {new_tokens - 1}; prefill launches "
+                             f"{tr['counted']}, expected "
+                             f"{_prefill_launches(cfg)}")
 
     # finite logits at the served shape
     batch, _ = eng._pack(prompts)
@@ -1491,7 +1549,7 @@ def _traced_serve(sched, reqs):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    ours = {}
+    ours = {}       # as the profiler saw them: informative only
     for e in kernels:
         for name in KERNEL_COUNTERS:
             if name in e.key:
@@ -1526,6 +1584,7 @@ def phase_sched(cfg, dev):
     (prefill, splice, first token) comes from the scheduler's own timer
     (`time_admissions`)."""
     import torch
+    from repro_torch.kernels import tune
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, SlotScheduler
     from repro_torch.serve.paged_cache import paged_cache_nbytes
@@ -1605,23 +1664,27 @@ def phase_sched(cfg, dev):
     del samp
     part("sampled")
 
-    # traced: a fixed burst (8 admissions, one chunk of 8 replays); kernels
-    # by name == its admissions' counted prefills + its replays of the step
+    # traced: a fixed burst (8 admissions, one chunk of 8 replays).  Its
+    # launches, exactly and without the profiler: the captured paged
+    # step's kernel nodes by name == the step's counted launches, 8
+    # replays and 8 admissions by the scheduler's counters, and the
+    # admissions' counted launches == 8 eager prefills'
     burst8 = [Request(r.prompt, 9, seed=r.seed) for r in reqs[:8]]
     traced_out, tr = _traced_serve(sched, burst8)
-    want_seen = {name: sum(tr["counted"][c] + one[c] * tr["replays"]
-                           for c in cs)
-                 for name, cs in KERNEL_COUNTERS.items()}
-    want_seen = {k: v for k, v in want_seen.items() if v}
+    nodes = _graph_launches(sched._graph)
+    tr["graph_nodes"] = nodes
+    prefills = {k: 8 * v for k, v in _prefill_launches(cfg).items()}
     want_out = [o[:len(r.prompt) + 9] for r, o in zip(burst8, out)]
-    if traced_out != want_out or tr["port_kernels"] != want_seen or \
+    if traced_out != want_out or nodes != _by_kernel(one) or \
+            tr["counted"] != prefills or \
             (tr["admissions"], tr["replays"]) != (8, 8):
-        raise AssertionError(f"{cfg.name} traced serve: kernels by name "
-                             f"{tr['port_kernels']}, expected {want_seen} "
-                             f"(prefills {tr['counted']} + {tr['replays']} "
-                             f"replays of {one}, {tr['admissions']} "
-                             f"admissions, expected 8 and 8); tokens "
-                             f"equal to the trace's {traced_out == want_out}")
+        raise AssertionError(f"{cfg.name} traced serve: graph kernel nodes "
+                             f"{nodes}, expected {_by_kernel(one)}; "
+                             f"admissions' launches {tr['counted']}, "
+                             f"expected {prefills}; {tr['admissions']} "
+                             f"admissions and {tr['replays']} replays, "
+                             f"expected 8 and 8; tokens equal to the "
+                             f"trace's {traced_out == want_out}")
 
     part("trace")
 
@@ -1637,6 +1700,7 @@ def phase_sched(cfg, dev):
     admit_share = {"trace": [], "burst": []}
     burst_stats = None
     sched.time_admissions = True
+    sweeps = tune.stats["sweeps"]
     for order in (kinds, kinds[::-1]):
         for kind in order:
             admitted, sched.admit_seconds = sched.admissions, 0.0
@@ -1664,6 +1728,10 @@ def phase_sched(cfg, dev):
                 if kind == "burst":
                     burst_stats = dict(sched.stats)
     sched.time_admissions = False
+    if tune.stats["sweeps"] != sweeps:
+        raise AssertionError(f"{cfg.name}: the tuner swept "
+                             f"{tune.stats['sweeps'] - sweeps} shapes "
+                             "inside timed serves")
     wall = {k: statistics.median(v) for k, v in times.items()}
     new = stats["new_tokens"]
     part("timed")
@@ -1682,6 +1750,245 @@ def phase_sched(cfg, dev):
             "admit_share": {k: statistics.median(v)
                             for k, v in admit_share.items()},
             "trace": tr, "part_s": parts}
+
+
+def phase_tune(dev, lanes, bucket, smi):
+    """The tile kernel's autotuner on the three full served models: every
+    decode shape `Engine.__init__` warms is a hit of the committed H100
+    table and init sweeps nothing; greedy tokens (scan, graphs captured
+    afresh under each rule) and prefill logits are bit-equal between the
+    tuner's choices and the static rule, in turns (tuned, static, static,
+    tuned); then one line per distinct shape (each warmed decode shape and
+    each prefill launch at M = lanes x bucket) with both choices and their
+    device µs, two CUDA graphs of 20 launches on seeded operands replayed
+    in turns (operands stay warm in the L2: a comparison of the two
+    choices, not the kernel rows' cold-weight time)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build, tune
+    from repro_torch.kernels.rns_fused import static_choice
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+
+    sms = _build.num_sms(0)
+    rng = np.random.default_rng(5)
+    shapes, configs = {}, {}
+    for arch in (ARCH, RESIDENT, STAGED):
+        cfg = get_config(arch)
+        params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+        sweeps = tune.stats["sweeps"]
+        eng = Engine(cfg, params, smax=128, lanes=lanes, device=dev)
+        report = eng.tune_report
+        if not report or not all(r["hit"] for r in report) or \
+                tune.stats["sweeps"] != sweeps:
+            raise AssertionError(
+                f"{arch}: Engine init swept {tune.stats['sweeps'] - sweeps} "
+                f"shapes; table misses "
+                f"{[r['key'] for r in report if not r['hit']]}")
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in (5, 17, 38, 60)]
+        batch, _ = eng._pack(prompts)
+        runs = {"tuned": [], "static": []}
+        for rule in ("tuned", "static", "static", "tuned"):
+            eng._scan.clear()            # capture the step under this rule
+            ctx = tune.static_rule() if rule == "static" else \
+                contextlib.nullcontext()
+            with ctx:
+                toks = eng.generate(prompts, max_new_tokens=16)
+                with torch.inference_mode():
+                    logits, _, _ = T.prefill(cfg, eng.params, batch, 128)
+            runs[rule].append((toks, logits.float().cpu()))
+        ref_toks, ref_logits = runs["tuned"][0]
+        equal = all(t == ref_toks and torch.equal(lg, ref_logits)
+                    for r in runs.values() for t, lg in r)
+        if not equal:
+            raise AssertionError(f"{arch}: tokens or prefill logits differ "
+                                 "between the tuned and the static choices")
+        configs[arch] = {"warmed": len(report), "hits": len(report),
+                         "tokens_equal": True, "logits_equal": True}
+        del eng
+        for s in tune.decode_shapes_for(
+                cfg, tune.ZOO_BATCH_SIZES + (lanes * bucket,)):
+            shapes.setdefault((s["backend"], s["dtype"], s["C"], s["M"],
+                               s["K"], s["N"]), s)
+    rows, n = [], 20
+    for (backend, dtype, C, M, K, N), s in sorted(shapes.items(),
+                                                  key=lambda kv: (kv[0][3],
+                                                                  kv[0])):
+        static = static_choice(M, K, N, C, sms)
+        tuned = tune.blocks_for(M, K, N, C, dtype=dtype, backend=backend,
+                                device=dev, moduli=s["moduli"])
+        launch = tune.launcher_for(M, K, N, C, dtype, backend, dev,
+                                   moduli=s["moduli"])
+        graphs = [_capture(lambda i, b=b: launch(b), n)
+                  for b in (static, tuned)]
+        st_ms, tu_ms = _in_turns(graphs, n, 8)
+        rows.append({"backend": backend, "dtype": dtype, "C": C, "M": M,
+                     "K": K, "N": N, "static": list(static),
+                     "tuned": list(tuned), "static_us": 1e3 * st_ms,
+                     "tuned_us": 1e3 * tu_ms})
+        print(f"tune: {backend} {dtype} C={C} M={M} K={K} N={N} static "
+              f"(tm, splits) {static} {1e3 * st_ms:.2f} us | tuned "
+              f"{tuned} {1e3 * tu_ms:.2f} us | on {smi}")
+    return {"configs": configs, "shapes": rows}
+
+
+def phase_verify(dev):
+    """``Engine(verify="static")`` on every registered config at full
+    width (the static gate runs before any weight is encoded), another
+    ``verify`` value refused with ValueError, and `check_pipeline` refusing
+    the undersized chain basis of the reference's `tests/test_analysis.py`
+    (d_ff 1536 on `basis_for_int8_matmul`) with AnalysisError."""
+    import torch
+    from repro_torch.analysis import (AnalysisError, PipelineSpec,
+                                      check_pipeline)
+    from repro_torch.configs.base import _REGISTRY, _ensure_loaded, get_config
+    from repro_torch.core.rns import basis_for_int8_matmul
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+
+    _ensure_loaded()
+    base = get_config(ARCH)
+    params = T.make_params(base, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    accepted = []
+    for name in sorted(_REGISTRY):
+        cfg = get_config(name)
+        Engine(cfg, params, smax=64, verify="static", device=dev)
+        accepted.append(name)
+    try:
+        Engine(base, params, smax=64, verify="dynamic", device=dev)
+        raise AssertionError("Engine(verify='dynamic') was accepted")
+    except ValueError as e:
+        refused = str(e)
+    F = 1536
+    spec = PipelineSpec.for_basis(basis_for_int8_matmul(F), F, x_bound=127,
+                                  w_bound=127, residue_in=True, gate=True,
+                                  label="undersized-chain")
+    rep, _ = check_pipeline(spec)
+    try:
+        rep.raise_if_failed()
+        raise AssertionError("the undersized chain basis was accepted")
+    except AnalysisError:
+        pass
+    return {"accepted": accepted, "refused": refused,
+            "findings": [str(f) for f in rep.errors]}
+
+
+def phase_twit(dev, smi):
+    """The paper's twit multiplier and adder as tensors on the card
+    (`core.modmul.mulmod_twit_tensor`, `core.modadd.addmod_twit_tensor`):
+    every residue pair of every admissible modulus at n = 5 and n = 8
+    (both signs, every δ), 2^16 seeded pairs of each at n = 11; each
+    result bit-equal to (a·b) mod m and (a+b) mod m, and to the scalar
+    models on 8 pairs a modulus.  On the paper's n = 5 basis (its 11
+    channels of the form 2^5 ± δ) the tensor multiplier equals the
+    `rns_modmul` kernel over the same planes (every pair of every
+    channel; int32 and int8).  Timed on the device (`device_ms`): one call
+    of each over 2^24 pairs, and both multipliers over (11, 2^20) planes
+    of that basis."""
+    import torch
+    from repro_torch.core.modadd import addmod_twit, addmod_twit_tensor
+    from repro_torch.core.modmul import mulmod_twit, mulmod_twit_tensor
+    from repro_torch.core.rns import PAPER_N5_MODULI
+    from repro_torch.core.twit import Modulus, admissible_deltas
+    from repro_torch.kernels import rns_modmul
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    widths = {}
+    for n, count in ((5, None), (8, None), (11, 1 << 16)):
+        mods = [Modulus(n, d, sgn) for sgn in (+1, -1)
+                for d in admissible_deltas(n)]
+        pairs = samples = 0
+        for mod in mods:
+            m = mod.m
+            if count is None:
+                idx = torch.arange(m * m, device=dev)
+                a, b = idx // m, idx % m
+            else:
+                a = torch.randint(0, m, (count,), generator=g, device=dev)
+                b = torch.randint(0, m, (count,), generator=g, device=dev)
+            prod = mulmod_twit_tensor(a, b, mod)
+            add = addmod_twit_tensor(a, b, mod)
+            if not (torch.equal(prod, torch.remainder(a * b, m))
+                    and torch.equal(add, torch.remainder(a + b, m))):
+                raise AssertionError(f"twit tensor models differ from "
+                                     f"(a·b, a+b) mod {m} ({mod})")
+            pick = torch.randint(0, a.numel(), (8,), generator=g,
+                                 device=dev)
+            for x, y, p, q in zip(*(t[pick].tolist()
+                                    for t in (a, b, prod, add))):
+                if mulmod_twit(x, y, mod) != p or \
+                        addmod_twit(x, y, mod) != q:
+                    raise AssertionError(f"tensor and scalar twit models "
+                                         f"differ at ({x}, {y}) mod {m}")
+            pairs += a.numel()
+            samples += 8
+        widths[n] = {"moduli": len(mods), "pairs": pairs,
+                     "scalar_samples": samples,
+                     "exhaustive": count is None}
+
+    # the paper's n = 5 basis against the rns_modmul kernel
+    chans = [m for m in PAPER_N5_MODULI if m != 1024]
+    tw = [Modulus.from_value(m, n=5) for m in chans]
+    S = 47 * 47
+    idx = torch.arange(S, device=dev)
+    mcol = torch.tensor(chans, device=dev).reshape(-1, 1)
+    a = (idx // 47)[None] % mcol
+    b = (idx % 47)[None] % mcol
+    twit = torch.stack([mulmod_twit_tensor(a[c], b[c], tw[c])
+                        for c in range(len(chans))])
+    kern32 = rns_modmul(a.to(torch.int32), b.to(torch.int32), chans)
+    kern8 = rns_modmul(a.to(torch.int8), b.to(torch.int8), chans,
+                       out_dtype=torch.int8)
+    if not (torch.equal(kern32.long(), twit)
+            and torch.equal(kern8.long(), twit)):
+        raise AssertionError("rns_modmul differs from the twit multiplier "
+                             "on the paper's n = 5 basis")
+
+    # timing (device time: `device_ms`, three calls captured in a graph):
+    # one call over 2^24 pairs; both multipliers on (11, 2^20) planes
+    big = 1 << 24
+    timing = {}
+    for n, d, sgn in ((5, 15, +1), (11, 1023, +1)):
+        mod = Modulus(n, d, sgn)
+        x = torch.randint(0, mod.m, (big,), generator=g, device=dev)
+        y = torch.randint(0, mod.m, (big,), generator=g, device=dev)
+        for op, fn in (("mulmod", mulmod_twit_tensor),
+                       ("addmod", addmod_twit_tensor)):
+            ms = device_ms(lambda i, fn=fn: fn(x, y, mod), 3, reps=5)
+            timing[f"{op} {mod}"] = {"us": 1e3 * ms, "pairs": big,
+                                     "per_s": big / (ms * 1e-3)}
+        del x, y
+    S2 = 1 << 20
+    pa = torch.stack([torch.randint(0, m, (S2,), generator=g, device=dev)
+                      for m in chans])
+    pb = torch.stack([torch.randint(0, m, (S2,), generator=g, device=dev)
+                      for m in chans])
+    pa32, pb32 = pa.to(torch.int32), pb.to(torch.int32)
+    ms_t = device_ms(lambda i: [mulmod_twit_tensor(pa[c], pb[c], tw[c])
+                                for c in range(len(chans))], 3, reps=5)
+    ms_k = device_ms(lambda i: rns_modmul(pa32, pb32, chans), 3, reps=5)
+    for name, ms in (("twit tensor model, 11 channels", ms_t),
+                     ("rns_modmul kernel int32, 11 channels", ms_k)):
+        timing[name] = {"us": 1e3 * ms, "pairs": len(chans) * S2,
+                        "per_s": len(chans) * S2 / (ms * 1e-3)}
+    print("twit: " + " | ".join(
+        f"n={n}: {w['moduli']} moduli, "
+        f"{'every pair' if w['exhaustive'] else '2^16 seeded pairs each'}"
+        f" ({w['pairs']} pairs) bit-equal to (a*b, a+b) mod m, "
+        f"{w['scalar_samples']} against the scalar models"
+        for n, w in widths.items())
+        + f" | paper n=5 basis ({len(chans)} channels, every pair) == "
+        f"rns_modmul int32 and int8 | on {smi}")
+    print("twit: timing " + " | ".join(
+        f"{k}: {v['us']:.1f} us, {v['per_s']:.4g} results/s over "
+        f"{v['pairs']} pairs" for k, v in timing.items()) + f" | on {smi}")
+    return {"widths": widths, "basis_channels": chans, "timing": timing}
 
 
 def phase_check(smoke_cfg, dev):
@@ -1775,6 +2082,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.kernels import tune
+
+    # the tuner reads and writes a copy of the committed H100 table, never
+    # the tree or the user's cache
+    table = os.path.join(ROOT, "build", "chip_smoke", "tune_torch.json")
+    os.makedirs(os.path.dirname(table), exist_ok=True)
+    shutil.copy(tune.COMMITTED_TABLE, table)
+    os.environ["RNS_TORCH_TUNE_CACHE"] = table
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1907,7 +2222,24 @@ def main() -> int:
               f"{1e3 * agg['library_ms']:.1f} us, bound "
               f"{1e3 * agg['bound_ms']:.1f} us | on {smi}")
     mark("kernels")
+    print("phase tune:")
+    tuned = phase_tune(dev, lanes, bucket, dev_info["smi"])
+    hits = ", ".join(f"{a} {c['hits']}/{c['warmed']}"
+                     for a, c in tuned["configs"].items())
+    print(f"tune: {hits} warmed decode shapes hit the committed table, "
+          f"init swept none; "
+          f"greedy tokens and prefill logits bit-equal, tuned and static "
+          f"choices in turns; {len(tuned['shapes'])} distinct shapes, "
+          f"{sum(r['tuned'] != r['static'] for r in tuned['shapes'])} tuned "
+          f"away from the static rule | on {dev_info['smi']}")
+    verify = phase_verify(dev)
+    print(f"verify: Engine(verify='static') accepts {verify['accepted']} at "
+          f"full width; verify='dynamic' refused ({verify['refused']}); "
+          f"check_pipeline refuses the undersized chain basis with "
+          f"AnalysisError: " + "; ".join(verify["findings"]))
+    mark("tune+verify")
     print("phase serve:")
+    misses = tune.stats["capture_misses"]
     serves = {}
     for arch in (ARCH, RESIDENT, STAGED):
         serve = phase_serve(get_config(arch), dev, lanes)
@@ -1974,6 +2306,14 @@ def main() -> int:
               f"{sc['captured_step_launches']} | solo == scheduled for "
               f"requests {sc['solo_checked']} | on {smi}")
 
+    if tune.stats["capture_misses"] != misses:
+        raise AssertionError(f"{tune.stats['capture_misses'] - misses} tuner "
+                             "misses inside graph captures over the serve "
+                             "and sched phases")
+    print(f"tune: serve and sched phases: 0 misses inside graph captures, "
+          f"no sweep inside a timed call; {tune.stats['sweeps']} sweeps in "
+          f"all (prefill shapes, each on its first untimed use, and the "
+          f"kernel rows' shapes)")
     mark("sched")
     chain = phase_chain(d, f, (lanes, lanes * bucket), dev)
     print(f"chain: rns_chain_linear staged == fused bit for bit at "
@@ -1992,6 +2332,8 @@ def main() -> int:
         raise AssertionError("an entry point's output is wrong")
 
     mark("chain+entry")
+    twit = phase_twit(dev, dev_info["smi"])
+    mark("twit")
     checks = {}
     for arch in (ARCH, RESIDENT, STAGED):
         err, finite = phase_check(get_smoke_config(arch), dev)
@@ -2084,6 +2426,8 @@ def main() -> int:
                        "convert_per_layer": convert, "edges": edges,
                        "decode_per_layer": decode,
                        "check_logit_err": checks, "kernels": kernels,
+                       "tune": tuned, "verify": verify, "twit": twit,
+                       "tune_stats": dict(tune.stats),
                        "phase_seconds": marks},
                       fh, indent=1)
     print(smi)

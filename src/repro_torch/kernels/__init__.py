@@ -18,11 +18,13 @@ in `ref.py`:
                           bound → canonical residues
   flash_attention       — blocked online-softmax attention (causal,
                           window, softcap, pad or explicit positions)
+  tune                  — persisted (tile height, K split) autotuner of
+                          the tile kernel behind the first three
 
 Each wrapper runs its plain version for CPU tensors, launches the kernel
 for CUDA tensors, and counts its launches in ``<wrapper>.launches``.
 """
-from . import ref  # noqa: F401
+from . import ref, tune  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .fold import fold  # noqa: F401
 from .rns_convert import rns_forward, rns_reverse  # noqa: F401
@@ -30,6 +32,6 @@ from .rns_fused import rns_fused_crt_partial, rns_fused_matmul  # noqa: F401
 from .rns_matmul import rns_matmul  # noqa: F401
 from .rns_modmul import rns_modmul  # noqa: F401
 
-__all__ = ["ref", "rns_forward", "rns_reverse", "rns_fused_matmul",
+__all__ = ["ref", "tune", "rns_forward", "rns_reverse", "rns_fused_matmul",
            "rns_fused_crt_partial", "rns_matmul", "rns_modmul", "fold",
            "flash_attention"]

@@ -9,6 +9,9 @@ unchanged one is reused.  The build happens at first use — the first
 launch on a CUDA tensor — never at import.  A failed build raises; nothing
 falls back.
 
+`graph_kernels` counts the kernel nodes of a captured CUDA graph by
+function name through `libcuda` (the `cu*` graph calls), loaded the same way.
+
 `Plan` and `TileArgs` mirror the structs of `csrc/rns_common.cuh` field for
 field, `FlashArgs` the one of `csrc/flash_common.cuh`; `plan_struct`
 fills a `Plan` from a fold plan and a conversion plan.
@@ -26,7 +29,7 @@ from pathlib import Path
 from repro_torch.core import multiword as mw
 
 __all__ = ["build", "library", "check", "plan_struct", "set_moduli", "Plan",
-           "TileArgs", "FlashArgs", "BUILD_DIR", "SOURCES"]
+           "TileArgs", "FlashArgs", "BUILD_DIR", "SOURCES", "graph_kernels"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
@@ -214,3 +217,76 @@ def num_sms(index: int) -> int:
     import torch
 
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of `cuda.h`."""
+    _fields_ = [("func", ctypes.c_void_p),
+                ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("sharedMemBytes", ctypes.c_uint),
+                ("kernelParams", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_KERNEL_NODE = 0                      # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    """`libcuda`, loaded once (process-wide: it names the kernels of this
+    library, which links its own runtime, and torch's alike)."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    p, s = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    drv.cuGraphGetNodes.argtypes = [p, ctypes.POINTER(p), s]
+    drv.cuGraphNodeGetType.argtypes = [p, ctypes.POINTER(ctypes.c_int)]
+    drv.cuGraphKernelNodeGetParams_v2.argtypes = [
+        p, ctypes.POINTER(_KernelNodeParams)]
+    name = ctypes.POINTER(ctypes.c_char_p)
+    drv.cuFuncGetName.argtypes = [name, p]
+    drv.cuKernelGetName.argtypes = [name, p]
+    for fn in (drv.cuGraphGetNodes, drv.cuGraphNodeGetType,
+               drv.cuGraphKernelNodeGetParams_v2, drv.cuFuncGetName,
+               drv.cuKernelGetName):
+        fn.restype = ctypes.c_int
+    return drv
+
+
+def _drv_check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+
+def graph_kernels(graph) -> dict:
+    """{kernel function name: nodes} of a captured ``torch.cuda.CUDAGraph``
+    made with ``keep_graph=True``: the kernels one replay launches, read
+    from the graph itself (no profiler).  Names are as compiled (mangled
+    C++ names)."""
+    drv = _libcuda()
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _drv_check(drv.cuGraphGetNodes(g, None, ctypes.byref(n)),
+               "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _drv_check(drv.cuGraphGetNodes(g, nodes, ctypes.byref(n)),
+               "cuGraphGetNodes")
+    out: dict = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        _drv_check(drv.cuGraphNodeGetType(node, ctypes.byref(kind)),
+                   "cuGraphNodeGetType")
+        if kind.value != _KERNEL_NODE:
+            continue
+        prm = _KernelNodeParams()
+        _drv_check(drv.cuGraphKernelNodeGetParams_v2(node,
+                                                     ctypes.byref(prm)),
+                   "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if prm.func:
+            _drv_check(drv.cuFuncGetName(ctypes.byref(name), prm.func),
+                       "cuFuncGetName")
+        else:
+            _drv_check(drv.cuKernelGetName(ctypes.byref(name), prm.kern),
+                       "cuKernelGetName")
+        key = name.value.decode()
+        out[key] = out.get(key, 0) + 1
+    return out

@@ -120,31 +120,53 @@ def _split_k(M: int, K: int, N: int, sms: int,
     return -(-K // k_per_split), k_per_split
 
 
-def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
-                M: int, K: int, N: int, C: int, srow=None, scol=None,
-                gate=None, creq=None, name: str) -> None:
-    """One launch of the tile kernel on contiguous CUDA tensors, at the
-    height `tile_rows` picks and the K split `_split_k` picks (a split
-    16-row launch is one cluster per output tile).  It allocates nothing:
-    the caller hands it the output."""
-    vec = N % 4 == 0 and w.data_ptr() % 4 == 0
-    # A (and the gate) four k values at a time
-    avec = K % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                              for t in (x, gate) if t is not None)
-    sms = _build.num_sms(x.device.index or 0)
-    tm = tile_rows(M, N, C, sms, vec and avec)
-    if tm == TM_MMA and (C > _MMA_MAXC or not (vec and avec)):
-        raise ValueError(f"{name}: the {TM_MMA}-row tile is compiled for "
-                         f"C <= {_MMA_MAXC} and N, K multiples of 4 with "
-                         f"aligned rows, not C={C}, N={N}, K={K}")
-    splits, kps = _split_k(M, K, N, sms, tm)
+def static_choice(M: int, K: int, N: int, C: int, sms: int,
+                  vec: bool = True) -> tuple[int, int]:
+    """(tile height, K splits) of the static rule, `tile_rows` and
+    `_split_k`: the tuner's fallback (`tune.blocks_for`)."""
+    tm = tile_rows(M, N, C, sms, vec)
+    return tm, _split_k(M, K, N, sms, tm)[0]
+
+
+def k_per_split(K: int, splits: int) -> int:
+    """K depth of each of ``splits`` blocks, in whole K steps."""
+    return -(-(-(-K // _TK)) // splits) * _TK
+
+
+# the tuner's table key of a launch: its entry, suffixed by the variant
+# (`tune.parse_shape_key` reads the suffixes), and the A operand's dtype
+_ENTRY_BACKEND = {"rns_fused_matmul": "fused", "rns_matmul": "matmul",
+                  "rns_fused_crt_partial": "crt"}
+_AMODE_DTYPE = {A_F32: "float32", A_BF16: "bfloat16", A_SHARED: "int8",
+                A_PLANES: "int8"}
+
+
+def launch_variant(name: str, amode: int, emit: int, gated: bool,
+                   encoded: bool) -> tuple[str, str]:
+    """(backend, dtype) segments of a launch's tuner key: ``_res`` for a
+    (C, M, K) residue-plane operand, ``_emit`` for the in-domain residue
+    epilogue, ``_gate`` for a gated prologue, ``_live`` for a raw (K, N)
+    weight."""
+    backend = _ENTRY_BACKEND.get(name, name)
+    backend += ("_res" if amode == A_PLANES else "") + \
+        ("_emit" if emit == EMIT_RESIDUES else "") + \
+        ("_gate" if gated else "") + ("" if encoded else "_live")
+    return backend, _AMODE_DTYPE[amode]
+
+
+def run_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out, M: int,
+             K: int, N: int, tm: int, splits: int, vec: bool, avec: bool,
+             srow=None, scol=None, gate=None, creq=None) -> int:
+    """One launch of the tile kernel at an explicit (tile height, K
+    splits) on the current stream; returns the library's code.  Counts
+    nothing: `launch_tile` counts, the tuner's sweep does not."""
     args = _build.TileArgs()
     for field, t in (("x", x), ("w", w), ("out", out), ("srow", srow),
                      ("scol", scol), ("gate", gate), ("creq", creq)):
         if t is not None:
             setattr(args, field, t.data_ptr())
-    args.M, args.K, args.N, args.splits, args.k_per_split = M, K, N, \
-        splits, kps
+    args.M, args.K, args.N, args.splits = M, K, N, splits
+    args.k_per_split = k_per_split(K, splits)
     args.vec, args.avec = int(vec), int(avec)
     # weight rows in 16-byte pieces: the 16-row tile streams encoded
     # weights by cp.async (every serving shape), else reads them a step
@@ -152,8 +174,43 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
     args.w16 = int(N % 16 == 0 and w.data_ptr() % 16 == 0)
     args.encoded, args.emit, args.tm = int(w.ndim == 3), emit, tm
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.library().rns_tile_launch(amode, ctypes.byref(args),
-                                          ctypes.byref(st), stream)
+    return _build.library().rns_tile_launch(amode, ctypes.byref(args),
+                                            ctypes.byref(st), stream)
+
+
+def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
+                M: int, K: int, N: int, C: int, srow=None, scol=None,
+                gate=None, creq=None, name: str) -> None:
+    """One launch of the tile kernel on contiguous CUDA tensors, at the
+    (tile height, K splits) the tuner resolves for its shape
+    (`tune.choose`: the table's row, a sweep on a miss, the static rule
+    `static_choice` as the fallback), or at a height pinned by
+    `_pin_tile_rows` with its static split (a split 16-row launch is one
+    cluster per output tile).  It allocates nothing: the caller hands it
+    the output."""
+    from . import tune
+
+    vec = N % 4 == 0 and w.data_ptr() % 4 == 0
+    # A (and the gate) four k values at a time
+    avec = K % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                              for t in (x, gate) if t is not None)
+    sms = _build.num_sms(x.device.index or 0)
+    if _pinned_rows is not None:
+        tm = _pinned_rows
+        splits = _split_k(M, K, N, sms, tm)[0]
+    else:
+        backend, dtype = launch_variant(name, amode, emit, gate is not None,
+                                        w.ndim == 3)
+        tm, splits = tune.choose(backend, dtype, M, K, N, C,
+                                 device=x.device, sms=sms, vec=vec,
+                                 avec=avec, launch=(amode, emit, st))
+    if tm == TM_MMA and (C > _MMA_MAXC or not (vec and avec)):
+        raise ValueError(f"{name}: the {TM_MMA}-row tile is compiled for "
+                         f"C <= {_MMA_MAXC} and N, K multiples of 4 with "
+                         f"aligned rows, not C={C}, N={N}, K={K}")
+    rc = run_tile(amode, emit, st, x=x, w=w, out=out, M=M, K=K, N=N, tm=tm,
+                  splits=splits, vec=vec, avec=avec, srow=srow, scol=scol,
+                  gate=gate, creq=creq)
     _build.check(rc, name)
     tile_launches[tm] += 1
 

@@ -22,6 +22,14 @@ runs the same step function eagerly over the same buffers.
 `decode_step` with an int position (the measured baseline).  Both check
 that the prompt bucket plus the new tokens fit ``smax`` before any step.
 
+``verify="static"`` proves the config before any weight is encoded
+(`analysis.check_config`: every bound and launch choice its decode path
+relies on; raises `analysis.AnalysisError` naming the violation).  Every
+engine warms the tile kernel's tuner for its decode shapes
+(`kernels.tune.warm_for_config`, at the reference's batch sizes and
+``lanes``): with a populated table every lookup is a hit and no launch
+sweeps; ``tune_report`` records the hits.
+
 The linear weights are encoded to residues once at construction when the
 config asks for it (``encode_weights``), so decode does no per-step weight
 quantization or conversion; a residue-resident config (``linear_domain=
@@ -47,6 +55,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.rns import basis_for_chain
 from repro_torch.core.rns_tensor import encode_params
+from repro_torch.kernels import tune
 from repro_torch.models import transformer as T
 
 __all__ = ["Engine", "bucket_plen"]
@@ -93,20 +102,23 @@ def capture_graph(step: Callable[[], None],
                   generators: Sequence[torch.Generator],
                   device: torch.device) -> torch.cuda.CUDAGraph:
     """Warm ``step`` up once on a side stream (first launches, cached
-    tables), then capture one call of it into a CUDA graph with every
-    generator it draws from registered, so a replay draws what the eager
-    step would.  ``step`` must read and write only persistent buffers:
-    the warm-up call runs it for real."""
+    tables, the tuner's sweeps of new shapes), then capture one call of it
+    into a CUDA graph with every generator it draws from registered, so a
+    replay draws what the eager step would.  ``step`` must read and write
+    only persistent buffers: the warm-up call runs it for real.  The graph
+    keeps its node list (``keep_graph``), which `kernels._build.
+    graph_kernels` reads to count the kernels a replay launches."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         step()
     torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     for g in generators:
         graph.register_generator_state(g)
     with torch.cuda.graph(graph):
         step()
+    graph.instantiate()
     return graph
 
 
@@ -142,7 +154,14 @@ class Engine:
     """
 
     def __init__(self, cfg: ModelConfig, params, smax: int = 2048,
-                 lanes: Optional[int] = None, device=None):
+                 lanes: Optional[int] = None, device=None,
+                 verify: Optional[str] = None):
+        if verify not in (None, "static"):
+            raise ValueError(f"verify={verify!r}: expected None or 'static'")
+        if verify == "static":
+            from repro_torch.analysis import check_config
+
+            check_config(cfg).raise_if_failed()
         if cfg.family != "dense":
             raise ValueError(f"the port serves dense configs, got "
                              f"{cfg.family!r}")
@@ -167,6 +186,11 @@ class Engine:
         self._scan: "OrderedDict[tuple, _ScanState]" = OrderedDict()
         self.scan_replays = 0
         self.scan_captures = 0
+        sizes = tune.ZOO_BATCH_SIZES
+        if self.lanes is not None and self.lanes not in sizes:
+            sizes = tuple(sorted({*sizes, self.lanes}))
+        self.tune_report = tune.warm_for_config(cfg, sizes,
+                                                device=self.device)
 
     def _pack(self, prompts: List[List[int]]):
         """Left-pad ragged prompts to a bucketed common length; dummy lanes

@@ -5,6 +5,8 @@ one.  The file imports torch and the port only, so it also runs where JAX
 is not installed: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 import contextlib
+import os
+import shutil
 
 import pytest
 import torch
@@ -19,11 +21,28 @@ from repro_torch.dist.rns_shard import channel_partials, channel_sliced_matmul
 from repro_torch.kernels import (flash_attention, fold, ref, rns_forward,
                                  rns_fused_crt_partial, rns_fused_matmul,
                                  rns_matmul, rns_modmul, rns_reverse)
+from repro_torch.kernels import _build, tune
 from repro_torch.kernels import rns_fused as tile
 from repro_torch.kernels.flash_attention import _pin_route, flash_route
 from repro_torch.kernels.rns_convert import REVERSE_INSTANCES
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _tune_table(tmp_path_factory):
+    """The tuner reads and writes a copy of the committed H100 table."""
+    path = tmp_path_factory.mktemp("tune") / "tune_torch.json"
+    shutil.copy(tune.COMMITTED_TABLE, path)
+    old = os.environ.get("RNS_TORCH_TUNE_CACHE")
+    os.environ["RNS_TORCH_TUNE_CACHE"] = str(path)
+    tune.clear_memory_cache()
+    yield path
+    if old is None:
+        del os.environ["RNS_TORCH_TUNE_CACHE"]
+    else:
+        os.environ["RNS_TORCH_TUNE_CACHE"] = old
+    tune.clear_memory_cache()
 
 
 @pytest.fixture
@@ -175,7 +194,8 @@ def test_matmul_canonical_matches_plain(dev, M, K, N, C):
                                   "broadcast", "canonical", "crt"])
 def test_tile_heights_agree(dev, form):
     """At M = 512 the 32-row tensor-core tile and the 16-row __dp4a tile
-    (pinned) give the same bits, each launch at the height asked for."""
+    (each pinned) give the same bits, each launch at the height asked
+    for."""
     M, K, N = 512, 1536, 576
     xa, wt, g = _chain_operands(dev, M, K, N, 21)
     gate = torch.randint(-127, 128, (M, K), generator=g, device=dev,
@@ -197,7 +217,8 @@ def test_tile_heights_agree(dev, form):
             xa, wt, 1, scale_row=xa.scale, gate=gate)),
     }[form]
     before = dict(tile.tile_launches)
-    got64 = run()
+    with tile._pin_tile_rows(tile.TM_MMA):
+        got64 = run()
     with tile._pin_tile_rows(tile.TM):
         got16 = run()
     torch.cuda.synchronize()
@@ -990,3 +1011,116 @@ def test_scheduler_replays_captured_paged_step(dev, name, temperature,
     monkeypatch.setattr(S.T, "decode_step", no_decode)
     assert sched.serve(reqs) == out
     assert sched.chunk_captures == 1
+
+
+# ------------------------------------------------------------- the tuner --
+@pytest.mark.parametrize("C", range(1, 12))
+def test_smem_footprint_mirror_equals_library(dev, C):
+    """`tune.smem_footprint` (the admissibility pass's number) equals the
+    library's `rns_tile16_smem` for every A mode and weight form."""
+    lib = _build.library()
+    for amode in (tile.A_F32, tile.A_BF16, tile.A_SHARED, tile.A_PLANES):
+        for enc in (0, 1):
+            assert tune.smem_footprint(tile.TM, C, amode=amode,
+                                       encoded=bool(enc)) == \
+                lib.rns_tile16_smem(amode, C, enc), (amode, enc)
+
+
+SERVED_FORMS = ["fused-wq", "fused-wdown", "fused-wk", "resident-qkv",
+                "resident-gate", "resident-up", "resident-down",
+                "staged-matmul"]
+
+
+@pytest.mark.parametrize("form", SERVED_FORMS)
+@pytest.mark.parametrize("M", [8, 512])
+def test_tuned_equals_static_on_served_shapes(dev, form, M):
+    """The tuner's (tm, splits) (the committed table's row at decode, a
+    sweep at first use at prefill) and the static rule give the same bits
+    at every served launch shape of the three paths."""
+    d, F, qkv = 576, 1536, 960
+    g = torch.Generator(device=dev).manual_seed(M + len(form))
+    path, leaf = form.split("-")
+    K, N = {"wq": (d, d), "wdown": (F, d), "wk": (d, 192), "qkv": (d, qkv),
+            "gate": (d, F), "up": (d, F), "down": (F, d),
+            "matmul": (d, d)}[leaf]
+    if path == "resident":
+        basis = basis_for_int8_matmul(d) if leaf == "qkv" else \
+            basis_for_chain(F)
+        xa, wt, g = _chain_operands(dev, M, K, N, M + len(form), basis)
+        gate = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                             dtype=torch.int8) if leaf == "down" else None
+        emit = "residues" if leaf == "up" else "float"
+
+        def run():
+            out = rns_fused_matmul(xa, wt, scale_row=xa.scale,
+                                   scale_col=wt.scale, gate=gate, emit=emit)
+            return out.residues if emit == "residues" else out
+    else:
+        w8 = trt.encode(torch.randn(K, N, generator=g, device=dev)
+                        / K ** 0.5)
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        if path == "staged":
+            q, _ = quantize_int8(x, dim=-1)
+
+            def run():
+                return rns_matmul(q[None], w8.residues, w8.moduli,
+                                  signed_a=True)
+        else:
+            def run():
+                return rns_fused_matmul(x, w8, scale_row=quant_scale(x),
+                                        scale_col=w8.scale)
+    before = sum(tile.tile_launches.values())
+    tuned = run()
+    with tune.static_rule():
+        static = run()
+    torch.cuda.synchronize()
+    assert sum(tile.tile_launches.values()) == before + 2
+    assert torch.equal(tuned, static)
+
+
+@pytest.mark.parametrize("name", ["rns-smollm-135m", "rns-smollm-135m-fused",
+                                  "rns-smollm-135m-resident",
+                                  "rns-smollm-135m-pallas"])
+def test_graph_kernel_nodes_equal_counted_step(dev, name):
+    """The captured decode step's kernel nodes, read from the graph by
+    function name (`_build.graph_kernels`), equal the launches the
+    wrappers counted for that step; the engine's warmed decode shapes are
+    all table hits, so its init swept nothing."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    counters = {"rns_tile_kernel": (rns_fused_matmul, rns_matmul),
+                "rns_forward_kernel": (rns_forward,),
+                "rns_reverse_kernel": (rns_reverse,),
+                "rns_modmul_kernel": (rns_modmul,)}
+    cfg = get_smoke_config(name)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    sweeps = tune.stats["sweeps"]
+    eng = E.Engine(cfg, params, smax=32, lanes=2, device=dev)
+    assert eng.tune_report and all(r["hit"] for r in eng.tune_report)
+    assert tune.stats["sweeps"] == sweeps
+    counted = []
+    step = eng._step
+
+    def counted_step(st):
+        before = {k: sum(f.launches for f in fs)
+                  for k, fs in counters.items()}
+        step(st)
+        counted.append({k: sum(f.launches for f in fs) - before[k]
+                        for k, fs in counters.items()})
+
+    eng._step = counted_step
+    misses = tune.stats["capture_misses"]
+    eng.generate([[5, 6, 7], [1, 2]], 4, engine="scan")
+    del eng._step
+    assert tune.stats["capture_misses"] == misses
+    assert len(counted) == 2 and counted[0] == counted[1]
+    graph = eng._scan[(2, 32, False)].graph
+    nodes = _build.graph_kernels(graph)
+    seen = {k: sum(c for n, c in nodes.items() if k in n)
+            for k in counters}
+    assert seen == counted[1]
+    assert seen["rns_tile_kernel"] == 7 * cfg.num_layers - (
+        2 * cfg.num_layers if cfg.linear_domain == "residue" else 0)
