@@ -85,7 +85,24 @@ Phases, each of which must pass:
      models; on the paper's n = 5 basis equal to the `rns_modmul` kernel;
      timed;
   10. check  — finite logits of each served batch, and each smoke config's
-     logits on the card against the same model on the CPU (plain versions).
+     logits on the card against the same model on the CPU (plain versions);
+  11. families — the other model families at their published widths, one
+     model at a time (seeded weights, freed before the next), each through
+     `serve.Engine` under both engines in 8 lanes: hymba-1.5b (32 layers;
+     prompts bucketed to 1024, so its 1024-slot rings wrap during decode),
+     the same weights on `rns_int8:pallas_fused` (the fused kernel at C = 5
+     and 6, read from the captured graph by channel count; prefill logits
+     within the reference's int8 check, relative error below 0.35, of the
+     bf16 run's), gemma2-2b, mamba2-1.3b (also through `SlotScheduler`,
+     equal to solo), moonshot-v1-16b-a3b (12 of its 48 layers) and the
+     dense bf16 smollm-135m: scan == host, batch invariance (not for MoE),
+     launches a step, prefill ms (and the prefill alone with its plain
+     linears summed in float64, as served, against the library GEMM, in
+     turns), decode ms a step of each engine in turns, tokens/s, peak
+     device memory; the fused run's `rns_fused_matmul` and `rns_forward`
+     at its own shapes (C = 5 and 6, every M it launches, both tile
+     heights) bit for bit against their plain versions; then the nine zoo
+     smoke twins on the card against the CPU.
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
 the route each shape takes (`split`, `mma` or `fma`, named on its row;
@@ -97,13 +114,14 @@ kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
 `decode:` and `prefill:` sums, the `tune:` lines, a `verify:` line, one
 `serve:` line per model, one `sched:` line per scheduled model, a
 `chain:` line, an `entry:` line, the `twit:` lines, one `check:`
-line per smoke config, the nvidia-smi line, the kernels JSON line and,
+line per smoke config, the `families:` lines, the nvidia-smi line, the kernels JSON line and,
 last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
 Exits non-zero without a CUDA device or without the port's sources beside
 it.
 """
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1242,6 +1260,8 @@ def expected_launches(cfg, steps):
     steps) including the weight encodes at Engine init."""
     spec, L = cfg.linear_spec, cfg.num_layers
     want = dict.fromkeys(COUNTED, 0)
+    if not spec.is_rns:                       # plain bf16 matmuls
+        return want
     if not spec.encode_weights:               # staged, live weights
         for k in ("rns_forward", "rns_matmul", "rns_reverse"):
             want[k] = 7 * L * steps
@@ -1991,6 +2011,439 @@ def phase_twit(dev, smi):
     return {"widths": widths, "basis_channels": chans, "timing": timing}
 
 
+# the families phase: the other model families at their published widths
+# (seeded random weights), published one at a time and freed before the
+# next, each served through `serve.Engine` under both engines.  Rows:
+# (label, arch, layers kept or None, config overrides, smax, prompt lens,
+# new tokens).  hymba's prompts bucket to 1024 (the SSM chunk is 256), so
+# its 1024-slot rings are full after the prefill and wrap during decode;
+# moonshot keeps 12 of its 48 layers (all 48 take ~56 GB of weights);
+# the dense bf16 smollm-135m times its prefill's float64 linears too.
+FUSED = {"linear_backend": "rns_int8:pallas_fused", "encode_weights": True}
+FAMILY_RUNS = [
+    ("hymba-1.5b", "hymba-1.5b", None, {}, 2048, [1000, 5, 61, 200], 64),
+    ("hymba-1.5b-fused", "hymba-1.5b", None, FUSED, 2048,
+     [1000, 5, 61, 200], 64),
+    ("gemma2-2b", "gemma2-2b", None, {}, 512, [200, 5, 61, 130], 32),
+    ("mamba2-1.3b", "mamba2-1.3b", None, {}, 512, [200, 5, 61, 130], 32),
+    ("moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b", 12, {}, 512,
+     [200, 5, 61, 130], 32),
+    ("smollm-135m", "smollm-135m", None, {}, 512, [200, 5, 61, 130], 32),
+]
+ZOO = ["gemma2-2b", "h2o-danube-1.8b", "hymba-1.5b",
+       "llama4-maverick-400b-a17b", "mamba2-1.3b", "moonshot-v1-16b-a3b",
+       "musicgen-large", "phi-3-vision-4.2b", "yi-34b"]
+# card vs CPU on the zoo's smoke twins: the tolerance the CPU tests hold
+# the port to against the reference (tests/test_torch_families.py), a
+# share of the largest |logit|
+ZOO_RTOL = 0.08
+# the host loop's timed generates: 8 decode steps (its per-token cost
+# does not change with the position; the scan's generates take them all)
+FAMILY_HOST_TOKENS = 9
+# the scheduled mamba2 serve: 4 slots of 512 tokens, chunks of 8 steps
+FAMILY_SCHED = {"slots": 4, "block_size": 16, "slot_tokens": 512,
+                "decode_chunk": 8}
+
+
+def _tile_channels(graph):
+    """Tile-kernel nodes of a captured graph by channel count C, read from
+    the instances' mangled names (rns_tile_kernel<TMR, C, AM, ENC>)."""
+    import re
+    from repro_torch.kernels import _build
+
+    out = {}
+    for name, n in _build.graph_kernels(graph).items():
+        m = re.search(r"rns_tile_kernelILi\d+ELi(\d+)E", name)
+        if m:
+            out[int(m.group(1))] = out.get(int(m.group(1)), 0) + n
+    return out
+
+
+def _decode_channels(cfg):
+    """{C: launches} of one decode step of a config with every attention
+    and MLP linear on the fused kernel: one launch a linear, C from each
+    linear's K."""
+    from repro_torch.core.rns import basis_for_int8_matmul
+
+    d, F, qd = cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim
+    out = {}
+    for k in (d, d, d, qd, d, d, F):          # wq wk wv wo gate up down
+        c = len(basis_for_int8_matmul(k).moduli)
+        out[c] = out.get(c, 0) + cfg.num_layers
+    return out
+
+
+def _ring(eng, lanes, smax):
+    """The write cursor of the scan cache's first ring layer: the padded
+    positions its slots hold, and the slot last written."""
+    from repro_torch.models.transformer import _cache_at
+
+    st = eng._scan[(lanes, smax, False)]
+    for col in st.cache.values():
+        for b in range(eng.cfg.n_blocks):
+            c = _cache_at(col, b)
+            if "pos" in c:
+                pos = c["pos"].cpu()
+                last = int(pos.max())
+                return {"window": pos.shape[0], "last_pos": last,
+                        "last_slot": int(pos.argmax()),
+                        "first_pos": int(pos.min()),
+                        "wrapped": last >= pos.shape[0]}
+    return None
+
+
+def _family_serve(label, cfg, params, dev, lanes, smax, prompts, new,
+                  invariance):
+    """One model through `serve.Engine`: launches of the host loop (init
+    encodes included) against the expected count; the scan's captured
+    step (warm-up and capture counted alike, its graph's port-kernel
+    nodes equal to that count, one replay a token); greedy scan == host;
+    each prompt alone == batched (``invariance``); prefill and decode
+    timed, host and scan in turns; last-token prefill logits."""
+    import torch
+    from repro_torch.kernels import _build, tune
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, smax=smax, lanes=lanes, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = eng.generate(prompts, max_new_tokens=new, engine="host")
+    torch.cuda.synchronize()
+    launches, want = read_launches(), expected_launches(cfg, new)
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    for p, o in zip(prompts, out):
+        if o[:len(p)] != p or len(o) != len(p) + new or \
+                not all(0 <= t < cfg.vocab_size for t in o[len(p):]):
+            raise AssertionError(f"{label}: malformed generate output")
+    steps, step = [], eng._step
+
+    def counted_step(st):
+        reset_launches()
+        step(st)
+        steps.append(read_launches())
+
+    eng._step = counted_step
+    misses = tune.stats["capture_misses"]
+    scan = eng.generate(prompts, max_new_tokens=new, engine="scan")
+    torch.cuda.synchronize()
+    del eng._step
+    one = _step_launches(cfg)
+    graph = eng._scan[(lanes, smax, False)].graph
+    nodes = _graph_launches(graph)
+    if eng.scan_captures != 1 or eng.scan_replays != new - 1 or \
+            steps != [one, one] or nodes != _by_kernel(one) or \
+            tune.stats["capture_misses"] != misses:
+        raise AssertionError(
+            f"{label} scan: {eng.scan_captures} captures, "
+            f"{eng.scan_replays} replays, step launches {steps}, graph "
+            f"nodes {nodes}, expected {one} a step; "
+            f"{tune.stats['capture_misses'] - misses} capture misses")
+    if scan != out:
+        raise AssertionError(f"{label}: greedy scan tokens differ from the "
+                             "host loop's")
+    channels = _tile_channels(graph)
+    step_kernels = sum(_build.graph_kernels(graph).values())
+    if cfg.linear_spec.is_rns and channels != _decode_channels(cfg):
+        raise AssertionError(f"{label}: tile nodes by C {channels}, "
+                             f"expected {_decode_channels(cfg)}")
+    ring = _ring(eng, lanes, smax)
+    if ring is not None and not (
+            ring["wrapped"] and ring["last_pos"] - ring["first_pos"]
+            == ring["window"] - 1 and ring["last_slot"]
+            == ring["last_pos"] % ring["window"]):
+        raise AssertionError(f"{label}: ring {ring}")
+    if invariance:
+        for i, p in enumerate(prompts):
+            if eng.generate([p], max_new_tokens=new)[0] != out[i]:
+                raise AssertionError(f"{label}: prompt {i} alone differs "
+                                     "from its batched tokens")
+
+    def once(n, engine="scan"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.generate(prompts, max_new_tokens=n, engine=engine)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, res
+
+    once(1)                          # the prefill shape's first use
+    sweeps = tune.stats["sweeps"]
+    # in turns: the prefill alone (a 1-token generate), the host loop over
+    # FAMILY_HOST_TOKENS tokens, the scan over all of them
+    host_n = min(FAMILY_HOST_TOKENS, new)
+    plan = [("pre", 1, "scan"), ("host", host_n, "host"),
+            ("scan", new, "scan")]
+    times = {what: [] for what, _, _ in plan}
+    for r in range(2):
+        for what, n, engine in (plan if r == 0 else plan[::-1]):
+            t, res = once(n, engine)
+            if res != [o[:len(p) + n] for p, o in zip(prompts, out)]:
+                raise AssertionError(f"{label}: {engine} generate is not "
+                                     "deterministic")
+            times[what].append(t)
+    if tune.stats["sweeps"] != sweeps:
+        raise AssertionError(f"{label}: the tuner swept inside timed "
+                             "generates")
+    pre = statistics.median(times["pre"])
+    dec = {"host": 1e3 * (statistics.median(times["host"]) - pre)
+           / (host_n - 1),
+           "scan": 1e3 * (statistics.median(times["scan"]) - pre)
+           / (new - 1)}
+    batch, _ = eng._pack(prompts)
+    with torch.inference_mode():
+        logits, _, _ = T.prefill(cfg, eng.params, batch, smax)
+    logits = logits[:len(prompts)].float().cpu()
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: prefill logits not finite")
+
+    def prefill_ms(exact):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            T.prefill(cfg, eng.params, batch, smax, exact=exact)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    # the served prefill (plain linears summed in float64) against the
+    # library GEMM's, in turns, the first use of the GEMM's shapes untimed
+    prefill_ms(False)
+    by_exact = {True: [], False: []}
+    for order in ((True, False), (False, True)):
+        for exact in order:
+            by_exact[exact].append(prefill_ms(exact))
+    per_step = {k: v for k, v in one.items() if v}
+    del eng
+    return {"label": label, "arch": cfg.name, "layers": cfg.num_layers,
+            "prompt_lens": [len(p) for p in prompts], "lanes": lanes,
+            "smax": smax, "new_tokens": new, "bucket": batch["tokens"]
+            .shape[1], "init_s": init_s, "prefill_ms": 1e3 * pre,
+            "prefill_ms_exact": statistics.median(by_exact[True]),
+            "prefill_ms_library": statistics.median(by_exact[False]),
+            "decode_ms_per_step": dec["host"],
+            "decode_ms_per_step_scan": dec["scan"],
+            "tokens_per_s": len(prompts) * 1e3 / dec["host"],
+            "tokens_per_s_scan": len(prompts) * 1e3 / dec["scan"],
+            "launches": launches, "launches_per_step": per_step,
+            "step_kernels": step_kernels,
+            "tile_nodes_by_C": channels, "ring": ring,
+            "batch_invariant": bool(invariance), "scan_equals_host": True,
+            "logits": logits}
+
+
+def phase_family_kernels(cfg, dev, lanes, lens):
+    """The fused family run's kernels at its own shapes, bit for bit
+    against their plain versions: `rns_fused_matmul` on encoded weights at
+    every (K, N) of the config's attention and MLP linears (K = d_model
+    and d_ff: hymba's C = 5 and C = 6) and every M the run launches (the
+    decode lanes; the prefill rows of the batch and of each prompt alone),
+    as the tuner picks and at each tile height pinned; `rns_forward` at
+    each linear weight's encode (one block's (K, N) int8).  Returns the
+    rows."""
+    import torch
+    from repro_torch.core.quant import quant_scale
+    from repro_torch.core.rns import basis_for_int8_matmul
+    from repro_torch.core.rns_tensor import encode
+    from repro_torch.kernels import ref, rns_forward, rns_fused_matmul
+    from repro_torch.serve.engine import bucket_plen
+
+    d, F = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = sorted({(d, qd), (d, kvd), (qd, d), (d, F), (F, d)})
+    ms = sorted({lanes} | {lanes * bucket_plen(cfg, n) for n in lens})
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for k, n in shapes:
+        w = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
+        wt = encode(w)
+        for m in ms:
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            x[0, :2] = torch.tensor([40.0, -40.0])
+            sx = quant_scale(x)
+
+            def run():
+                return rns_fused_matmul(x, wt.residues, wt.basis,
+                                        scale_row=sx, scale_col=wt.scale)
+            got = run()
+            want = ref.rns_fused_matmul_ref(x, wt.residues, wt.basis,
+                                            scale_row=sx, scale_col=wt.scale)
+            eq = {"tuned": torch.equal(got, want),
+                  **{f"tm{h}": v for h, v in
+                     _both_heights(run, want).items()}}
+            torch.cuda.synchronize()
+            rows.append({"kernel": "rns_fused_matmul", "M": m, "K": k,
+                         "N": n, "C": len(wt.basis.moduli), "equal": eq,
+                         "max_abs_err": (got - want).abs().max().item()})
+            del x, got, want
+        q = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev)
+        q.view(-1)[:4] = torch.tensor([-128, -127, 0, 127], dtype=torch.int8)
+        mods = basis_for_int8_matmul(k).moduli
+        got, want = rns_forward(q, mods, dtype=torch.int8), \
+            ref.rns_forward_ref(q, mods, torch.int8)
+        same = torch.equal(got, want)
+        rows.append({"kernel": "rns_forward", "K": k, "N": n,
+                     "C": len(mods), "equal": {"kernel": same},
+                     "max_abs_err": 0 if same else
+                     (got.int() - want.int()).abs().max().item()})
+        del w, wt, q, got, want
+    for r in rows:
+        print(f"  families: {r['kernel']} "
+              + (f"M={r['M']:5d} " if "M" in r else "")
+              + f"K={r['K']:5d} N={r['N']:5d} C={r['C']} equal {r['equal']}"
+              f" max|err| {r['max_abs_err']}")
+    if not all(all(r["equal"].values()) for r in rows):
+        raise AssertionError(f"{cfg.name}: a kernel at the family run's "
+                             "shapes disagrees with its plain version")
+    return rows
+
+
+def _family_sched(cfg, params, dev, prompts, news):
+    """`SlotScheduler` over ``prompts`` with staggered arrivals: each
+    request's tokens equal the scheduler's own engine run alone."""
+    import torch
+    from repro_torch.serve import Request, SlotScheduler
+
+    sched = SlotScheduler(cfg, params, device=dev, **FAMILY_SCHED)
+    solo = [sched.engine.generate([p], max_new_tokens=m)[0]
+            for p, m in zip(prompts, news)]
+    reqs = [Request(p, m, arrival=4 * i)
+            for i, (p, m) in enumerate(zip(prompts, news))]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = sched.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if got != solo:
+        raise AssertionError(f"{cfg.name}: scheduled tokens differ from "
+                             "the solo engine's")
+    st = sched.stats
+    return {"requests": len(reqs), "new_tokens": st["new_tokens"],
+            "chunks": st["chunks"], "replays": sched.chunk_replays,
+            "captures": sched.chunk_captures, "wall_s": wall,
+            "pool_bytes": st["pool_bytes"]}
+
+
+def phase_families(dev, runs=FAMILY_RUNS, lanes=8, get_config=None):
+    """Every row of ``runs`` served at its widths; hymba's two runs share
+    their weights, and the fused run's prefill logits stay within the
+    reference's int8 quantization check (relative error below 0.35) of
+    the bf16 run's; mamba2 is also served by `SlotScheduler`.  Returns
+    one record a run."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+
+    if get_config is None:
+        from repro_torch.configs.base import get_config
+    out, params, shared = [], None, None
+    for label, arch, layers, over, smax, lens, new in runs:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, **over)
+        if shared != arch:
+            params = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            params = T.make_params(cfg, torch.Generator(device=dev)
+                                   .manual_seed(0), device=dev)
+            shared = arch
+        else:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        weights = sum(t.numel() * t.element_size()
+                      for _, t in T.cache_leaves(params))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+        t0 = time.perf_counter()
+        rec = _family_serve(label, cfg, params, dev, lanes, smax, prompts,
+                            new, invariance=not cfg.moe)
+        rec["weight_bytes"] = weights
+        rec["cut"] = (f"{layers} of {get_config(arch).num_layers} layers"
+                      if layers is not None else None)
+        if over:
+            base = next(r for r in out if r["arch"] == cfg.name)
+            rel = float((rec["logits"] - base["logits"]).abs().max()
+                        / (base["logits"].abs().max() + 1e-9))
+            rec["rel_err_vs_bf16"] = rel
+            if not rel < 0.35:
+                raise AssertionError(f"{label}: prefill logits {rel:.3f} "
+                                     "from the bf16 run's (bound 0.35)")
+        if cfg.ssm and not cfg.hybrid:
+            rec["sched"] = _family_sched(cfg, params, dev, prompts,
+                                         [new // 2, new, new // 4, new])
+        torch.cuda.synchronize()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["seconds"] = time.perf_counter() - t0
+        out.append(rec)
+    params = None
+    torch.cuda.empty_cache()
+    for rec in out:
+        del rec["logits"]
+    return out
+
+
+def phase_zoo_check(dev, names=ZOO, get_smoke_config=None):
+    """Each zoo smoke twin on the card against the same model on the CPU:
+    a left-padded prefill and four decode steps fed the CPU's greedy
+    tokens (embeds for the embeddings frontend); returns {name: (max
+    |diff|, bound)}."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+
+    if get_smoke_config is None:
+        from repro_torch.configs.base import get_smoke_config
+    res = {}
+    for name in names:
+        cfg = get_smoke_config(name)
+        params = T.make_params(cfg, torch.Generator().manual_seed(1),
+                               device="cpu")
+        rng = np.random.default_rng(1)
+        pad = torch.tensor([0, 5, 11], dtype=torch.int32)
+        if cfg.frontend == "embeddings":
+            e = torch.from_numpy(rng.standard_normal(
+                (3, 20, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+            pre, steps = {"embeds": e[:, :16]}, [
+                {"embeds": e[:, t:t + 1]} for t in range(16, 20)]
+        else:
+            pre = {"tokens": torch.from_numpy(
+                rng.integers(1, cfg.vocab_size, (3, 16)))}
+            steps = None
+        logits = {}
+        for key, d in (("cpu", "cpu"), ("card", dev)):
+            p = _to(params, d)
+            seen = []
+            with torch.inference_mode():
+                lg, cache, S = T.prefill(cfg, p, {**_to(pre, d),
+                                                  "pad": pad.to(d)}, 24)
+                seen.append(lg.float().cpu())
+                for t in range(4):
+                    if steps is not None:
+                        b = _to(steps[t], d)
+                    else:
+                        cur = (seen if key == "cpu"
+                               else logits["cpu"])[t].argmax(-1)
+                        b = {"tokens": cur[:, None].to(d)}
+                    pos = S + t
+                    lg, cache = T.decode_step(
+                        cfg, p, cache, b, pos,
+                        positions=(pos - pad).to(d))
+                    seen.append(lg.float().cpu())
+            logits[key] = seen
+        cpu, card = logits["cpu"], logits["card"]
+        err = max((a - b).abs().max().item() for a, b in zip(cpu, card))
+        bound = ZOO_RTOL * max(a.abs().max().item() for a in cpu)
+        if not (all(torch.isfinite(b).all() for b in card) and err <= bound):
+            raise AssertionError(f"{name} smoke: card vs CPU logits differ "
+                                 f"by {err} > {bound}")
+        res[name] = (err, bound)
+    return res
+
+
 def phase_check(smoke_cfg, dev):
     """Smoke model on the card (kernels) vs the CPU (plain versions), each
     through an Engine on its device (which encodes as the config says)."""
@@ -2345,6 +2798,56 @@ def main() -> int:
                                  f"by {err}")
 
     mark("check")
+    print("phase families:")
+    misses = tune.stats["capture_misses"]
+    families = phase_families(dev)
+    for r in families:
+        ring = r["ring"]
+        sched = r.get("sched")
+        print(f"families: {r['label']} {r['layers']} layers"
+              + (f" (depth cut to {r['cut']})" if r["cut"] else "")
+              + f", weights {r['weight_bytes'] / 1e9:.2f} GB, peak device "
+              f"memory {r['peak_bytes'] / 1e9:.2f} GB | {len(r['prompt_lens'])}"
+              f" prompts (lens {r['prompt_lens']}, bucket {r['bucket']}, "
+              f"lanes {r['lanes']}, smax {r['smax']}), {r['new_tokens']} "
+              f"greedy tokens | prefill {r['prefill_ms']:.1f} ms (alone in "
+              f"turns: float64 linears {r['prefill_ms_exact']:.1f} ms, "
+              f"library GEMM {r['prefill_ms_library']:.1f} ms) | decode "
+              f"in turns: host {r['decode_ms_per_step']:.2f} ms/step, scan "
+              f"{r['decode_ms_per_step_scan']:.2f} ms/step | "
+              f"{r['tokens_per_s']:.1f} / {r['tokens_per_s_scan']:.1f} "
+              f"tokens/s | port launches a step {r['launches_per_step']}, "
+              f"tile nodes by C {r['tile_nodes_by_C']}, all kernels of the "
+              f"captured step {r['step_kernels']}"
+              + (f" | ring of {ring['window']}: positions "
+                 f"{ring['first_pos']}..{ring['last_pos']}, write cursor at "
+                 f"slot {ring['last_slot']}, wrapped" if ring else "")
+              + (f" | int8 logits vs bf16 rel err "
+                 f"{r['rel_err_vs_bf16']:.4f} < 0.35"
+                 if "rel_err_vs_bf16" in r else "")
+              + (f" | SlotScheduler {sched['requests']} requests, "
+                 f"{sched['new_tokens']} tokens, {sched['chunks']} chunks, "
+                 f"{sched['wall_s']:.3f} s, == solo" if sched else "")
+              + " | scan == host"
+              + (", batch-invariant" if r["batch_invariant"] else
+                 " (MoE: capacity depends on the batch, no invariance)")
+              + f" | {r['seconds']:.1f} s | on {smi}")
+    if tune.stats["capture_misses"] != misses:
+        raise AssertionError("tuner misses inside graph captures in the "
+                             "families phase")
+    label, arch, _, over, _, lens, _ = next(r for r in FAMILY_RUNS if r[3])
+    fam_rows = phase_family_kernels(
+        dataclasses.replace(get_config(arch), **over), dev, lanes, lens)
+    fam_cases = [r for r in fam_rows if r["kernel"] == "rns_fused_matmul"]
+    print(f"families: {label}'s kernels at its shapes: rns_fused_matmul "
+          f"{len(fam_cases)} (M, K, N) cases x (tuned, tm32, tm16), "
+          f"rns_forward {len(fam_rows) - len(fam_cases)} encodes, C "
+          f"{sorted({r['C'] for r in fam_rows})}: all bit-equal to the "
+          f"plain versions")
+    zoo = phase_zoo_check(dev)
+    print("families: smoke twins card vs CPU max |logit diff| (bound): "
+          + ", ".join(f"{n} {e:.4f} ({b:.3f})" for n, (e, b) in zoo.items()))
+    mark("families")
     print(f"time: seconds by phase {marks}, "
           f"{time.perf_counter() - t_start:.0f} s in all")
 
@@ -2355,9 +2858,12 @@ def main() -> int:
                     for arch, sc in scheds.items() if sc["launches"][key]})
         if chain["launches"][key]:
             out["rns_chain_linear:pallas"] = chain["launches"][key]
+        out.update({f"families:{r['label']}": r["launches"][key]
+                    for r in families if r["launches"][key]})
         return out
 
-    runs = {**serves, **{f"sched:{a}": sc for a, sc in scheds.items()}}
+    runs = {**serves, **{f"sched:{a}": sc for a, sc in scheds.items()},
+            **{f"families:{r['label']}": r for r in families}}
     quantize = {a: n - runs[a]["launches"]["residue_in"]
                 for a, n in by_path("rns_fused_matmul").items()}
     src = "src/repro_torch/csrc/"
@@ -2377,11 +2883,13 @@ def main() -> int:
     kernels = [
         entry("rns_fused_matmul", src + "rns_common.cuh",
               "src/repro/kernels/rns_fused.py:352", quantize, fused,
-              [{"max_abs_err": max_err}]),
+              [{"max_abs_err": max_err}]
+              + rows_of("rns_fused_matmul", fam_rows)),
         entry("rns_forward", src + "rns_kernels.cu",
               "src/repro/kernels/rns_convert.py:54", by_path("rns_forward"),
               fwd, rows_of("rns_forward", rows) + rows_of("rns_forward",
-                                                          rows2)),
+                                                          rows2)
+              + rows_of("rns_forward", fam_rows)),
         entry("rns_fused_matmul:residue_in", src + "rns_common.cuh",
               "src/repro/kernels/rns_fused.py:352", by_path("residue_in"),
               resid, rows_of("rns_fused_matmul:residue_in", rows2)),
@@ -2428,6 +2936,8 @@ def main() -> int:
                        "check_logit_err": checks, "kernels": kernels,
                        "tune": tuned, "verify": verify, "twit": twit,
                        "tune_stats": dict(tune.stats),
+                       "families": families, "zoo_check": zoo,
+                       "family_kernels": fam_rows,
                        "phase_seconds": marks},
                       fh, indent=1)
     print(smi)

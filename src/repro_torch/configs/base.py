@@ -1,22 +1,25 @@
-"""Model configuration and registry, port of the dense fields of
-`repro/configs/base.py`."""
+"""Model configuration and registry, port of `repro/configs/base.py`:
+every architecture registers its published configuration and a smoke twin
+of the same family.  The reference's training, sharding and cost-model
+fields (remat, optimizer, dist_layout, attn_impl, skip_shapes) have no
+counterpart here."""
 from __future__ import annotations
 
 import dataclasses
 import functools
 import importlib
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.linear_spec import LinearSpec
 
-__all__ = ["ModelConfig", "register", "get_config", "get_smoke_config"]
+__all__ = ["ModelConfig", "register", "get_config", "get_smoke_config",
+           "list_archs", "ARCH_MODULES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # the port serves "dense" only:
-    # full causal attention, RoPE, SwiGLU MLP, one layer per block
+    family: str               # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -24,8 +27,42 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+
+    # attention: "full" (every layer causal), "swa" (every layer but
+    # ``global_layers`` a sliding window of ``window``), "local_global"
+    # (even layers local, odd global: gemma2) or "none" (pure SSM)
+    attention: str = "full"
+    window: Optional[int] = None
+    global_layers: Tuple[int, ...] = ()
+    softcap_attn: Optional[float] = None
+    softcap_final: Optional[float] = None
+    pos: str = "rope"                     # rope | sinusoidal
     rope_theta: float = 10000.0
+    qk_norm: bool = False
+    post_norm: bool = False               # gemma2's post-sublayer norms
+
+    # MoE: top-k routing with capacity dispatch
+    moe: bool = False
+    num_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1                    # 1: every layer; 2: dense/MoE pairs
+    shared_expert: bool = False
+    moe_d_ff: int = 0                     # expert hidden width (d_ff if 0)
+    capacity_factor: float = 1.25
+
+    # SSM (Mamba2 SSD): pure (attention "none") or beside attention
+    ssm: bool = False
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    hybrid: bool = False                  # parallel attention + SSM heads
+
+    frontend: str = "tokens"              # tokens | embeddings
     norm_eps: float = 1e-6
+    act: str = "silu"                     # silu | gelu (tanh form)
+    glu: bool = True
     tie_embeddings: bool = False
     # "bf16" or "rns_int8[:auto|pallas|pallas_fused]": every projection
     # through `core/rns_linear` on the fused kernel or the staged kernels.
@@ -46,13 +83,46 @@ class ModelConfig:
                                    domain=self.linear_domain)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def layers_per_block(self) -> int:
+        return max(1, self.moe_every)
+
+    @property
     def n_blocks(self) -> int:
-        return self.num_layers
+        assert self.num_layers % self.layers_per_block == 0
+        return self.num_layers // self.layers_per_block
+
+    def window_for_layer(self, layer: int, seq_len: int) -> int:
+        """Attention window of ``layer`` (a full causal layer gets
+        max(seq_len, 2^30))."""
+        full = max(seq_len, 1 << 30)
+        if self.attention == "swa":
+            return self.window if layer not in self.global_layers else full
+        if self.attention == "local_global":
+            return self.window if layer % 2 == 0 else full
+        return full
+
+    def mlp_kind(self, layer: int) -> str:
+        if not self.moe:
+            return "mlp"
+        return ("moe" if layer % self.moe_every == self.moe_every - 1
+                else "mlp")
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
-ARCH_MODULES = ("smollm_135m", "rns_paper")
+ARCH_MODULES = (
+    "musicgen_large", "moonshot_v1_16b_a3b", "llama4_maverick_400b_a17b",
+    "smollm_135m", "gemma2_2b", "yi_34b", "h2o_danube_1_8b", "hymba_1_5b",
+    "mamba2_1_3b", "phi_3_vision_4_2b", "rns_paper",
+)
 
 
 def register(name: str, full: Callable[[], ModelConfig],
@@ -79,3 +149,7 @@ def get_smoke_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_SMOKE)}")
     return _SMOKE[name]()
 
+
+def list_archs():
+    _ensure_loaded()
+    return sorted(_REGISTRY)

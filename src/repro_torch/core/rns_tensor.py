@@ -84,6 +84,7 @@ def encode_activation(x: torch.Tensor, basis: RNSBasis) -> RNSTensor:
 ENCODED_LINEAR_LEAVES: Dict[str, Tuple[str, ...]] = {
     "attn": ("wq", "wk", "wv", "wo"),
     "mlp": ("w_gate", "w_up", "w_down"),
+    "shared": ("w_gate", "w_up", "w_down"),       # MoE shared expert
 }
 
 

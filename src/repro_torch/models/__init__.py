@@ -1,1 +1,2 @@
-"""Model stack of the port (dense family)."""
+"""Model stack of the port: the decoder (`transformer`), its layers, the
+Mamba2 SSD mixer (`ssm`) and the mixture-of-experts block (`moe`)."""

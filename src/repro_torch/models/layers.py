@@ -1,14 +1,17 @@
-"""Shared layers of the dense stack, port of `repro/models/layers.py`:
+"""Shared layers of the decoder stack, port of `repro/models/layers.py`:
 the linear dispatch (with the residue-resident chains `linear_qkv` and
-`mlp_chain`), RMSNorm, RoPE, GQA attention, the full KV cache and the paged
-KV pool's per-slot write and gather.
+`mlp_chain`), RMSNorm, RoPE and sinusoidal positions, GQA attention with
+sliding windows and score softcaps, the full and ring KV caches and the
+paged KV pool's per-slot write and gather.
 
 Layouts follow the reference: activations (B, S, d), attention heads
 (B, S, H, D), weights (d_in, d_out).
 
 The row reductions that see padding — the attention scores, the softmax
-denominator, the probability-weighted sum of values and the RMSNorm mean —
-accumulate in float64 and round once to the working type.  Left padding only
+denominator, the probability-weighted sum of values, the RMSNorm mean, a
+prefill's plain (bf16) linears (`matmul_exact`, which the prefill selects)
+and the SSM's prefill state — accumulate in float64 and round once to the
+working type.  Left padding only
 adds exact zeros to those sums, and a float64 sum of these terms is exact or
 off by ~2^-53, so the rounded result does not depend on where the real keys
 sit or how many pad slots there are: greedy outputs are batch-invariant by
@@ -17,7 +20,10 @@ batch invariance from XLA's shape-stable reductions instead.)
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -28,27 +34,96 @@ from repro_torch.core.rns_linear import rns_chain_linear, rns_dense
 from repro_torch.core.rns_tensor import RNSTensor, encode_activation
 
 __all__ = ["linear", "linear_qkv", "mlp_chain", "rms_norm", "rope",
-           "apply_rope", "attention", "update_cache_full", "silu",
-           "paged_write", "paged_gather", "paged_kpos"]
+           "apply_rope", "sinusoidal", "attention", "update_cache_full",
+           "update_cache_ring", "silu", "gelu", "act_fn", "paged_write",
+           "paged_gather", "paged_kpos", "Leaf", "dense_leaf",
+           "materialize", "matmul", "matmul_exact"]
 
 NEG_INF = -1e30
+FULL_WINDOW = 1 << 30       # the window of a full causal layer
 
 
-def linear(x: torch.Tensor, w, spec="bf16") -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """How one parameter is made: its shape (without the stacked block
+    axis), its init (``"zeros"``, ``"ones"``, ``"normal"`` with ``std``, or
+    ``"log_arange"``: log(1..n) along the last axis, the SSM's A_log) and
+    its dtype (None: the config's parameter dtype)."""
+    shape: tuple
+    init: str = "zeros"
+    std: float = 0.0
+    dtype: Optional[torch.dtype] = None
+
+
+def dense_leaf(d_in: int, d_out: int) -> Leaf:
+    """A (d_in, d_out) linear weight, N(0, 1/d_in) as the reference's
+    `make_dense_params`."""
+    return Leaf((d_in, d_out), "normal", 1.0 / math.sqrt(d_in))
+
+
+def materialize(tree: Dict[str, Any], generator: torch.Generator, device,
+                dtype: torch.dtype, lead: tuple = ()) -> Dict[str, Any]:
+    """Tensors on ``device`` for a nested dict of :class:`Leaf`s, each with
+    the leading axes ``lead`` (the stacked block axis), normal draws taken
+    from ``generator`` in the dict's order."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = materialize(v, generator, device, dtype, lead)
+            continue
+        shape, dt = lead + tuple(v.shape), v.dtype or dtype
+        if v.init == "normal":
+            t = (torch.randn(shape, generator=generator, device=device)
+                 * v.std).to(dt)
+        elif v.init == "log_arange":
+            n = shape[-1]
+            t = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=device)).expand(shape) \
+                .to(dt).contiguous()
+        else:
+            t = (torch.ones if v.init == "ones" else torch.zeros)(
+                shape, dtype=dt, device=device)
+        out[k] = t
+    return out
+
+
+def linear(x: torch.Tensor, w, spec="bf16", exact: bool = False
+           ) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) under ``spec`` (a
-    :class:`LinearSpec` or its string): mode "bf16" is a plain matmul,
-    "rns_int8" the RNS datapath (`core/rns_linear.rns_dense`) on the spec's
-    backend; an encoded :class:`RNSTensor` weight needs the RNS mode."""
+    :class:`LinearSpec` or its string): mode "bf16" is a plain matmul
+    (`matmul_exact` when ``exact``, as a prefill asks), "rns_int8" the RNS
+    datapath (`core/rns_linear.rns_dense`) on the spec's backend, exact by
+    construction; an encoded :class:`RNSTensor` weight needs the RNS
+    mode."""
     spec = LinearSpec.parse(spec)
     if isinstance(w, RNSTensor) and not spec.is_rns:
         raise ValueError(f"encoded (RNSTensor) weights need mode "
                          f"'rns_int8', got {spec}")
     if not spec.is_rns:
-        return torch.matmul(x, w)
+        return matmul(x, w, exact)
     shp = x.shape
     y = rns_dense(x.reshape(-1, shp[-1]), w, spec.backend,
                   broadcast=spec.broadcast)
     return y.reshape(*shp[:-1], y.shape[-1])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, exact: bool = False
+           ) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out) in x's dtype: `matmul_exact` when
+    ``exact``, the library GEMM otherwise."""
+    return matmul_exact(x, w) if exact else torch.matmul(x, w)
+
+
+def matmul_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out), summed in float64 and rounded once
+    to x's dtype.  Each output row then comes out the same whatever the
+    call's row count (a prefill's bucketed prompt length times its lanes),
+    which a library GEMM does not promise: it picks its K split by shape.
+    The prefill selects it for its plain linears; a decode step, whose
+    shape the pinned lanes fix, takes the library GEMM.  It runs at the
+    card's FP64 rate."""
+    return torch.matmul(x.to(torch.float64),
+                        w.to(torch.float64)).to(x.dtype)
 
 
 def _chain_basis_of(*ws):
@@ -119,6 +194,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh approximation (torch's default is
+    the erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    return silu if name == "silu" else gelu
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     x32 = x.to(torch.float32)
@@ -157,29 +242,60 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _mask(qpos, kpos):
-    """Causal mask over valid keys (kpos >= 0): qpos (Bm, Sq), kpos (Bm, Sk)
-    → (Bm, Sq, Sk).  The reference's full-attention window (2^30) never
-    masks, so it is left out."""
+def sinusoidal(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Classic sinusoidal embeddings (musicgen): positions (...,) →
+    (..., d_model) float32, [sin | cos] of the reference's numpy float32
+    frequencies."""
+    ang = positions.to(torch.float32)[..., None] \
+        * _sin_freqs(d_model, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _sin_freqs(d_model: int, device) -> torch.Tensor:
+    # cached per device, as `_rope_freqs`: a captured step copies nothing
+    # from the host
+    half = d_model // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half, dtype=np.float32)
+                   / half)                  # float64, taken as float32
+    return torch.from_numpy(freqs.astype(np.float32)).to(device)
+
+
+def _mask(qpos, kpos, window):
+    """Causal and sliding-window mask over valid keys (kpos >= 0): a key
+    is seen by a query at qpos iff qpos − window < kpos <= qpos.  qpos
+    (Bm, Sq), kpos (Bm, Sk) → (Bm, Sq, Sk).  A full layer's window (2^30)
+    masks nothing, so its term is left out."""
     kp, qp = kpos[:, None, :], qpos[:, :, None]
-    return (kp <= qp) & (kp >= 0)
+    m = (kp <= qp) & (kp >= 0)
+    if window < FULL_WINDOW:
+        m &= kp > qp - window
+    return m
 
 
-def _scores(qg, kg, scale):
+def _scores(qg, kg, scale, softcap):
     """(…, Sq, D) · (…, Sk, D) → float32 scores, summed in float64 and
-    rounded to the operands' dtype as the reference's einsum is."""
+    rounded to the operands' dtype as the reference's einsum is, then
+    capped to softcap·tanh(s / softcap) when a softcap is given."""
     s = torch.matmul(qg.to(torch.float64),
                      kg.to(torch.float64).transpose(-1, -2))
-    return s.to(qg.dtype).to(torch.float32) * scale
+    s = s.to(qg.dtype).to(torch.float32) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    return s
 
 
-def attention(q, k, v, qpos, kpos, *, block_kv: int = 1024):
+def attention(q, k, v, qpos, kpos, *, window: int = FULL_WINDOW,
+              softcap=None, block_kv: int = 1024):
     """GQA attention over absolute positions.
 
     q (B, Sq, Hq, D); k, v (B, Sk, Hk, D), query head h reads kv head
     h // (Hq/Hk).  qpos (Sq,) or (B, Sq), kpos (Sk,) or (B, Sk) int
-    positions; a key at a negative position (−1 marks pad) is invalid.  Short keys (or one query) take the direct branch; longer
-    prefills the blocked online softmax, in float32 like the reference's.
+    positions; a key at a negative position (−1 marks pad and unwritten
+    ring slots) is invalid, and so is one ``window`` or more positions
+    behind the query.  ``softcap`` caps the scores.  Short keys (or one
+    query) take the direct branch; longer prefills the blocked online
+    softmax, in float32 like the reference's.
     """
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -192,8 +308,8 @@ def attention(q, k, v, qpos, kpos, *, block_kv: int = 1024):
     vg = v.permute(0, 2, 1, 3)[:, :, None]
 
     if Sk <= 2 * block_kv or Sq == 1:
-        s = _scores(qg, kg, scale)
-        m = _mask(qpos, kpos)[:, None, None]
+        s = _scores(qg, kg, scale, softcap)
+        m = _mask(qpos, kpos, window)[:, None, None]
         s = torch.where(m, s, NEG_INF)
         e = torch.exp(s - s.amax(-1, keepdim=True))
         p = e / e.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
@@ -207,8 +323,8 @@ def attention(q, k, v, qpos, kpos, *, block_kv: int = 1024):
                           device=q.device)
         for start in range(0, Sk, block_kv):
             sl = slice(start, min(Sk, start + block_kv))
-            s = _scores(qg, kg[..., sl, :], scale)
-            msk = _mask(qpos, kpos[:, sl])
+            s = _scores(qg, kg[..., sl, :], scale, softcap)
+            msk = _mask(qpos, kpos[:, sl], window)
             s = torch.where(msk[:, None, None], s, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
             p = torch.exp(s - m_new)
@@ -242,6 +358,27 @@ def update_cache_full(cache_k, cache_v, k, v, pos):
     cache_k[:, pos:pos + S] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def update_cache_ring(cache_k, cache_v, cache_pos, k, v, pos):
+    """Ring-buffer write of one step's k, v (B, 1, Hk, D) at slot
+    ``pos mod W`` of (B, W, Hk, D) caches, and ``pos`` into the (W,) slot
+    positions (−1 where unwritten), in place; returns the three.  The
+    bounded cache of a sliding-window layer: memory O(window), not
+    O(sequence).  ``pos`` is an int or a 0-d integer tensor on the caches'
+    device, never read on the host."""
+    W = cache_k.shape[1]
+    if isinstance(pos, torch.Tensor):
+        slot = (pos.to(torch.int64) % W).reshape(1)
+        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+        cache_pos.index_copy_(0, slot, pos.to(cache_pos.dtype).reshape(1))
+        return cache_k, cache_v, cache_pos
+    slot = pos % W
+    cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
+    cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
+    cache_pos[slot] = pos
+    return cache_k, cache_v, cache_pos
 
 
 def paged_write(pool_k, pool_v, k, v, block_table, pos):

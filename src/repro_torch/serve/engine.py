@@ -1,7 +1,8 @@
 """Static batched serving engine, port of `repro/serve/engine.py`.
 
 Requests are left-padded (right-aligned) to a common power-of-two prefill
-length, prefilled together, then decoded together for ``max_new_tokens``.
+length (rounded up to ``ssm_chunk`` for SSM stacks), prefilled together,
+then decoded together for ``max_new_tokens``.
 Ragged prompts batch correctly through the per-sequence positions
 ``arange(S) − pad[i]``; ``lanes=`` pins the batch width by adding fully
 padded dummy rows, so a prompt decodes at the same shapes alone or in a
@@ -64,12 +65,16 @@ __all__ = ["Engine", "bucket_plen"]
 _SCAN_CACHE_MAX = 8
 
 
-def bucket_plen(plen: int) -> int:
-    """Next power of two, floor 8: a ragged workload compiles and caches a
-    handful of prefill shapes; extra pad slots are inert."""
+def bucket_plen(cfg: ModelConfig, plen: int) -> int:
+    """Next power of two, floor 8, then rounded up to ``ssm_chunk`` for a
+    stack with SSM layers (the chunked dual form needs whole chunks): a
+    ragged workload meets a handful of prefill shapes; extra pad slots are
+    inert."""
     b = 8
     while b < plen:
         b *= 2
+    if cfg.ssm or cfg.hybrid:
+        b = -(-b // cfg.ssm_chunk) * cfg.ssm_chunk
     return b
 
 
@@ -162,9 +167,6 @@ class Engine:
             from repro_torch.analysis import check_config
 
             check_config(cfg).raise_if_failed()
-        if cfg.family != "dense":
-            raise ValueError(f"the port serves dense configs, got "
-                             f"{cfg.family!r}")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine needs a CUDA device and none is "
@@ -176,10 +178,11 @@ class Engine:
         params = _to_device(params, self.device)
         spec = cfg.linear_spec
         if spec.is_rns and spec.encode_weights:
-            # a residue-resident MLP needs its weights in the chain basis,
-            # sized for the gated down product d_ff·127³
+            # a residue-resident GLU MLP needs its weights in the chain
+            # basis, sized for the gated down product d_ff·127³
             gb = ({"mlp": basis_for_chain(cfg.d_ff)}
-                  if spec.domain == "residue" else None)
+                  if spec.domain == "residue" and cfg.glu and cfg.d_ff > 0
+                  else None)
             with torch.inference_mode():
                 params = encode_params(params, group_basis=gb)
         self.params = params
@@ -195,9 +198,14 @@ class Engine:
     def _pack(self, prompts: List[List[int]]):
         """Left-pad ragged prompts to a bucketed common length; dummy lanes
         up to a multiple of ``lanes`` are fully padded."""
+        if self.cfg.frontend != "tokens":
+            raise ValueError(
+                f"{self.cfg.name} takes a {self.cfg.frontend!r} frontend: "
+                "Engine packs token prompts only; run its embeds through "
+                "models.transformer.prefill / decode_step")
         B = len(prompts)
         L = B if self.lanes is None else self.lanes * (-(-B // self.lanes))
-        plen = bucket_plen(max(len(p) for p in prompts))
+        plen = bucket_plen(self.cfg, max(len(p) for p in prompts))
         toks = np.zeros((L, plen), np.int64)
         pad = np.full((L,), plen, np.int32)
         for i, p in enumerate(prompts):
@@ -311,19 +319,22 @@ class Engine:
         after a sequence's EOS, read from the device once."""
         pad = batch["pad"]
         st = self._state(pad.shape[0], temperature > 0.0)
+        if st.graph is None and self.device.type == "cuda" and new > 1:
+            # warm up and capture before the prefill: the warm-up runs the
+            # step for real (a KV slot, a ring slot, the SSM state's
+            # recurrence), and the prefill resets and rewrites every cache
+            # buffer after it
+            st.cur.zero_()
+            st.pad.copy_(pad)
+            st.pos.fill_(batch["tokens"].shape[1])
+            st.step.fill_(1)
+            self._capture(st)
         logits, _, pos0 = T.prefill(self.cfg, self.params, batch, self.smax,
                                     cache=st.cache)
         st.pad.copy_(pad)
         st.eos.fill_(eos)
         if st.temp is not None:
             st.temp.fill_(temperature)
-        if st.graph is None and self.device.type == "cuda" and new > 1:
-            # a valid step input for the warm-up; it writes only the slot
-            # and the row that the first replay writes again
-            st.cur.copy_(torch.argmax(logits, dim=-1))
-            st.pos.fill_(pos0)
-            st.step.fill_(1)
-            self._capture(st)
         first = self._first(logits, st.temp, st.gen, seed)
         st.toks[0].copy_(first)
         st.cur.copy_(first)

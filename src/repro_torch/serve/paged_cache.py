@@ -12,13 +12,16 @@ is sized by the live tokens, not by the reservation.  Three pieces:
     writes a slot's own private tail and decode blocks, never a shared
     full block, so sharing needs no copy-on-write;
   * :func:`init_paged_cache` — the pool, in `models.transformer.
-    init_cache`'s ``{"sub0": {"k", "v"}}`` layout but with
-    ``(n_blocks_layers, n_phys, block, Hk, dh)`` leaves.  Physical block 0
+    init_cache`'s ``{"sub{i}": {"k", "v", "ssm"}}`` layout but with
+    ``(n_blocks_layers, n_phys, block, Hk, dh)`` K/V leaves; SSM state is
+    O(1) a sequence and stays resident, one row a slot.  Physical block 0
     is the *trash* block: idle slots and out-of-range writes land there
     and it is never read unmasked.  The pool starts zeroed, so every value
-    under a masked key is finite and contributes an exact zero;
+    under a masked key is finite and contributes an exact zero.  A stack
+    with sliding-window (ring) layers is refused: a ring's positions are
+    shared across the batch;
   * :func:`splice_prefill` — one in-place scatter of an admitted request's
-    prefill cache into its pool blocks.
+    prefill cache into its pool blocks and its slot's SSM rows.
 """
 from __future__ import annotations
 
@@ -27,6 +30,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import FULL_WINDOW
+from repro_torch.models.ssm import init_ssm_cache
+from repro_torch.models.transformer import _mixer_kind, cache_leaves
 
 __all__ = ["BlockAllocator", "init_paged_cache", "splice_prefill",
            "paged_cache_nbytes"]
@@ -92,28 +98,44 @@ class BlockAllocator:
 
 
 def init_paged_cache(cfg: ModelConfig, n_phys: int, block_size: int,
-                     device="cuda"):
-    """Zeroed paged decode cache {"sub0": {"k", "v"}} of
-    (n_blocks_layers, n_phys, block_size, Hk, dh) pools on ``device``.
-    (The reference's ``slots`` argument sizes slot-resident SSM state,
-    which the dense family has none of.)"""
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: the port's paged pool serves dense "
-                         f"stacks only, got family {cfg.family!r}")
-    shape = (cfg.n_blocks, n_phys, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
+                     slots: int = 1, device="cuda"):
+    """Zeroed paged decode cache on ``device``: per column ``sub{i}``,
+    (n_blocks_layers, n_phys, block_size, Hk, dh) K/V pools for attention
+    layers and (n_blocks_layers, slots, …) SSM state for SSM layers.
+    Raises for a stack with a sliding-window (ring cache) layer."""
     dtype = getattr(torch, cfg.param_dtype)
-    return {"sub0": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    kind = _mixer_kind(cfg)
+    L = cfg.n_blocks
+    out = {}
+    for i in range(cfg.layers_per_block):
+        for b in range(L):
+            layer = b * cfg.layers_per_block + i
+            if kind != "ssm" and \
+                    cfg.window_for_layer(layer, FULL_WINDOW) < FULL_WINDOW:
+                raise ValueError(
+                    f"{cfg.name}: layer {layer} uses a sliding-window ring "
+                    "cache — paged decode supports full-attention and "
+                    "pure-SSM stacks only (DESIGN.md §15)")
+        col = {}
+        if kind in ("attn", "hybrid"):
+            shape = (L, n_phys, block_size, cfg.num_kv_heads, cfg.head_dim)
+            col["k"] = torch.zeros(shape, dtype=dtype, device=device)
+            col["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        if kind in ("ssm", "hybrid"):
+            one = init_ssm_cache(cfg, slots, "meta", dtype)
+            col["ssm"] = {k: torch.zeros((L, *t.shape), dtype=t.dtype,
+                                         device=device)
+                          for k, t in one.items()}
+        out[f"sub{i}"] = col
+    return out
 
 
 def paged_cache_nbytes(cache) -> int:
     """Device bytes of the pool's leaves."""
-    return sum(t.numel() * t.element_size()
-               for col in cache.values() for t in col.values())
+    return sum(t.numel() * t.element_size() for _, t in cache_leaves(cache))
 
 
-def splice_prefill(cache, pf_cache, phys, offs):
+def splice_prefill(cache, pf_cache, phys, offs, slot: int = 0):
     """Copy row 0 of an admitted request's prefill cache into the pool, in
     place, and return the pool.
 
@@ -121,11 +143,16 @@ def splice_prefill(cache, pf_cache, phys, offs):
     the (physical block, offset) of each padded prefill position; pad
     positions and positions in shared prefix blocks go to the trash block
     0 (shared blocks already hold the same K/V: a prefix position's K/V
-    depends only on the prefix).  The dense family has no slot-resident
-    SSM rows, so the reference's ``slot`` argument is not taken.
+    depends only on the prefix).  SSM state and conv rows copy into row
+    ``slot``.
     """
     for sub, col in cache.items():
+        src = pf_cache[sub]
         for name in ("k", "v"):
-            col[name][:, phys, offs] = pf_cache[sub][name][:, 0].to(
-                col[name].dtype)
+            if name in col:
+                col[name][:, phys, offs] = src[name][:, 0].to(
+                    col[name].dtype)
+        if "ssm" in col:
+            for name, t in col["ssm"].items():
+                t[:, slot] = src["ssm"][name][:, 0].to(t.dtype)
     return cache

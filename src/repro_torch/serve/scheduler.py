@@ -40,8 +40,11 @@ nor slot-mates.  On CUDA every slot generator is registered with the graph
 (`CUDAGraph.register_generator_state`), so a replay draws what the eager
 step would.
 
-Scope: the dense family (the port's only one); a mesh or a multi-device
-layout is rejected, since the port has none.
+Scope: full-attention and pure-SSM stacks, and hybrids of the two (SSM
+state is resident, one row a slot, spliced in at admission); a stack with
+sliding-window ring caches is refused at construction, as in the
+reference.  A mesh or a multi-device layout is rejected, since the port has
+none.
 """
 from __future__ import annotations
 
@@ -124,13 +127,15 @@ class SlotScheduler:
         self.temperature = float(temperature)
         self.eos_id = eos_id
         self.prefix_sharing = bool(prefix_sharing)
+        # refuse ring-cache stacks before any weight is encoded
+        init_paged_cache(cfg, 2, self.block_size, 1, device="meta")
         # lanes=slots: the solo reference decodes at the chunk's shapes
         self.engine = Engine(cfg, params, smax=slot_tokens, lanes=self.slots,
                              device=device)
         self.device = dev = self.engine.device
         # the persistent buffers a captured step reads and writes
         self._cache = init_paged_cache(cfg, self.n_blocks, self.block_size,
-                                       device=dev)
+                                       self.slots, device=dev)
         self._bt = torch.full((self.slots, self.nlog), -1, dtype=torch.int64,
                               device=dev)
         self._cur = torch.zeros(self.slots, dtype=torch.int64, device=dev)
@@ -188,9 +193,7 @@ class SlotScheduler:
 
     def _reset(self) -> None:
         """Zero the pool and idle every slot, in place."""
-        for col in self._cache.values():
-            for t in col.values():
-                t.zero_()
+        T.reset_cache(self._cache)
         self._bt.fill_(-1)
         self._cur.zero_()
         self._done.fill_(True)
@@ -258,7 +261,7 @@ class SlotScheduler:
             offs[s] = lp % bs
         splice_prefill(self._cache, pf_cache,
                        torch.from_numpy(phys).to(self.device),
-                       torch.from_numpy(offs).to(self.device))
+                       torch.from_numpy(offs).to(self.device), slot=slot)
         if self.prefix_sharing:
             for j in range(len(shared), nfull):
                 self._alloc.register(tuple(prompt[:(j + 1) * bs]), blocks[j])

@@ -1,12 +1,14 @@
 """Carry the reference's parameters into the port.
 
 `from_jax_params` takes the pytree of `repro.models.transformer.make_params`
-handed over as numpy arrays (``jax.tree.map(np.asarray, params)``) and
-returns the port's parameters: the same key names and the same stacked
-``(n_blocks, …)`` leaves, as torch tensors on ``device``.  bfloat16 arrives
-as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects; it
-goes through float32, which is lossless.  The port encodes the weights
-itself (`core/rns_tensor.encode_params`): no residues are taken from JAX.
+(every family's tree: attention, SSM, MoE and hybrid layers, one or two
+layers a block) handed over as numpy arrays
+(``jax.tree.map(np.asarray, params)``) and returns the port's parameters:
+the same key names and the same stacked ``(n_blocks, …)`` leaves, as torch
+tensors on ``device``.  bfloat16 arrives as an ``ml_dtypes.bfloat16``
+array, which ``torch.from_numpy`` rejects; it goes through float32, which
+is lossless.  The port encodes the weights itself
+(`core/rns_tensor.encode_params`): no residues are taken from JAX.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
 
 __all__ = ["from_jax_params"]
 
@@ -29,29 +32,27 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    L, d = cfg.n_blocks, cfg.d_model
-    H, Hk, dh, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "final_norm": (d,),
-        "blocks/sub0/norm_mix": (L, d),
-        "blocks/sub0/norm_mlp": (L, d),
-        "blocks/sub0/attn/wq": (L, d, H * dh),
-        "blocks/sub0/attn/wk": (L, d, Hk * dh),
-        "blocks/sub0/attn/wv": (L, d, Hk * dh),
-        "blocks/sub0/attn/wo": (L, H * dh, d),
-        "blocks/sub0/mlp/w_gate": (L, d, f),
-        "blocks/sub0/mlp/w_up": (L, d, f),
-        "blocks/sub0/mlp/w_down": (L, f, d),
-    }
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab_size)
-    return shapes
+    """Every leaf's path and shape, from `models.transformer.param_spec`
+    (the block leaves with their leading ``n_blocks`` axis)."""
+    out: Dict[str, tuple] = {}
+
+    def walk(node, prefix, lead):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/", lead)
+            else:
+                out[f"{prefix}{k}"] = lead + tuple(v.shape)
+
+    spec = T.param_spec(cfg)
+    walk(spec.pop("blocks"), "blocks/", (cfg.n_blocks,))
+    walk(spec, "", ())
+    return out
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
-    """Numpy pytree of the reference's dense parameters → torch dict.
+    """Numpy pytree of the reference's parameters (any family) → torch
+    dict.
     Raises if a leaf the port uses is missing or has another shape, or if
     the tree holds a leaf the port would ignore."""
     flat = {}

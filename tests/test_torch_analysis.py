@@ -293,7 +293,10 @@ def test_lint_passes_on_registry(capsys):
             assert rep.ok, _messages(rep)
     assert main(["--all-configs"]) == 0
     out = capsys.readouterr().out
-    assert "# lint: 13 subjects, 0 errors" in out
+    from repro_torch.configs.base import list_archs
+
+    # every registered config, full and smoke, and the tune table
+    assert f"# lint: {2 * len(list_archs()) + 1} subjects, 0 errors" in out
     assert main([]) == 2
 
 

@@ -176,9 +176,12 @@ def _config_bases():
     for name in cfgbase._REGISTRY:
         for cfg in (cfgbase.get_config(name), cfgbase.get_smoke_config(name)):
             q = cfg.num_heads * cfg.head_dim
-            for k in {cfg.d_model, cfg.d_ff, q}:
+            # a width of 0 is a linear the config does not have (mamba2
+            # has no attention and no MLP)
+            for k in {cfg.d_model, cfg.d_ff, q} - {0}:
                 out[f"dense-{k}"] = basis_for_int8_matmul(k)
-            out[f"chain-{cfg.d_ff}"] = basis_for_chain(cfg.d_ff)
+            if cfg.d_ff:
+                out[f"chain-{cfg.d_ff}"] = basis_for_chain(cfg.d_ff)
     return out
 
 

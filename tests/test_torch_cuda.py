@@ -70,11 +70,13 @@ def _rows(M, K, N):
 
 
 # (8, 200, 192): K not a multiple of the 32-deep step, weight rows that
-# stream by cp.async; N 70 and 33: rows read a step ahead in registers
+# stream by cp.async; N 70 and 33: rows read a step ahead in registers;
+# K 5504: hymba-1.5b's down projection, the C = 6 basis
 @pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 1536, 576),
                                    (1, 576, 192), (13, 200, 70),
                                    (3, 64, 33), (512, 64, 192),
-                                   (8, 200, 192)] + TILE_MMA)
+                                   (8, 200, 192), (8, 5504, 1600),
+                                   (512, 5504, 1600)] + TILE_MMA)
 @pytest.mark.parametrize("encoded", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_matches_plain(dev, M, K, N, encoded, dtype):
@@ -103,7 +105,7 @@ def test_forward_matches_plain(dev):
     x8 = torch.arange(-128, 128, dtype=torch.int8, device=dev).repeat(999)
     x32 = torch.randint(-2**31, 2**31 - 1, (77777,), dtype=torch.int32,
                         device=dev)
-    for k in (64, 576):
+    for k in (64, 576, 5504):
         mods = basis_for_int8_matmul(k).moduli
         for x in (x8, x32):
             for dtype in (torch.int8, torch.int32):
@@ -1124,3 +1126,89 @@ def test_graph_kernel_nodes_equal_counted_step(dev, name):
     assert seen == counted[1]
     assert seen["rns_tile_kernel"] == 7 * cfg.num_layers - (
         2 * cfg.num_layers if cfg.linear_domain == "residue" else 0)
+
+
+FAMILIES = ["h2o-danube-1.8b", "gemma2-2b", "hymba-1.5b", "mamba2-1.3b",
+            "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+            "musicgen-large", "yi-34b"]
+
+
+@pytest.mark.parametrize("name", FAMILIES + ["hymba-fused"])
+def test_family_captured_step_equals_eager(dev, name):
+    """Each family's smoke decode step captured by the scan engine and
+    replayed: greedy tokens equal to the host loop's (rings wrap: 40 new
+    tokens past a window of 8), one capture and one replay a token; the
+    captured graph's port-kernel nodes equal one eager step's counted
+    launches (hymba on the fused RNS datapath launches the tile kernel,
+    the bf16 stacks none)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = get_smoke_config(name.replace("-fused", "-1.5b"))
+    if name == "hymba-fused":
+        cfg = dataclasses.replace(cfg, linear_backend="rns_int8:pallas_fused",
+                                  encode_weights=True)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    eng = E.Engine(cfg, params, smax=64, lanes=4, device=dev)
+    prompts = [[5, 6, 7], list(range(1, 12)), [9] * 14]
+    counted = []
+    step = eng._step
+
+    def counted_step(st):
+        before = rns_fused_matmul.launches
+        step(st)
+        counted.append(rns_fused_matmul.launches - before)
+
+    eng._step = counted_step
+    scan = eng.generate(prompts, 40, engine="scan")
+    del eng._step
+    assert scan == eng.generate(prompts, 40, engine="host")
+    assert (eng.scan_captures, eng.scan_replays) == (1, 39)
+    assert len(counted) == 2 and counted[0] == counted[1]
+    graph = next(iter(eng._scan.values())).graph
+    nodes = _build.graph_kernels(graph)
+    assert sum(c for n, c in nodes.items() if "rns_tile_kernel" in n) == \
+        counted[1]
+    if name == "hymba-fused":
+        assert counted[1] == 7 * cfg.num_layers
+    else:
+        assert counted[1] == 0
+
+
+def test_moe_combine_deterministic_across_replays(dev):
+    """The MoE block captured in a CUDA graph: two replays give the same
+    bits, equal to an eager call (the combine sums each token's picks in
+    order, no atomics; the dispatch writes one slot a kept pick)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config("moonshot-v1-16b-a3b")
+    params = M.make_moe_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    x = torch.randn((8, 64, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.bfloat16)
+    out = {}
+
+    def run():
+        out["y"], out["aux"] = M.moe_apply(params, x, cfg)
+
+    eager = M.moe_apply(params, x, cfg)[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    results = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        results.append(out["y"].clone())
+    assert torch.equal(results[0], results[1])
+    assert torch.equal(results[0], eager)

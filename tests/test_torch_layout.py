@@ -101,7 +101,17 @@ def test_scan_sees_the_port():
             "src/repro_torch/core/rns_linear.py",
             "src/repro_torch/serve/engine.py",
             "src/repro_torch/serve/paged_cache.py",
-            "src/repro_torch/serve/scheduler.py"} <= names
+            "src/repro_torch/serve/scheduler.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/configs/hymba_1_5b.py",
+            "src/repro_torch/configs/mamba2_1_3b.py",
+            "src/repro_torch/configs/gemma2_2b.py",
+            "src/repro_torch/configs/moonshot_v1_16b_a3b.py"} <= names
+    assert {"repro_torch.models.ssm", "repro_torch.models.moe",
+            "repro_torch.configs.llama4_maverick_400b_a17b",
+            "repro_torch.configs.phi_3_vision_4_2b"} <= set(PORT_MODULES)
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):

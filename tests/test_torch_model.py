@@ -71,7 +71,7 @@ def test_layer_ops_bit_equal(models):
     jcfg, jpe, tcfg, tpe = models
     jb, tb = _batch(jcfg)
     jh, jpos = JT._embed(jcfg, jpe, jb)
-    th, tpos = TT._embed(tpe, tb)
+    th, tpos = TT._embed(tcfg, tpe, tb)
     assert np.array_equal(_np(jh), th.float().numpy())
     jp0 = jax.tree.map(lambda a: a[0], jpe["blocks"])["sub0"]
     tp0 = TT._layer(tpe["blocks"]["sub0"], 0)
@@ -129,7 +129,7 @@ def test_hidden_states_within_tolerance(models):
     jcfg, jpe, tcfg, tpe = models
     jb, tb = _batch(jcfg)
     jh, jpos = JT._embed(jcfg, jpe, jb)
-    th, tpos = TT._embed(tpe, tb)
+    th, tpos = TT._embed(tcfg, tpe, tb)
 
     @jax.jit
     def jlayer(p, h, pos):
@@ -143,7 +143,7 @@ def test_hidden_states_within_tolerance(models):
         jh = jlayer(jax.tree.map(lambda a: a[b], jpe["blocks"])["sub0"],
                     jh, jpos)
         p = TT._layer(tpe["blocks"]["sub0"], b)
-        o, _ = TT._attn_full(p, th, tcfg, tpos)
+        o, _ = TT._attn_full(p, th, tcfg, TL.FULL_WINDOW, tpos)
         th = th + o
         th = th + TT._mlp(p, th, tcfg)
         ref, got = _np(jh)[valid], th.float().numpy()[valid]

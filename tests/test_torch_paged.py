@@ -103,10 +103,10 @@ def test_init_paged_cache_layout_and_bytes():
         assert tuple(got["sub0"][k].shape) == want["sub0"][k].shape
         assert not got["sub0"][k].any()
     assert TP.paged_cache_nbytes(got) == JP.paged_cache_nbytes(want)
-    with pytest.raises(ValueError, match="dense"):
-        TP.init_paged_cache(dataclasses.replace(get_smoke_config(name),
-                                                family="moe"), 5, 4,
-                            device="cpu")
+    ring = dataclasses.replace(get_smoke_config(name), attention="swa",
+                               window=8)
+    with pytest.raises(ValueError, match="sliding-window ring cache"):
+        TP.init_paged_cache(ring, 5, 4, device="cpu")
 
 
 def _bf16(rng, shape):

@@ -7,7 +7,7 @@ request's tokens equal the scheduler's own engine run alone
 staggered and reversed arrivals; prefix sharing changes no token, counts
 its hits and needs fewer blocks; a pool far below the static reservation
 defers admission and stays within ``n_blocks − 1``; EOS truncates where the
-solo engine does; `serve` is re-entrant; non-dense stacks, meshes and
+solo engine does; `serve` is re-entrant; ring-cache stacks, meshes and
 oversized requests are rejected.  Sampling: the first token equals the
 solo engine's, and so do the later ones (each slot's generator follows the
 solo engine's chain); outputs do not depend on arrival order.
@@ -157,9 +157,10 @@ def test_non_dense_and_multi_device_rejected_at_construction(arch):
     cfg = get_smoke_config(arch)
     kw = dict(slots=SLOTS, block_size=BLOCK, slot_tokens=SLOT_TOKENS,
               device="cpu")
-    with pytest.raises(ValueError, match="dense"):
-        SlotScheduler(dataclasses.replace(cfg, family="moe"), _params(arch),
-                      **kw)
+    # a sliding-window stack's ring positions are shared by the batch
+    with pytest.raises(ValueError, match="sliding-window ring cache"):
+        SlotScheduler(dataclasses.replace(cfg, attention="swa", window=8),
+                      _params(arch), **kw)
     for extra in ({"mesh": object()}, {"dist_layout": "channel"}):
         with pytest.raises(ValueError, match="multi-device"):
             SlotScheduler(cfg, _params(arch), **kw, **extra)
