@@ -102,7 +102,25 @@ Phases, each of which must pass:
      device memory; the fused run's `rns_fused_matmul` and `rns_forward`
      at its own shapes (C = 5 and 6, every M it launches, both tile
      heights) bit for bit against their plain versions; then the nine zoo
-     smoke twins on the card against the CPU.
+     smoke twins on the card against the CPU;
+  12. train  — the training path of `rns-smollm-135m-fused` at full width
+     (B 8 × S 256, so every linear is a live raw-int8 `rns_fused_matmul`
+     launch at M = 2048): those four launch shapes bit for bit against
+     the plain version, timed against their bound and bf16 `torch.matmul`;
+     30 AdamW steps (lr 1e-3, warmup 5, seed 0) through the CLI's
+     `TrainLoop` (`launch.train.build`), the mean loss of the last 5 steps
+     below the first 5's less 0.3; one step launches exactly 14 fused
+     kernels a layer under remat "full" and 7 under "none", and no other
+     port kernel; a step of the fused and of bf16 `smollm-135m` on the same
+     data timed in turns (ms, tokens/s, peak memory) and one traced fused
+     step (busy share, top kernels, the tile kernel's share); 2 steps, a
+     checkpoint, an auto-resumed `TrainLoop` and 2 steps bit-equal to the
+     run's first 4 steps (parameters and both AdamW moments); one smoke train
+     step of the fused, staged and bf16 twins on the card within the CPU
+     tests' bounds of the CPU's, fused == staged bit for bit; the encoded
+     weight's straight-through gx bit-equal to x @ ŵ; the trained weights
+     and the same weights restored from the run's checkpoint served by
+     `Engine` (scan, 8 greedy tokens) give the same tokens.
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
 the route each shape takes (`split`, `mma` or `fma`, named on its row;
@@ -114,7 +132,8 @@ kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
 `decode:` and `prefill:` sums, the `tune:` lines, a `verify:` line, one
 `serve:` line per model, one `sched:` line per scheduled model, a
 `chain:` line, an `entry:` line, the `twit:` lines, one `check:`
-line per smoke config, the `families:` lines, the nvidia-smi line, the kernels JSON line and,
+line per smoke config, the `families:` lines, the `train:` lines, the
+nvidia-smi line, the kernels JSON line and,
 last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
 Exits non-zero without a CUDA device or without the port's sources beside
@@ -2512,6 +2531,480 @@ def phase_chain(d, F, ms, dev):
     return res
 
 
+# ------------------------------------------------------------------ train --
+# The training path of rns-smollm-135m-fused at full width: the CLI's code
+# path (`launch.train.build`) through `TrainLoop`, AdamW, seed 0.
+TRAIN_ARGS = ["--arch", ARCH, "--steps", "30", "--batch", "8", "--seq",
+              "256", "--lr", "1e-3", "--warmup", "5", "--seed", "0",
+              "--ckpt-every", "30"]
+# The CPU tests' bounds of a train step's loss and gradients against the
+# reference (tests/test_torch_train.py), here card vs CPU.
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL = 3e-3, 0.05
+
+
+def _train_dir(name):
+    path = os.path.join(ROOT, "build", "chip_smoke", "train", name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def _tree_bytes(tree):
+    from repro_torch.train.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def phase_train_kernels(layer_shapes, M, dev, smi):
+    """`rns_fused_matmul` in its live raw-int8 form at the training shapes
+    (M = batch·seq rows, bf16 activations), bit for bit against the plain
+    version, timed over cold weight copies against its bound and one bf16
+    `torch.matmul` of the shape."""
+    import torch
+    from repro_torch.core.quant import quant_scale, quantize_int8
+    from repro_torch.core.rns import basis_for_int8_matmul
+    from repro_torch.kernels import ref, rns_fused_matmul
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for k, n in sorted({(k, n) for _, k, n, _ in layer_shapes}):
+        x = torch.randn(M, k, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
+        wq, sw = quantize_int8(w, dim=0)
+        sx = quant_scale(x)
+        basis = basis_for_int8_matmul(k)
+        C = len(basis.moduli)
+        got = rns_fused_matmul(x, wq, basis, scale_row=sx, scale_col=sw)
+        want = ref.rns_fused_matmul_ref(x, wq, basis, scale_row=sx,
+                                        scale_col=sw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = 0.0 if same else (got - want).abs().max().item()
+        pool = _copies(lambda: torch.randint(-127, 128, (k, n),
+                                             dtype=torch.int8, device=dev),
+                       k * n)
+
+        def launch(i):
+            rns_fused_matmul(x, pool[i], basis, scale_row=sx, scale_col=sw)
+
+        ms = device_ms(launch, len(pool))
+        plain = time_ms(lambda i: ref.rns_fused_matmul_ref(
+            x, wq, basis, scale_row=sx, scale_col=sw), reps=5, warmup=1)
+        lib = device_ms(*_bf16_matmul((M, k), k, n, g, dev))
+        nbytes = 2 * M * k + 4 * M + k * n + 4 * n + 4 * M * n
+        b, by = bound_ms(nbytes, 2 * C * M * k * n)
+        rows.append({"kernel": "rns_fused_matmul", "M": M, "K": k, "N": n,
+                     "weights": "live", "C": C, "equal": same,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b, "bound_by": by})
+        print(f"train: rns_fused_matmul live M={M} K={k} N={n} C={C} "
+              f"equal={same} {1e3 * ms:.1f} us, plain {plain:.3f} ms, bf16 "
+              f"torch.matmul {1e3 * lib:.1f} us, bound {1e3 * b:.2f} us "
+              f"({by}) | on {smi}")
+        del pool
+    by_shape = {(r["K"], r["N"]): r for r in rows}
+    layer = {key: sum(by_shape[(k, n)][key] for _, k, n, _ in layer_shapes)
+             for key in ("ms", "library_ms", "bound_ms")}
+    print(f"train: one layer's {len(layer_shapes)} tile launches at M={M}: "
+          f"{1e3 * layer['ms']:.1f} us, bf16 torch.matmul "
+          f"{1e3 * layer['library_ms']:.1f} us, bound "
+          f"{1e3 * layer['bound_ms']:.1f} us; a step under remat full "
+          f"launches each twice | on {smi}")
+    return rows
+
+
+def _traced_step(step, params, state, batch, n):
+    """One profiled train step: wall and device busy time, the longest
+    kernels and the tile kernel's share of busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = step(params, state, batch, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    del out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    top = sorted(((e.self_device_time_total, e.key, e.count)
+                  for e in kernels), reverse=True)[:8]
+    tile = sum(e.self_device_time_total for e in kernels
+               if "rns_tile_kernel" in e.key)
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (1e6 * wall),
+            "tile_share_of_busy": tile / busy if busy else 0.0,
+            "top_device": [{"us": u, "name": k[:80], "count": c}
+                           for u, k, c in top if u > 0]}
+
+
+def _grads_on(cfg, params, batch):
+    from repro_torch.train.trainstep import _value_and_grad
+    from repro_torch.train.tree import leaves
+
+    loss, _, grads = _value_and_grad(cfg, params, batch)
+    return loss, leaves(grads)
+
+
+def _layer_grads(cfg, params, batch):
+    """(loss, gradients) of one step, each stacked block leaf split into
+    its layers' slices."""
+    from repro_torch.train.trainstep import _value_and_grad
+    from repro_torch.train.tree import leaves
+
+    loss, _, grads = _value_and_grad(cfg, params, batch)
+    out = []
+    for k in sorted(grads):
+        for t in leaves({k: grads[k]}):
+            out.extend(t.unbind(0) if k == "blocks" else [t])
+    return loss, out
+
+
+def phase_train_grads(cfg, params, batch, smi):
+    """One full-width train step's loss and gradients through the kernel
+    (remat none): every layer's slice of every gradient leaf finite and
+    not all zero, and within the CPU tests' bounds of the same step with
+    each fused launch replaced by its plain version,
+    `ref.rns_fused_matmul_ref`, on the same card."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rns_fused as rf
+
+    cfg = dataclasses.replace(cfg, remat_policy="none")
+    reset_launches()
+    loss_k, g_k = _layer_grads(cfg, params, batch)
+    launched = read_launches()["rns_fused_matmul"]
+    kernel = rf.rns_fused_matmul
+
+    def plain(x, w, basis, *, scale_row, scale_col):
+        return ref.rns_fused_matmul_ref(x, w, basis, scale_row=scale_row,
+                                        scale_col=scale_col)
+
+    rf.rns_fused_matmul = plain
+    try:
+        reset_launches()
+        loss_p, g_p = _layer_grads(cfg, params, batch)
+        plain_launched = read_launches()["rns_fused_matmul"]
+    finally:
+        rf.rns_fused_matmul = kernel
+    torch.cuda.synchronize()
+    bad = [i for i, g in enumerate(g_k)
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    loss_err = abs(float(loss_k) - float(loss_p))
+    errs = [(a.float() - b.float()).abs().max().item()
+            / max(b.float().abs().max().item(), 1e-30)
+            for a, b in zip(g_k, g_p)]
+    equal = sum(torch.equal(a, b) for a, b in zip(g_k, g_p))
+    print(f"train: full-width step's gradients, kernel vs plain version: "
+          f"{len(g_k)} leaf slices (a layer each), {equal} bit-equal, max rel err "
+          f"{max(errs):.3g}, loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
+          f"(|err| {loss_err:.3g}); {launched} fused launches vs "
+          f"{plain_launched} | on {smi}")
+    if bad or launched != 7 * cfg.num_layers or plain_launched:
+        raise AssertionError(f"full-width gradients: slices {bad} not finite "
+                             f"or all zero; launches {launched} kernel, "
+                             f"{plain_launched} plain")
+    if not (loss_err <= TRAIN_LOSS_ATOL and max(errs) <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"full-width step kernel vs plain version: loss "
+                             f"{loss_err}, gradient {max(errs)}")
+    return {"leaves": len(g_k), "bit_equal_leaves": equal,
+            "grad_rel_err": max(errs), "loss_err": loss_err,
+            "loss": float(loss_k)}
+
+
+def phase_train_embed(dev, smi, cases=((2048, 2000), (32768, 20000))):
+    """The embedding lookup's deterministic backward (`layers.embed_rows`:
+    a one-hot float64 matmul a block of distinct ids, work of order
+    distinct ids × tokens × width) on the card at smollm-135m's table,
+    ``tokens`` ids of which ``distinct`` differ, against one `index_add_`
+    (atomics) of the same rows; equal within a bf16 rounding."""
+    import torch
+    from repro_torch.models.layers import embed_rows
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = (torch.randn(49152, 576, generator=g, device=dev) / 24).to(
+        torch.bfloat16).requires_grad_()
+    rows = []
+    for tokens, distinct in cases:
+        pick = torch.randperm(49152, generator=g, device=dev)[:distinct]
+        ids = torch.cat([pick, pick[torch.randint(
+            0, distinct, (tokens - distinct,), generator=g, device=dev)]])
+        ids = ids[torch.randperm(tokens, generator=g, device=dev)]
+        y = embed_rows(table, ids)
+        gy = torch.randn(y.shape, generator=g, device=dev).to(torch.bfloat16)
+
+        def backward(i):
+            return torch.autograd.grad(y, table, gy, retain_graph=True)[0]
+
+        def library(i):
+            return torch.zeros(table.shape, dtype=torch.float32,
+                               device=dev).index_add_(0, ids, gy.float())
+
+        ms = time_ms(backward, reps=5, warmup=1)
+        lib = time_ms(library, reps=5, warmup=1)
+        got, want = backward(0).float(), library(0)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= 2 ** -8 * scale:
+            raise AssertionError(f"embedding backward at {tokens} tokens: "
+                                 f"{err} off index_add_ ({scale})")
+        n = int(torch.unique(ids).numel())
+        rows.append({"tokens": tokens, "distinct": n, "ms": ms,
+                     "library_ms": lib, "max_abs_err": err})
+        print(f"train: embedding backward (one-hot float64) {tokens} tokens, "
+              f"{n} distinct ids, width 576: {ms:.3f} ms, index_add_ "
+              f"{lib:.3f} ms, |diff| {err:.3g} | on {smi}")
+        del y, gy
+    return rows
+
+
+def phase_train_smoke(dev):
+    """One train step's loss and gradients of three smoke twins on the card
+    and on the CPU (plain versions), within the CPU tests' bounds; fused
+    and staged bit-equal on the card."""
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train.tree import tree_map
+
+    out = {}
+    for arch in (ARCH, STAGED, "smollm-135m"):
+        cfg = get_smoke_config(arch)
+        cpu = T.make_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        b = batch_for_step(0, 0, 4, 64, cfg.vocab_size)
+        cb = {k: torch.from_numpy(v) for k, v in b.items()}
+        loss_c, g_c = _grads_on(cfg, cpu, cb)
+        loss_d, g_d = _grads_on(cfg, tree_map(lambda t: t.to(dev), cpu),
+                                {k: v.to(dev) for k, v in cb.items()})
+        loss_err = abs(float(loss_d) - float(loss_c))
+        grad_err = max((d.cpu().float() - c.float()).abs().max().item()
+                       / max(c.float().abs().max().item(), 1e-30)
+                       for d, c in zip(g_d, g_c))
+        if not (loss_err <= TRAIN_LOSS_ATOL and grad_err <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"{arch} smoke train step card vs CPU: loss "
+                                 f"{loss_err}, gradient {grad_err}")
+        out[arch] = {"loss_err": loss_err, "grad_rel_err": grad_err,
+                     "loss": loss_d, "grads": g_d}
+    fused, staged = out[ARCH], out[STAGED]
+    if not (torch.equal(fused["loss"], staged["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(fused["grads"],
+                                              staged["grads"]))):
+        raise AssertionError("smoke train step: fused and staged differ on "
+                             "the card")
+    return {a: {"loss_err": v["loss_err"], "grad_rel_err": v["grad_rel_err"]}
+            for a, v in out.items()}
+
+
+def phase_train_ste(dev):
+    """gx through an encoded weight on the card bit-equal to gx through
+    x @ ŵ, ŵ from the plain reverse; the output's node is the estimator's."""
+    import torch
+    from repro_torch.core.conversion_plan import ConversionPlan
+    from repro_torch.core.rns_linear import rns_dense
+    from repro_torch.core.rns_tensor import encode
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(2048, 576, generator=g, device=dev)
+    w = torch.randn(576, 1536, generator=g, device=dev) / 24
+    c = torch.randn(2048, 1536, generator=g, device=dev)
+    wt = encode(w)
+    xe = x.clone().requires_grad_()
+    y = rns_dense(xe, wt, "pallas_fused")
+    node = type(y.grad_fn).__name__
+    (y * c).sum().backward()
+    w_hat = ConversionPlan.for_basis(wt.basis).reverse_plain(wt.residues) \
+        * wt.scale
+    xr = x.clone().requires_grad_()
+    ((xr @ w_hat) * c).sum().backward()
+    torch.cuda.synchronize()
+    if node != "_EncodedSTEBackward" or not torch.equal(xe.grad, xr.grad):
+        raise AssertionError(f"encoded STE on the card: node {node}, gx "
+                             f"equal {torch.equal(xe.grad, xr.grad)}")
+    return {"node": node, "equal": True}
+
+
+def phase_train(layer_shapes, dev, smi, turns=3):
+    """The `train` phase (see the module docstring)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import tune
+    from repro_torch.launch import train as cli
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainstep import make_train_step
+    from repro_torch.train.tree import leaves
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = round(time.perf_counter() - t0 - sum(parts.values()), 1)
+
+    args = cli.parser().parse_args(TRAIN_ARGS + ["--workdir",
+                                                 _train_dir("fused")])
+    M = args.batch * args.seq
+    sweeps = tune.stats["sweeps"]
+    rows = phase_train_kernels(layer_shapes, M, dev, smi)
+    torch.cuda.empty_cache()
+    part("kernel rows")
+    cfg, loop = cli.build(args)
+    batch_fn = loop.batch_fn
+    opt = cli.make_optimizer(cfg, total_steps=args.steps, base_lr=args.lr,
+                             warmup=args.warmup)
+    # warm-up (untimed) and the launch gates: one step under each policy
+    per_step = {}
+    for pol in ("full", "none"):
+        s = make_train_step(dataclasses.replace(cfg, remat_policy=pol), opt)
+        reset_launches()
+        out = s(loop.params, loop.opt_state, batch_fn(0), 0)
+        torch.cuda.synchronize()
+        per_step[pol] = read_launches()
+        del out
+    want = {"full": 14 * cfg.num_layers, "none": 7 * cfg.num_layers}
+    for pol, got in per_step.items():
+        others = {k: v for k, v in got.items()
+                  if k != "rns_fused_matmul" and v}
+        if got["rns_fused_matmul"] != want[pol] or others:
+            raise AssertionError(f"train step under remat {pol}: launches "
+                                 f"{got}, want {want[pol]} fused and no "
+                                 "other port kernel")
+    swept = tune.stats["sweeps"] - sweeps
+    part("launch gates")
+    grads = phase_train_grads(cfg, loop.params, batch_fn(0), smi)
+    torch.cuda.empty_cache()
+    part("gradients")
+
+    # the 30-step run through the CLI's loop; the state after its first 4
+    # steps is kept for the resume gate
+    step, after4 = loop.train_step, {}
+
+    def kept(params, state, batch, n):
+        out = step(params, state, batch, n)
+        if n == 3:
+            after4["state"] = [t.clone() for t in leaves(out[:2])]
+        return out
+
+    loop.train_step = kept
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    res = loop.run(args.steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    run_peak = torch.cuda.max_memory_allocated() - base + _tree_bytes(
+        loop.params) + _tree_bytes(loop.opt_state)
+    losses = res["losses"]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    summary = cli.summary(cfg, args, res)
+    if len(losses) != args.steps or not last < first - 0.3:
+        raise AssertionError(f"training did not lower the loss by 0.3: "
+                             f"{first:.4f} -> {last:.4f} over {len(losses)} "
+                             "steps")
+    if launches["rns_fused_matmul"] != args.steps * want["full"]:
+        raise AssertionError(f"30-step run launches {launches}")
+    part("30 steps")
+
+    # bf16 smollm-135m on the same data, a step of each in turns; a step's
+    # peak memory is its transient peak over what was allocated before it
+    # plus its own parameters and optimizer state
+    bcfg = get_config("smollm-135m")
+    bparams = T.make_params(bcfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    bopt = cli.make_optimizer(bcfg, total_steps=args.steps, base_lr=args.lr,
+                              warmup=args.warmup)
+    runs = {"fused": (step, loop.params, loop.opt_state, batch_fn),
+            "bf16": (make_train_step(bcfg, bopt), bparams,
+                     bopt.init(bparams),
+                     cli.make_batch_fn(bcfg, args.seed, args.batch, args.seq,
+                                       dev))}
+    times = {k: [] for k in runs}
+    peaks = dict.fromkeys(runs, 0)
+    runs["bf16"][0](*runs["bf16"][1:3], runs["bf16"][3](0), 0)   # warm-up
+    for r in range(2 * turns):
+        for k in (("fused", "bf16") if r % 2 == 0 else ("bf16", "fused")):
+            s, p, st, b = runs[k]
+            batch = b(args.steps + r)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = s(p, st, batch, args.steps + r)
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t))
+            peaks[k] = max(peaks[k], torch.cuda.max_memory_allocated()
+                           - base + _tree_bytes((p, st)))
+            del out
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    trace = _traced_step(step, loop.params, loop.opt_state, batch_fn(1), 1)
+    del runs, bparams
+    torch.cuda.empty_cache()
+    part("turns + trace")
+
+    # resume at full width: 2 steps, a checkpoint, a new loop that resumes
+    # and 2 more steps == the run's first 4 steps (parameters and both
+    # moments bit for bit)
+    def fresh(every):
+        a = cli.parser().parse_args(TRAIN_ARGS + [
+            "--workdir", os.path.join(ROOT, "build", "chip_smoke", "train",
+                                      "resume"), "--ckpt-every", str(every)])
+        return cli.build(a)[1]
+
+    _train_dir("resume")
+    fresh(2).run(2)
+    resumed = fresh(2)
+    start = resumed.start_step
+    resumed.run(4)
+    same = start == 2 and all(
+        torch.equal(a, b) for a, b in zip(
+            leaves((resumed.params, resumed.opt_state)), after4["state"]))
+    if not same:
+        raise AssertionError(f"resumed run (from step {start}) differs from "
+                             "the straight run")
+    del resumed, after4["state"]
+    torch.cuda.empty_cache()
+    part("resume")
+
+    smoke = phase_train_smoke(dev)
+    ste = phase_train_ste(dev)
+    embed = phase_train_embed(dev, smi)
+    part("smoke + ste + embed")
+
+    # train -> serve: the trained weights and the same weights restored from
+    # the run's checkpoint give the same greedy tokens (scan engine)
+    last_ckpt = ckpt.latest_step(loop.ckpt_dir)
+    (restored, _), _ = ckpt.restore(loop.ckpt_dir, last_ckpt,
+                                    (loop.params, loop.opt_state))
+    prompts = [[int(t) for t in batch_fn(99)["tokens"][i, :n]]
+               for i, n in enumerate((5, 17, 38, 60))]
+    toks = []
+    for p in (loop.params, restored):
+        eng = Engine(cfg, p, smax=128, lanes=8, device=dev)
+        toks.append(eng.generate(prompts, max_new_tokens=8, engine="scan"))
+        del eng
+    if last_ckpt != args.steps - 1 or toks[0] != toks[1]:
+        raise AssertionError(f"served tokens of the trained and the restored "
+                             f"weights differ (checkpoint {last_ckpt})")
+    part("serve")
+    return {"rows": rows, "summary": summary, "losses": losses,
+            "first5": first, "last5": last, "launches": launches,
+            "per_step": per_step, "sweeps": swept, "wall_s": wall,
+            "ms_per_step": ms, "step_times_ms": times,
+            "tokens_per_s": {k: M / (v / 1e3) for k, v in ms.items()},
+            "peak_bytes": peaks, "run_peak_bytes": run_peak, "trace": trace,
+            "resume_equal": same, "grads": grads, "smoke": smoke,
+            "ste": ste, "embed_backward": embed,
+            "serve_tokens": toks[0], "checkpoint_step": last_ckpt,
+            "seconds": parts}
+
+
 def _to(node, dev):
     if isinstance(node, dict):
         return {k: _to(v, dev) for k, v in node.items()}
@@ -2848,6 +3341,44 @@ def main() -> int:
     print("families: smoke twins card vs CPU max |logit diff| (bound): "
           + ", ".join(f"{n} {e:.4f} ({b:.3f})" for n, (e, b) in zoo.items()))
     mark("families")
+    print("phase train:")
+    train = phase_train(layer_shapes, dev, smi)
+    tr, ms, pk = train["trace"], train["ms_per_step"], train["peak_bytes"]
+    print(f"train: {ARCH} {L} layers through the CLI's TrainLoop "
+          f"({' '.join(TRAIN_ARGS[2:])}): mean loss of the first 5 steps "
+          f"{train['first5']:.4f} -> last 5 {train['last5']:.4f} (drop > 0.3)"
+          f" | {json.dumps(train['summary'])} | launches a step: remat full "
+          f"{train['per_step']['full']['rns_fused_matmul']}, none "
+          f"{train['per_step']['none']['rns_fused_matmul']} "
+          f"rns_fused_matmul, no other port kernel; the run "
+          f"{train['launches']['rns_fused_matmul']} | tuner sweeps "
+          f"{train['sweeps']} (the kernel rows, before any timed step) | "
+          f"run {train['wall_s']:.1f} s, peak device memory "
+          f"{train['run_peak_bytes'] / 1e9:.2f} GB (with the copy of the "
+          f"4-step state the resume gate keeps) | on {smi}")
+    print(f"train: a step of the same data in turns: fused QAT "
+          f"{ms['fused']:.1f} ms, {train['tokens_per_s']['fused']:.0f} "
+          f"tokens/s, peak {pk['fused'] / 1e9:.2f} GB | bf16 smollm-135m "
+          f"{ms['bf16']:.1f} ms, {train['tokens_per_s']['bf16']:.0f} "
+          f"tokens/s, peak {pk['bf16'] / 1e9:.2f} GB | traced fused step "
+          f"{tr['wall_ms']:.1f} ms wall, device busy "
+          f"{tr['device_busy_ms']:.1f} ms "
+          f"({100 * tr['device_busy_share']:.1f}%), tile kernel "
+          f"{100 * tr['tile_share_of_busy']:.1f}% of busy; top: "
+          + "; ".join(f"{t['name']} {t['us']:.0f} us x{t['count']}"
+                      for t in tr["top_device"][:5]) + f" | on {smi}")
+    print(f"train: resume at full width (2 steps, checkpoint, a new "
+          f"TrainLoop, 2 steps) == the run's first 4 steps, params and both "
+          f"moments bit-equal | smoke train step card vs CPU (loss, largest "
+          f"gradient error / leaf max): " + ", ".join(
+              f"{a} {v['loss_err']:.2e} {v['grad_rel_err']:.2e}"
+              for a, v in train["smoke"].items())
+          + f" (<= {TRAIN_LOSS_ATOL}, {TRAIN_GRAD_RTOL}); fused == staged "
+          f"bit for bit on the card | encoded STE gx == x @ w_hat bit for "
+          f"bit | served 8 scan tokens: trained == restored from checkpoint "
+          f"step {train['checkpoint_step']} | seconds by part "
+          f"{train['seconds']} | on {smi}")
+    mark("train")
     print(f"time: seconds by phase {marks}, "
           f"{time.perf_counter() - t_start:.0f} s in all")
 
@@ -2860,10 +3391,13 @@ def main() -> int:
             out["rns_chain_linear:pallas"] = chain["launches"][key]
         out.update({f"families:{r['label']}": r["launches"][key]
                     for r in families if r["launches"][key]})
+        if train["launches"][key]:
+            out[f"train:{ARCH}"] = train["launches"][key]
         return out
 
     runs = {**serves, **{f"sched:{a}": sc for a, sc in scheds.items()},
-            **{f"families:{r['label']}": r for r in families}}
+            **{f"families:{r['label']}": r for r in families},
+            f"train:{ARCH}": train}
     quantize = {a: n - runs[a]["launches"]["residue_in"]
                 for a, n in by_path("rns_fused_matmul").items()}
     src = "src/repro_torch/csrc/"
@@ -2884,7 +3418,8 @@ def main() -> int:
         entry("rns_fused_matmul", src + "rns_common.cuh",
               "src/repro/kernels/rns_fused.py:352", quantize, fused,
               [{"max_abs_err": max_err}]
-              + rows_of("rns_fused_matmul", fam_rows)),
+              + rows_of("rns_fused_matmul", fam_rows)
+              + rows_of("rns_fused_matmul", train["rows"])),
         entry("rns_forward", src + "rns_kernels.cu",
               "src/repro/kernels/rns_convert.py:54", by_path("rns_forward"),
               fwd, rows_of("rns_forward", rows) + rows_of("rns_forward",
@@ -2937,7 +3472,7 @@ def main() -> int:
                        "tune": tuned, "verify": verify, "twit": twit,
                        "tune_stats": dict(tune.stats),
                        "families": families, "zoo_check": zoo,
-                       "family_kernels": fam_rows,
+                       "family_kernels": fam_rows, "train": train,
                        "phase_seconds": marks},
                       fh, indent=1)
     print(smi)

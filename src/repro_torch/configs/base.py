@@ -1,8 +1,9 @@
 """Model configuration and registry, port of `repro/configs/base.py`:
 every architecture registers its published configuration and a smoke twin
-of the same family.  The reference's training, sharding and cost-model
-fields (remat, optimizer, dist_layout, attn_impl, skip_shapes) have no
-counterpart here."""
+of the same family, with the reference's training fields (remat, its
+policy and the optimizer).  Its sharding and cost-model fields
+(dist_layout, grad_compression, scan_layers, attn_impl, skip_shapes) have
+no counterpart here."""
 from __future__ import annotations
 
 import dataclasses
@@ -73,6 +74,12 @@ class ModelConfig:
     # domain between launches (needs encode_weights).
     linear_domain: str = "float"
     param_dtype: str = "bfloat16"
+    # training: remat one layer at a time, recomputing the whole layer
+    # ("full"), all but the mixer's and the MLP's outputs ("save_ar") or
+    # nothing ("none"); the optimizer (`train/optimizer.make_optimizer`)
+    remat: bool = True
+    remat_policy: str = "full"            # full | save_ar | none
+    optimizer: str = "adamw"              # adamw | adafactor
     attn_block_kv: int = 1024         # key block of the online softmax
 
     @functools.cached_property

@@ -19,6 +19,7 @@ def full() -> ModelConfig:
         head_dim=128, d_ff=8192, vocab_size=202048,
         moe=True, num_experts=128, top_k=1, moe_every=2, shared_expert=True,
         moe_d_ff=8192, attention="full",
+        optimizer="adafactor",            # AdamW state for 400B won't fit
     )
 
 
@@ -28,7 +29,7 @@ def smoke() -> ModelConfig:
         num_layers=4, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=128,
         moe=True, capacity_factor=8.0, num_experts=4, top_k=1, moe_every=2, shared_expert=True,
-        moe_d_ff=128,
+        moe_d_ff=128, optimizer="adafactor",
     )
 
 

@@ -1,4 +1,4 @@
-"""The RNS linear layer, port of `repro/core/rns_linear.py` (forward only).
+"""The RNS linear layer, port of `repro/core/rns_linear.py`.
 
 ``rns_dense(x, w)`` computes ``x @ w`` with the integer core in the paper's
 residue channels: per-row activation quantization, the exact int8 product
@@ -17,7 +17,16 @@ it (``emit="residues"``), with an optional fused modular gate — fused on
 "pallas_fused", as the staged twin (forward, modmul, canonical matmul,
 reverse) on "pallas"; the two are bit-identical.
 
-The straight-through backward of the reference is not ported yet.
+``rns_dense`` is differentiable with the reference's straight-through
+estimator (two `torch.autograd.Function`s, one a weight form): gradients
+flow as if the layer were a dense float32 matmul, ``gx = gy @ w.T`` and
+``gw = x.T @ gy``, cast back to the operands' dtypes.  For an encoded
+weight the estimator's weight is the dequantized ŵ = reverse(residues)·s
+(the `rns_reverse` kernel on a CUDA tensor), and neither the residues nor
+the scale receive a gradient.  Each Function's forward is the forward
+above, unchanged, so served outputs do not change; the kernel's output is
+only ever made inside it.  ``rns_chain_linear`` is forward-only, as in the
+reference: training runs residue-domain configs per linear.
 """
 from __future__ import annotations
 
@@ -63,14 +72,10 @@ def rns_int_matmul(xq: torch.Tensor, wq) -> torch.Tensor:
     return ConversionPlan.for_basis(basis).reverse(res)
 
 
-def rns_dense(x: torch.Tensor, w, backend: str = "auto", *,
-              broadcast: bool = True) -> torch.Tensor:
-    """(M, K) float activations × weight → (M, N) in x's dtype."""
+def _dense_forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
+    """The forward of `rns_dense` (no autograd)."""
     # deferred: the kernel modules import the core package
     from repro_torch.kernels.rns_fused import rns_fused_matmul
-    if not broadcast:
-        raise NotImplementedError("the per-channel (broadcast=False) "
-                                  "datapath is not ported")
     if not _fused(backend):
         xq, sx = quantize_int8(x, dim=-1)                 # per row
         if isinstance(w, RNSTensor):
@@ -87,6 +92,57 @@ def rns_dense(x: torch.Tensor, w, backend: str = "auto", *,
         y = rns_fused_matmul(x, wq, basis_for_int8_matmul(x.shape[-1]),
                              scale_row=sx, scale_col=sw)
     return y.to(x.dtype)
+
+
+class _DenseSTE(torch.autograd.Function):
+    """Live float weight: the reference's `_rns_dense` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w, backend):
+        ctx.save_for_backward(x, w)
+        return _dense_forward(x, w, backend)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gy32 = gy.to(torch.float32)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (gy32 @ w.to(torch.float32).T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x.to(torch.float32).T @ gy32).to(w.dtype)
+        return gx, gw, None
+
+
+class _EncodedSTE(torch.autograd.Function):
+    """Encoded weight: the reference's `_rns_dense_enc` custom_vjp, the
+    estimator's weight the dequantized ŵ; the residues and the scale get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, residues, scale, basis, backend):
+        ctx.basis, ctx.x_dtype = basis, x.dtype
+        ctx.save_for_backward(residues, scale)
+        return _dense_forward(x, RNSTensor(residues, scale, basis), backend)
+
+    @staticmethod
+    def backward(ctx, gy):
+        residues, scale = ctx.saved_tensors
+        w_hat = ConversionPlan.for_basis(ctx.basis).reverse(residues) * scale
+        gx = (gy.to(torch.float32) @ w_hat.T).to(ctx.x_dtype)
+        return gx, None, None, None, None
+
+
+def rns_dense(x: torch.Tensor, w, backend: str = "auto", *,
+              broadcast: bool = True) -> torch.Tensor:
+    """(M, K) float activations × weight → (M, N) in x's dtype, with the
+    straight-through backward."""
+    if not broadcast:
+        raise NotImplementedError("the per-channel (broadcast=False) "
+                                  "datapath is not ported")
+    if isinstance(w, RNSTensor):
+        return _EncodedSTE.apply(x, w.residues, w.scale, w.basis, backend)
+    return _DenseSTE.apply(x, w, backend)
 
 
 def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = None,

@@ -37,7 +37,7 @@ __all__ = ["linear", "linear_qkv", "mlp_chain", "rms_norm", "rope",
            "apply_rope", "sinusoidal", "attention", "update_cache_full",
            "update_cache_ring", "silu", "gelu", "act_fn", "paged_write",
            "paged_gather", "paged_kpos", "Leaf", "dense_leaf",
-           "materialize", "matmul", "matmul_exact"]
+           "materialize", "matmul", "matmul_exact", "embed_rows"]
 
 NEG_INF = -1e30
 FULL_WINDOW = 1 << 30       # the window of a full causal layer
@@ -85,6 +85,41 @@ def materialize(tree: Dict[str, Any], generator: torch.Generator, device,
                 shape, dtype=dt, device=device)
         out[k] = t
     return out
+
+
+class _EmbedRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each id's rows deterministically.
+    Indexing's own backward accumulates with atomics on CUDA, in an order
+    that changes between runs; here the rows of each distinct id are summed
+    by a one-hot float64 matmul, one block of ids at a time, and rounded
+    once to the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        g64 = g.reshape(flat.numel(), -1).to(torch.float64)
+        uniq, inv = torch.unique(flat, return_inverse=True)
+        out = torch.zeros((ctx.rows, g64.shape[1]), dtype=ctx.dtype,
+                          device=g.device)
+        step = max(1, (1 << 24) // max(1, flat.numel()))
+        for s in range(0, uniq.numel(), step):
+            cols = torch.arange(s, min(s + step, uniq.numel()),
+                                device=g.device)
+            onehot = (inv[None, :] == cols[:, None]).to(torch.float64)
+            out[uniq[s:s + step]] = (onehot @ g64).to(ctx.dtype)
+        return out, None
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (an embedding lookup) with a deterministic backward."""
+    return _EmbedRows.apply(table, ids)
 
 
 def linear(x: torch.Tensor, w, spec="bf16", exact: bool = False

@@ -36,15 +36,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from .layers import (FULL_WINDOW, Leaf, act_fn, apply_rope, attention,
-                     dense_leaf, linear, linear_qkv, materialize, mlp_chain,
-                     paged_gather, paged_kpos, paged_write, rms_norm, rope,
-                     sinusoidal, update_cache_full, update_cache_ring)
+                     dense_leaf, embed_rows, linear, linear_qkv, materialize,
+                     mlp_chain, paged_gather, paged_kpos, paged_write,
+                     rms_norm, rope, sinusoidal, update_cache_full,
+                     update_cache_ring)
 from .moe import moe_apply, moe_param_spec
-from .ssm import _ssd, init_ssm_cache, ssm_decode_step, ssm_param_spec
+from .ssm import (_ssd, init_ssm_cache, ssm_apply, ssm_decode_step,
+                  ssm_param_spec)
 
 __all__ = ["make_params", "param_spec", "init_cache", "reset_cache",
-           "cache_leaves", "prefill", "decode_step", "window_array",
-           "count_params", "active_params"]
+           "cache_leaves", "forward", "prefill", "decode_step",
+           "window_array", "count_params", "active_params"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -275,16 +277,31 @@ def _attn_decode(p, h, cfg: ModelConfig, window: int, pos, cache,
     return _attn_out(p, o, cfg)
 
 
-def _mlp(p, h, cfg: ModelConfig, exact=False):
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _mlp_hidden(p, h, cfg: ModelConfig, exact=False):
+    """The GLU (or plain) MLP up to the down projection's input."""
     x = rms_norm(h, p["norm_mlp"], cfg.norm_eps)
     spec, act, w = cfg.linear_spec, act_fn(cfg.act), p["mlp"]
+    g = act(linear(x, w["w_gate"], spec, exact))
+    if cfg.glu:
+        g = g * linear(x, w["w_up"], spec, exact)
+    return g
+
+
+def _mlp(p, h, cfg: ModelConfig, exact=False, ck=_call):
+    """The MLP sublayer (its branch, no residual); ``ck`` runs the part
+    before the down projection (`_layer_remat`'s checkpoint)."""
+    spec, w = cfg.linear_spec, p["mlp"]
     if spec.is_rns and spec.domain == "residue" and cfg.glu:
-        o = mlp_chain(x, w["w_gate"], w["w_up"], w["w_down"], spec, act)
+        x = rms_norm(h, p["norm_mlp"], cfg.norm_eps)
+        o = mlp_chain(x, w["w_gate"], w["w_up"], w["w_down"], spec,
+                      act_fn(cfg.act))
     else:
-        g = act(linear(x, w["w_gate"], spec, exact))
-        if cfg.glu:
-            g = g * linear(x, w["w_up"], spec, exact)
-        o = linear(g, w["w_down"], spec, exact)
+        o = linear(ck(_mlp_hidden, p, h, cfg, exact), w["w_down"], spec,
+                   exact)
     if cfg.post_norm:
         o = rms_norm(o, p["norm_mlp_post"], cfg.norm_eps)
     return o
@@ -298,13 +315,22 @@ def _moe(p, h, cfg: ModelConfig, exact=False):
     return o, aux
 
 
+def _ffn_branch(p, h, cfg: ModelConfig, layer_in_block: int, exact=False,
+                ck=_call):
+    """The layer's MLP or MoE branch without its residual: (out, MoE
+    load-balance aux), or (None, None) for a mixer-only layer.  ``ck`` runs
+    the MoE block, or the MLP up to its down projection."""
+    if cfg.mlp_kind(layer_in_block) == "moe":
+        return ck(_moe, p, h, cfg, exact)
+    if cfg.d_ff > 0:
+        return _mlp(p, h, cfg, exact, ck), None
+    return None, None
+
+
 def _ffn(p, h, cfg: ModelConfig, layer_in_block: int, exact=False):
     """The layer's MLP or MoE sublayer, residual added."""
-    if cfg.mlp_kind(layer_in_block) == "moe":
-        return h + _moe(p, h, cfg, exact)[0]
-    if cfg.d_ff > 0:
-        return h + _mlp(p, h, cfg, exact)
-    return h
+    o, _ = _ffn_branch(p, h, cfg, layer_in_block, exact)
+    return h if o is None else h + o
 
 
 def _fuse(p, h, oa, os_, cfg: ModelConfig):
@@ -343,7 +369,7 @@ def _embed(cfg: ModelConfig, params, batch):
     if cfg.frontend == "embeddings":
         h = batch["embeds"].to(_dtype(cfg))
     else:
-        h = params["embed"][batch["tokens"]]
+        h = embed_rows(params["embed"], batch["tokens"])
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     pad = batch.get("pad")
@@ -362,6 +388,94 @@ def _lm_head(cfg: ModelConfig, params, h):
     if cfg.softcap_final is not None:
         logits = torch.tanh(logits / cfg.softcap_final) * cfg.softcap_final
     return logits
+
+
+# ------------------------------------------------------------------ forward -
+def _attn_core(p, h, cfg: ModelConfig, window: int, positions):
+    """Attention over the whole sequence up to the output projection's
+    input (B, S, H·dh)."""
+    q, k, v = _project(p, h, cfg, positions)
+    o = attention(q, k, v, positions, positions, window=window,
+                  softcap=cfg.softcap_attn, block_kv=cfg.attn_block_kv)
+    return o.reshape(*o.shape[:2], -1)
+
+
+def _ssm_branch(p, h, cfg: ModelConfig, valid):
+    o = ssm_apply(p["ssm"], rms_norm(h, p["norm_mix"], cfg.norm_eps), cfg,
+                  valid)
+    if cfg.post_norm:
+        o = rms_norm(o, p["norm_mix_post"], cfg.norm_eps)
+    return o
+
+
+def _mix(p, h, cfg: ModelConfig, window: int, positions, valid, ck=_call):
+    """``h`` plus the mixer's branch over the whole sequence: attention, the
+    SSM, or hymba's fusion (`_fuse`).  ``ck`` runs the attention up to its
+    output projection, and the SSM branch."""
+    kind = _mixer_kind(cfg)
+    if kind in ("attn", "hybrid"):
+        oa = _attn_out(p, ck(_attn_core, p, h, cfg, window, positions), cfg)
+        if kind == "attn":
+            return h + oa
+    os_ = ck(_ssm_branch, p, h, cfg, valid)
+    return h + os_ if kind == "ssm" else _fuse(p, h, oa, os_, cfg)
+
+
+def _layer_full(p, h, cfg: ModelConfig, i: int, window: int, positions,
+                valid, ck=_call):
+    """One layer over the whole sequence: (h out, MoE aux or None)."""
+    h = _mix(p, h, cfg, window, positions, valid, ck)
+    o, aux = _ffn_branch(p, h, cfg, i, ck=ck)
+    return (h if o is None else h + o), aux
+
+
+def _checkpoint(fn, *args):
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _layer_remat(p, h, cfg: ModelConfig, i: int, window: int, positions,
+                 valid):
+    """`_layer_full` under the config's remat policy.  "full" keeps the
+    layer's input and recomputes the whole layer in the backward; "save_ar"
+    recomputes each branch but its row-parallel output projections (`wo`,
+    `w_down`), which run outside the recompute, so their results are never
+    recomputed (the reference keeps them by name, ``mixer_out`` and
+    ``mlp_out``, for the same end); an SSM branch and a MoE block are
+    recomputed whole; "none" (or ``remat=False``) keeps every
+    activation."""
+    policy = cfg.remat_policy if cfg.remat else "none"
+    if policy not in ("full", "save_ar", "none"):
+        raise ValueError(f"remat_policy must be full, save_ar or none, got "
+                         f"{cfg.remat_policy!r}")
+    args = (p, h, cfg, i, window, positions, valid)
+    if policy == "full":
+        return _checkpoint(_layer_full, *args)
+    return _layer_full(*args, ck=_checkpoint if policy == "save_ar"
+                       else _call)
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Full-sequence logits (B, S, vocab) float32 and the MoE load-balance
+    aux: the mean over blocks of each block's summed layer auxes (0 without
+    MoE).  ``batch`` as `prefill` takes it.  Every layer runs under the
+    config's remat policy (`_layer_remat`); the plain (bf16) linears take
+    the library GEMM."""
+    h, positions = _embed(cfg, params, batch)
+    valid = positions >= 0 if positions.ndim == 2 else None
+    auxes = []
+    for b in range(cfg.n_blocks):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(cfg.layers_per_block):
+            layer = b * cfg.layers_per_block + i
+            h, a = _layer_remat(_layer(params["blocks"][f"sub{i}"], b), h,
+                                cfg, i, _window(cfg, layer), positions, valid)
+            if a is not None:
+                aux = aux + a
+        auxes.append(aux)
+    return _lm_head(cfg, params, h), torch.stack(auxes).mean()
 
 
 # ------------------------------------------------------------------ caches --

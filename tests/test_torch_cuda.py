@@ -1212,3 +1212,115 @@ def test_moe_combine_deterministic_across_replays(dev):
         results.append(out["y"].clone())
     assert torch.equal(results[0], results[1])
     assert torch.equal(results[0], eager)
+
+
+# the training path of rns-smollm-135m-fused (B 8 × S 256 = 2048 rows): the
+# live raw-int8 form of the fused launch at each linear's (K, N)
+TRAIN_SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+
+
+@pytest.mark.parametrize("K,N", TRAIN_SHAPES)
+def test_training_shapes_match_plain(dev, K, N):
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    x = torch.randn(2048, K, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
+    wq, sw = quantize_int8(w, dim=0)
+    sx = quant_scale(x)
+    basis = basis_for_int8_matmul(K)
+    before = rns_fused_matmul.launches
+    got = rns_fused_matmul(x, wq, basis, scale_row=sx, scale_col=sw)
+    again = rns_fused_matmul(x, wq, basis, scale_row=sx, scale_col=sw)
+    want = ref.rns_fused_matmul_ref(x, wq, basis, scale_row=sx,
+                                    scale_col=sw)
+    torch.cuda.synchronize()
+    assert rns_fused_matmul.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_ste_on_the_card(dev):
+    """`rns_dense`'s output on the card comes from the Function (its node
+    is the estimator's), one launch; the live gradients are the dense
+    float32 matmul's; the encoded gx is bit-equal to the gradient through
+    x @ ŵ, ŵ from the plain reverse."""
+    from repro_torch.core.rns_linear import rns_dense
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(256, 576, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(576, 192, generator=g, device=dev) / 24).to(
+        torch.bfloat16)
+    c = torch.randn(256, 192, generator=g, device=dev).to(torch.bfloat16)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = rns_fused_matmul.launches
+    y = rns_dense(xg, wg, "pallas_fused")
+    assert rns_fused_matmul.launches == before + 1
+    assert type(y.grad_fn).__name__ == "_DenseSTEBackward"
+    (y * c).float().sum().backward()
+    c32 = c.float()
+    assert torch.equal(xg.grad, (c32 @ w.float().T).to(torch.bfloat16))
+    assert torch.equal(wg.grad, (x.float().T @ c32).to(torch.bfloat16))
+    wt = trt.encode(w.float())
+    xe = x.float().requires_grad_()
+    ce = c.float()
+    y = rns_dense(xe, wt, "pallas_fused")
+    assert type(y.grad_fn).__name__ == "_EncodedSTEBackward"
+    (y * ce).sum().backward()
+    w_hat = ConversionPlan.for_basis(wt.basis).reverse_plain(wt.residues) \
+        * wt.scale
+    xr = x.float().requires_grad_()
+    ((xr @ w_hat) * ce).sum().backward()
+    assert torch.equal(xe.grad, xr.grad)
+
+
+def test_embed_rows_backward_deterministic(dev):
+    """The embedding lookup's backward sums each id's rows with no atomics:
+    two backward passes give the same bits, within float64 rounding of
+    the exact sums (ids with many repeats, bf16 table)."""
+    from repro_torch.models.layers import embed_rows
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = torch.randn(49152, 576, generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    ids = torch.randint(0, 256, (8, 256), generator=g, device=dev)
+    gy = torch.randn(8, 256, 576, generator=g, device=dev).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        table.grad = None
+        (embed_rows(table, ids).float() * gy.float()).sum().backward()
+        grads.append(table.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    want = torch.zeros(49152, 576, dtype=torch.float64, device=dev)
+    want.index_add_(0, ids.reshape(-1), gy.reshape(-1, 576).double())
+    assert torch.equal(grads[0], want.to(torch.bfloat16))
+
+
+def _smoke_grads(name, dev, pol="full"):
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train import trainstep as TS
+    from repro_torch.train.tree import leaves
+
+    cfg = dataclasses.replace(get_smoke_config(name), remat_policy=pol)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    b = batch_for_step(0, 0, 4, 64, cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    loss, _, grads = TS._value_and_grad(cfg, params, batch)
+    return loss, leaves(grads)
+
+
+def test_train_step_fused_equals_staged_and_repeats(dev):
+    """One smoke train step on the card: the fused and the staged datapath
+    give the same loss and gradients bit for bit (both forwards obey the
+    parity contract, the backward is the same), a second run the same
+    bits, and each remat policy the same bits."""
+    loss, grads = _smoke_grads("rns-smollm-135m-fused", dev)
+    for name, pol in (("rns-smollm-135m-pallas", "full"),
+                      ("rns-smollm-135m-fused", "full"),
+                      ("rns-smollm-135m-fused", "save_ar"),
+                      ("rns-smollm-135m-fused", "none")):
+        l2, g2 = _smoke_grads(name, dev, pol)
+        assert torch.equal(loss, l2), (name, pol)
+        assert all(torch.equal(a, b) for a, b in zip(grads, g2)), (name, pol)

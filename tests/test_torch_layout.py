@@ -108,10 +108,18 @@ def test_scan_sees_the_port():
             "src/repro_torch/configs/hymba_1_5b.py",
             "src/repro_torch/configs/mamba2_1_3b.py",
             "src/repro_torch/configs/gemma2_2b.py",
-            "src/repro_torch/configs/moonshot_v1_16b_a3b.py"} <= names
+            "src/repro_torch/configs/moonshot_v1_16b_a3b.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/trainstep.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/train/runtime.py",
+            "src/repro_torch/launch/train.py"} <= names
     assert {"repro_torch.models.ssm", "repro_torch.models.moe",
             "repro_torch.configs.llama4_maverick_400b_a17b",
-            "repro_torch.configs.phi_3_vision_4_2b"} <= set(PORT_MODULES)
+            "repro_torch.configs.phi_3_vision_4_2b",
+            "repro_torch.train", "repro_torch.train.tree",
+            "repro_torch.launch.train"} <= set(PORT_MODULES)
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):
@@ -135,3 +143,40 @@ def test_scheduler_without_device_needs_cuda(monkeypatch):
                           device="cpu")
     assert sched.device.type == "cpu"
     assert sched._cache["sub0"]["k"].device.type == "cpu"
+
+
+def test_trainer_without_device_needs_cuda(monkeypatch, tmp_path, capsys):
+    from repro_torch.launch import train
+    argv = ["--arch", "rns-smollm-135m-fused", "--smoke", "--steps", "1",
+            "--batch", "2", "--seq", "8", "--workdir", str(tmp_path)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(argv)
+    assert not (tmp_path / "ckpt").exists()
+    res = train.main(argv + ["--device", "cpu"])
+    assert len(res["losses"]) == 1
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == "rns-smollm-smoke-fused" and out["steps_run"] == 1
+    assert out["tokens_per_step"] == 16
+
+
+def test_trainer_default_workdir_is_fresh_each_run(monkeypatch, tmp_path,
+                                                   capsys):
+    """Without --workdir each run trains in a new directory under TMPDIR,
+    so a second run of the same command resumes nothing and trains its
+    steps again."""
+    import tempfile
+    from repro_torch.launch import train
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    argv = ["--arch", "rns-smollm-135m-fused", "--smoke", "--steps", "1",
+            "--batch", "2", "--seq", "8", "--device", "cpu"]
+    dirs = []
+    for _ in range(2):
+        assert len(train.main(argv)["losses"]) == 1
+        captured = capsys.readouterr()
+        assert json.loads(captured.out)["steps_run"] == 1
+        dirs.append(captured.err.split("workdir: ")[1].split()[0])
+    assert dirs[0] != dirs[1]
+    for d in dirs:
+        assert os.path.dirname(d) == str(tmp_path)
+        assert os.path.isfile(os.path.join(d, "metrics.jsonl"))
