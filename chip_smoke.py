@@ -121,6 +121,22 @@ Phases, each of which must pass:
      weight's straight-through gx bit-equal to x @ ŵ; the trained weights
      and the same weights restored from the run's checkpoint served by
      `Engine` (scan, 8 greedy tokens) give the same tokens.
+  13. analysis — the trace passes and the cost layer: one eager prefill
+     and decode step of each served 30-layer path and one train step of
+     `rns-smollm-135m-fused` (B 8 × S 256, remat full) under the
+     residency pass (`repro_torch.analysis.residency`, a dispatch trace
+     whose kernel regions are the wrappers): kernel calls by wrapper equal
+     `residency.expected_*` (210 fused; 150 fused + 60 `rns_forward`;
+     3 × 210 staged; 420 fused a train step), no host sync in a decode
+     step, no remainder outside a kernel on the resident path; the
+     counted flops and int8 ops beside `launch.costs.analytic_cost`'s; a
+     `roofline:` line for each path's prefill and scan decode step and the
+     train step (analytic bound on the H100 constants of
+     `launch.roofline` against the serve and train phases' times); the dry
+     run (`launch.dryrun --all`, meta tensors, worker processes, run
+     beside the phase's card work) over every registered config ×
+     `SHAPES` (a `dryrun:` count line), and the train step's meta memory
+     estimate within 25% of its `max_memory_allocated` plus arguments.
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
 the route each shape takes (`split`, `mma` or `fma`, named on its row;
@@ -133,8 +149,8 @@ kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
 `serve:` line per model, one `sched:` line per scheduled model, a
 `chain:` line, an `entry:` line, the `twit:` lines, one `check:`
 line per smoke config, the `families:` lines, the `train:` lines, the
-nvidia-smi line, the kernels JSON line and,
-last, the device JSON line.  ``--record
+`residency:`, `costs:`, `roofline:` and `dryrun:` lines, the nvidia-smi
+line, the kernels JSON line and, last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
 Exits non-zero without a CUDA device or without the port's sources beside
 it.
@@ -151,12 +167,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 1,979 TOP/s dense int8,
-# 989 TFLOP/s dense bf16, 67 TFLOP/s float32 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
 # flash_attention against its plain version, which also computes in
 # float32: |got - want| <= rtol*|want| + atol elementwise, one bf16 ulp of
 # the output for bf16; fully masked rows must be exactly 0.
@@ -171,8 +181,19 @@ STAGED = "rns-smollm-135m-pallas"
 LOGIT_ATOL = {ARCH: 0.03, STAGED: 0.03, RESIDENT: 0.15}
 
 
-def bound_ms(nbytes, ops, rate=INT8_OPS_PER_S):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+def peaks():
+    """The H100 data sheet's rates (`repro_torch.launch.roofline`): HBM_BW,
+    PEAK_INT8_OPS, PEAK_FLOPS (bf16), F32_FLOPS."""
+    from repro_torch.launch import roofline
+
+    return roofline
+
+
+def bound_ms(nbytes, ops, rate=None):
+    """The least time in ms for ``nbytes`` at the HBM rate or ``ops`` at
+    ``rate`` (default the int8 peak), the larger, and which bounds it."""
+    rate = peaks().PEAK_INT8_OPS if rate is None else rate
+    t_bytes, t_ops = nbytes / peaks().HBM_BW, ops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -538,7 +559,7 @@ def _sum(rows):
 
 
 def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
-             nbytes, ops, rate=INT8_OPS_PER_S, tol=None, again=None,
+             nbytes, ops, rate=None, tol=None, again=None,
              **info):
     """Compare one launch with its plain version (bit for bit, or within
     ``tol`` = (rtol, atol), see `_within`) and time kernel, plain version
@@ -1077,7 +1098,8 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
                 got, want, launch,
                 lambda q=q, k=k, v=v, kw=kw: ref.attention_ref(q, k, v, **kw),
                 lib, len(pool), nbytes, 4 * D * H * int(mask.sum()),
-                rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+                rate=(peaks().PEAK_FLOPS if dtype == torch.bfloat16
+                      else peaks().F32_FLOPS),
                 tol=FLASH_TOL[tname], leaf=label, dtype=tname, route=route,
                 B=B, H=H, Sq=Sq, Sk=Sk, D=D, dead_rows_zero=zeros)
             if route == "mma":
@@ -1276,21 +1298,11 @@ def read_launches():
 
 def expected_launches(cfg, steps):
     """Launches of a ``steps``-step generate (prefill + steps−1 decode
-    steps) including the weight encodes at Engine init."""
-    spec, L = cfg.linear_spec, cfg.num_layers
-    want = dict.fromkeys(COUNTED, 0)
-    if not spec.is_rns:                       # plain bf16 matmuls
-        return want
-    if not spec.encode_weights:               # staged, live weights
-        for k in ("rns_forward", "rns_matmul", "rns_reverse"):
-            want[k] = 7 * L * steps
-    elif spec.domain == "residue":            # QKV + wo + gate/up/down
-        want.update(rns_fused_matmul=5 * L * steps,
-                    residue_in=4 * L * steps,
-                    rns_forward=7 + 2 * L * steps)
-    else:
-        want.update(rns_fused_matmul=7 * L * steps, rns_forward=7)
-    return want
+    steps) including the weight encodes at Engine init
+    (`repro_torch.analysis.residency.expected_launches`)."""
+    from repro_torch.analysis import residency
+
+    return residency.expected_launches(cfg, steps)
 
 
 # the port's kernels by the name the profiler shows, and the launch
@@ -1302,16 +1314,19 @@ KERNEL_COUNTERS = {"rns_tile_kernel": ("rns_fused_matmul", "rns_matmul"),
 
 
 def _step_launches(cfg):
-    """Launches of one decode step (a host-loop step or the captured one)."""
-    one, two = expected_launches(cfg, 1), expected_launches(cfg, 2)
-    return {k: two[k] - one[k] for k in COUNTED}
+    """Launches of one decode step (a host-loop step or the captured one):
+    `repro_torch.analysis.residency.expected_step`."""
+    from repro_torch.analysis import residency
+
+    return residency.expected_step(cfg)
 
 
 def _prefill_launches(cfg):
     """Launches of one eager prefill (a generate's first step, less the
-    weight encodes at Engine init)."""
-    one, init = expected_launches(cfg, 1), expected_launches(cfg, 0)
-    return {k: one[k] - init[k] for k in COUNTED}
+    weight encodes at Engine init): `residency.expected_prefill`."""
+    from repro_torch.analysis import residency
+
+    return residency.expected_prefill(cfg)
 
 
 def _graph_launches(graph):
@@ -3005,6 +3020,302 @@ def phase_train(layer_shapes, dev, smi, turns=3):
             "seconds": parts}
 
 
+# --------------------------------------------------------------- analysis --
+ANALYSIS_SMAX = 128              # the serve phase's cache length
+TRAIN_SHAPE = (8, 256)           # the train phase's (batch, seq)
+MEMORY_RTOL = 0.25               # meta peak estimate vs the card's peak
+
+
+def _summarized(fn):
+    """(fn's result, the residency pass's `TraceSummary` of it, flops
+    counted)."""
+    from repro_torch.analysis.residency import TraceMode
+
+    with TraceMode(flops=True) as mode:
+        out = fn()
+    return out, mode.summary
+
+
+def _counted(summ):
+    """(float flops, int8 ops) a trace counts: the aten ops' flops outside
+    the kernels plus flash attention's, and the integer kernels' ops."""
+    from repro_torch.launch.dryrun import FLOAT_KERNELS
+
+    flops = sum(summ.flops.values()) + sum(
+        summ.kernel_ops.get(k, 0.0) for k in FLOAT_KERNELS)
+    return flops, sum(v for k, v in summ.kernel_ops.items()
+                      if k not in FLOAT_KERNELS)
+
+
+def _analytic(cfg, shape):
+    from repro_torch.launch.costs import analytic_cost
+
+    return analytic_cost(cfg, shape, n_pods=1, data=1, model=1)
+
+
+def _dryrun_proc(path):
+    """Start the dry run over every registered config × SHAPES in worker
+    processes (its meta ops cost host time only, and the phase's card work
+    leaves the other cores idle); its output goes to ``path`` + ".log"."""
+    if os.path.exists(path):
+        os.remove(path)
+    jobs = max(1, min(8, (os.cpu_count() or 2) - 2))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    log = open(path + ".log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--jobs", str(jobs), "--out", path], env=env, stdout=log,
+            stderr=subprocess.STDOUT, cwd=ROOT), jobs
+    finally:
+        log.close()
+
+
+def _served_residency(arch, dev, lanes, smi):
+    """One eager prefill and one eager decode step of a served config at
+    full width, each under the residency pass: kernel calls by wrapper ==
+    `residency.expected_*`, no host sync in the step, no remainder outside
+    a kernel on the resident path; the counted work beside the analytic
+    model's."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import residency as R
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config(arch)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 17, 38, 60)]
+    eng = Engine(cfg, params, smax=ANALYSIS_SMAX, lanes=lanes, device=dev)
+    batch, plen = eng._pack(prompts)
+    tok = torch.ones((batch["tokens"].shape[0], 1), dtype=torch.int32,
+                     device=dev)
+    with torch.inference_mode():
+        (_, cache, _), pre = _summarized(
+            lambda: T.prefill(cfg, eng.params, batch, eng.smax))
+        _, dec = _summarized(lambda: T.decode_step(
+            cfg, eng.params, cache, {"tokens": tok}, plen,
+            positions=plen - batch["pad"]))
+    torch.cuda.synchronize()
+    want = {"decode": R.kernel_calls(R.expected_step(cfg)),
+            "prefill": R.kernel_calls(R.expected_prefill(cfg))}
+    got = {"decode": dict(dec.kernel_calls), "prefill": dict(pre.kernel_calls)}
+    if got != want:
+        raise AssertionError(f"{arch}: kernel calls {got}, expected {want}")
+    sync = R.check_no_callbacks(dec, subject=f"{arch} decode")
+    if not sync.ok:
+        raise AssertionError(str(sync.findings))
+    stray = {k: v.count_outside(R.MODULAR_OPS)
+             for k, v in (("decode", dec), ("prefill", pre))}
+    if cfg.linear_spec.domain == "residue":
+        for k, v in (("decode", dec), ("prefill", pre)):
+            rep = R.check_resident(v, subject=f"{arch} {k}")
+            if not rep.ok:
+                raise AssertionError(str(rep.findings))
+    B = batch["tokens"].shape[0]
+    shapes = {"decode": ShapeConfig("decode", ANALYSIS_SMAX, B, "decode"),
+              "prefill": ShapeConfig("prefill", plen, B, "prefill")}
+    work = {}
+    for k, summ in (("decode", dec), ("prefill", pre)):
+        an = _analytic(cfg, shapes[k])
+        flops, int8 = _counted(summ)
+        work[k] = {"counted_flops": flops, "counted_int8_ops": int8,
+                   "analytic_flops": an.flops,
+                   "analytic_int8_ops": an.flops_int8,
+                   "ops_outside": sum(summ.outside.values()),
+                   "ops_inside": sum(summ.inside.values())}
+    print(f"residency: {arch} {cfg.num_layers} layers, {B} lanes, one eager "
+          f"step on the card under the dispatch trace | kernel calls: "
+          f"decode {got['decode']}, prefill {got['prefill']} (== "
+          f"residency.expected_*) | host syncs in the decode step "
+          f"{dict(dec.syncs)} | remainder/fmod outside kernels: decode "
+          f"{stray['decode']}, prefill {stray['prefill']} | aten ops "
+          f"outside/inside kernels: decode {work['decode']['ops_outside']}/"
+          f"{work['decode']['ops_inside']}")
+    for k in ("prefill", "decode"):
+        w = work[k]
+        print(f"costs: {arch} {k} ({shapes[k].global_batch} x "
+              f"{shapes[k].seq_len}): counted float flops "
+              f"{w['counted_flops']:.4e}, int8 ops "
+              f"{w['counted_int8_ops']:.4e} | analytic flops "
+              f"{w['analytic_flops']:.4e}, int8 ops "
+              f"{w['analytic_int8_ops']:.4e}")
+    del eng, params, cache
+    torch.cuda.empty_cache()
+    return {"kernel_calls": got, "syncs": dict(dec.syncs),
+            "stray_modular": stray, "work": work,
+            "shapes": {k: [v.global_batch, v.seq_len] for k, v in
+                       shapes.items()}}
+
+
+def _train_residency(dev):
+    """One full-width train step of `ARCH` (B 8 × S 256, remat full): its
+    kernel calls under the residency pass (forward and the recompute in
+    the backward) == `residency.expected_train_step`, and its peak device
+    memory beside the dry run's meta estimate of the same step."""
+    import torch
+    from repro_torch.analysis import residency as R
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainstep import make_train_step
+
+    cfg = get_config(ARCH)
+    B, S = TRAIN_SHAPE
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    opt = cli.make_optimizer(cfg, total_steps=30, base_lr=1e-3, warmup=5)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    batch = cli.make_batch_fn(cfg, 0, B, S, dev)(0)
+    step(params, state, batch, 0)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(params, state, batch, 0)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base
+            + _tree_bytes((params, state, batch)))
+    del out
+    out, summ = _summarized(lambda: step(params, state, batch, 0))
+    torch.cuda.synchronize()
+    del out
+    want = R.kernel_calls(R.expected_train_step(cfg))
+    if dict(summ.kernel_calls) != want:
+        raise AssertionError(f"train step kernel calls "
+                             f"{dict(summ.kernel_calls)}, expected {want}")
+    rec = run_cell(cfg, ShapeConfig(f"train_b{B}_s{S}", S, B, "train"))
+    if rec["status"] != "ok" or rec["kernel_calls"] != want:
+        raise AssertionError(f"meta train cell: {rec.get('error')} "
+                             f"{rec.get('kernel_calls')}")
+    est = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+    flops, int8 = _counted(summ)
+    an = _analytic(cfg, ShapeConfig("train", S, B, "train"))
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return {"kernel_calls": dict(summ.kernel_calls), "syncs": dict(summ.syncs),
+            "peak_bytes": peak, "meta_estimate_bytes": est,
+            "meta_argument_bytes": rec["memory"]["argument_bytes"],
+            "meta_temp_bytes": rec["memory"]["temp_bytes"],
+            "rel_err": abs(est - peak) / peak,
+            "counted_flops": flops, "counted_int8_ops": int8,
+            "analytic_flops": an.flops, "analytic_int8_ops": an.flops_int8}
+
+
+def _roofline(cfg, shape, measured_ms):
+    """The analytic bound of one step on the H100 constants beside its
+    measured time: model flops, bound ms and its dominant term, measured
+    ms, bound / measured."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as T
+
+    n, na = T.count_params(cfg), T.active_params(cfg)
+    rec = {"n_devices": 1, "analytic": _analytic(cfg, shape).as_dict(),
+           "model_flops": RL.model_flops_for(cfg, shape, n, na)}
+    a = RL.analyze(rec)
+    return {"model_flops": rec["model_flops"], "bound_ms": 1e3 * a.bound_s,
+            "dominant": a.dominant, "compute_ms": 1e3 * a.compute_s,
+            "memory_ms": 1e3 * a.memory_s, "measured_ms": measured_ms,
+            "fraction": 1e3 * a.bound_s / measured_ms,
+            "model_flops_fraction": rec["model_flops"] / (
+                RL.PEAK_FLOPS * measured_ms / 1e3)}
+
+
+def phase_analysis(dev, smi, serves, train, lanes):
+    """The `analysis` phase (see the module docstring)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+
+    t0 = time.perf_counter()
+    path = os.path.join(ROOT, "build", "chip_smoke", "dryrun.jsonl")
+    proc, jobs = _dryrun_proc(path)
+    try:
+        served = {arch: _served_residency(arch, dev, lanes, smi)
+                  for arch in (ARCH, RESIDENT, STAGED)}
+        tr = _train_residency(dev)
+        print(f"residency: {ARCH} train step (B {TRAIN_SHAPE[0]} x S "
+              f"{TRAIN_SHAPE[1]}, remat full, AdamW) under the dispatch "
+              f"trace: kernel calls {tr['kernel_calls']} (== residency."
+              f"expected_train_step: forward + recompute) | counted float "
+              f"flops {tr['counted_flops']:.4e}, int8 ops "
+              f"{tr['counted_int8_ops']:.4e} | analytic flops "
+              f"{tr['analytic_flops']:.4e}, int8 ops "
+              f"{tr['analytic_int8_ops']:.4e}")
+        print(f"dryrun: {ARCH} train step at B {TRAIN_SHAPE[0]} x S "
+              f"{TRAIN_SHAPE[1]}: meta estimate (arguments "
+              f"{tr['meta_argument_bytes'] / 1e9:.3f} GB + peak live "
+              f"{tr['meta_temp_bytes'] / 1e9:.3f} GB) "
+              f"{tr['meta_estimate_bytes'] / 1e9:.3f} GB vs the card's peak "
+              f"{tr['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated over "
+              f"the step + its arguments): {100 * tr['rel_err']:.1f}% off "
+              f"(<= {100 * MEMORY_RTOL:.0f}%) | on {smi}")
+        if tr["rel_err"] > MEMORY_RTOL:
+            raise AssertionError(f"meta memory estimate "
+                                 f"{tr['meta_estimate_bytes']} vs peak "
+                                 f"{tr['peak_bytes']}")
+        roof = {}
+        for arch in (ARCH, RESIDENT, STAGED):
+            cfg, sv = get_config(arch), serves[arch]
+            B, plen = served[arch]["shapes"]["prefill"]
+            roof[f"{arch} prefill"] = _roofline(
+                cfg, ShapeConfig("prefill", plen, B, "prefill"),
+                sv["prefill_ms"])
+            roof[f"{arch} decode (scan)"] = _roofline(
+                cfg, ShapeConfig("decode", ANALYSIS_SMAX, B, "decode"),
+                sv["decode_ms_per_token_scan"])
+        B, S = TRAIN_SHAPE
+        roof[f"{ARCH} train step"] = _roofline(
+            get_config(ARCH), ShapeConfig("train", S, B, "train"),
+            train["ms_per_step"]["fused"])
+        for k, r in roof.items():
+            print(f"roofline: {k}: model flops {r['model_flops']:.4e} | "
+                  f"analytic bound {r['bound_ms']:.4f} ms ({r['dominant']}; "
+                  f"compute {r['compute_ms']:.4f}, memory "
+                  f"{r['memory_ms']:.4f}) on H100 constants | measured "
+                  f"{r['measured_ms']:.3f} ms | bound/measured "
+                  f"{r['fraction']:.4f}, model flops at the bf16 peak / "
+                  f"measured {r['model_flops_fraction']:.5f} | on {smi}")
+        card_s = time.perf_counter() - t0
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        with open(path + ".log") as fh:
+            raise AssertionError(f"the dry run exited {rc}: "
+                                 f"{fh.read()[-2000:]}")
+    with open(path) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    counts = {k: sum(r["status"] == k for r in recs)
+              for k in ("ok", "skip", "error")}
+    counts["fits"] = sum(bool(r.get("fits")) for r in recs)
+    errors = [f"{r['arch']} x {r['shape']}: {r.get('op')}" for r in recs
+              if r["status"] == "error"]
+    from repro_torch.configs.base import SHAPES, list_archs
+    cells = len(list_archs()) * len(SHAPES)
+    print(f"dryrun: {len(recs)} cells (every registered config x SHAPES "
+          f"on meta, {jobs} worker processes): ok {counts['ok']}, skip "
+          f"{counts['skip']}, error {counts['error']}, fits one 80 GB card "
+          f"{counts['fits']}" + (f" | errors: {errors}" if errors else "")
+          + f" | {time.perf_counter() - t0:.1f} s in all, card work "
+          f"{card_s:.1f} s")
+    if len(recs) != cells or counts["ok"] + counts["skip"] + \
+            counts["error"] != cells:
+        raise AssertionError(f"the dry run wrote {len(recs)} records for "
+                             f"{cells} cells")
+    torch.cuda.synchronize()
+    return {"served": served, "train": tr, "roofline": roof,
+            "dryrun": counts, "dryrun_errors": errors,
+            "seconds": time.perf_counter() - t0}
+
+
 def _to(node, dev):
     if isinstance(node, dict):
         return {k: _to(v, dev) for k, v in node.items()}
@@ -3379,6 +3690,9 @@ def main() -> int:
           f"step {train['checkpoint_step']} | seconds by part "
           f"{train['seconds']} | on {smi}")
     mark("train")
+    print("phase analysis:")
+    analysis = phase_analysis(dev, smi, serves, train, lanes)
+    mark("analysis")
     print(f"time: seconds by phase {marks}, "
           f"{time.perf_counter() - t_start:.0f} s in all")
 
@@ -3473,7 +3787,7 @@ def main() -> int:
                        "tune_stats": dict(tune.stats),
                        "families": families, "zoo_check": zoo,
                        "family_kernels": fam_rows, "train": train,
-                       "phase_seconds": marks},
+                       "analysis": analysis, "phase_seconds": marks},
                       fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,13 @@
-"""Model configuration and registry, port of `repro/configs/base.py`:
-every architecture registers its published configuration and a smoke twin
-of the same family, with the reference's training fields (remat, its
-policy and the optimizer).  Its sharding and cost-model fields
-(dist_layout, grad_compression, scan_layers, attn_impl, skip_shapes) have
-no counterpart here."""
+"""Model and shape configuration and the registry, port of
+`repro/configs/base.py`: every architecture registers its published
+configuration and a smoke twin of the same family, with the reference's
+training fields (remat, its policy and the optimizer) and the shapes its
+dry run skips (``skip_shapes``); `SHAPES` are the dry run's global
+(seq_len × global_batch) cells.  The reference's ``attn_impl`` and
+``grad_compression`` are fixed at its defaults (blocked attention, no
+gradient compression: the cost model reads them as such), ``dist_layout``
+waits for the distributed port, and ``scan_layers`` has no counterpart (a
+Python loop runs the layers)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,8 +17,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.linear_spec import LinearSpec
 
-__all__ = ["ModelConfig", "register", "get_config", "get_smoke_config",
-           "list_archs", "ARCH_MODULES"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "register", "get_config",
+           "get_smoke_config", "list_archs", "ARCH_MODULES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +85,9 @@ class ModelConfig:
     remat_policy: str = "full"            # full | save_ar | none
     optimizer: str = "adamw"              # adamw | adafactor
     attn_block_kv: int = 1024         # key block of the online softmax
+    # shapes of `SHAPES` the dry run skips (a full-attention stack has no
+    # sub-quadratic structure for long_500k)
+    skip_shapes: Tuple[str, ...] = ()
 
     @functools.cached_property
     def linear_spec(self) -> LinearSpec:
@@ -122,6 +129,21 @@ class ModelConfig:
         return ("moe" if layer % self.moe_every == self.moe_every - 1
                 else "mlp")
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                             # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}

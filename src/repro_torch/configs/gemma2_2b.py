@@ -15,7 +15,7 @@ def full() -> ModelConfig:
         head_dim=256, d_ff=9216, vocab_size=256000,
         attention="local_global", window=4096,
         softcap_attn=50.0, softcap_final=30.0, post_norm=True,
-        act="gelu", tie_embeddings=True,
+        act="gelu", tie_embeddings=True, skip_shapes=("long_500k",),
     )
 
 

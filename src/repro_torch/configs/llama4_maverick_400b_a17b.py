@@ -20,6 +20,7 @@ def full() -> ModelConfig:
         moe=True, num_experts=128, top_k=1, moe_every=2, shared_expert=True,
         moe_d_ff=8192, attention="full",
         optimizer="adafactor",            # AdamW state for 400B won't fit
+        skip_shapes=("long_500k",),
     )
 
 

@@ -13,7 +13,7 @@ def full() -> ModelConfig:
         num_layers=48, d_model=2048, num_heads=16, num_kv_heads=16,
         head_dim=128, d_ff=1408, vocab_size=163840,
         moe=True, num_experts=64, top_k=6, moe_every=1, moe_d_ff=1408,
-        attention="full",
+        attention="full", skip_shapes=("long_500k",),
     )
 
 

@@ -15,6 +15,7 @@ def full() -> ModelConfig:
         num_layers=48, d_model=2048, num_heads=32, num_kv_heads=32,
         head_dim=64, d_ff=8192, vocab_size=2048,
         attention="full", pos="sinusoidal", act="gelu", glu=False,
+        skip_shapes=("long_500k",),
     )
 
 

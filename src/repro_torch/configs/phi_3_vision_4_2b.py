@@ -14,6 +14,7 @@ def full() -> ModelConfig:
         num_layers=32, d_model=3072, num_heads=32, num_kv_heads=32,
         head_dim=96, d_ff=8192, vocab_size=32064,
         attention="full", frontend="embeddings",
+        skip_shapes=("long_500k",),
     )
 
 

@@ -9,7 +9,8 @@ def full() -> ModelConfig:
     return ModelConfig(
         name="smollm-135m", family="dense",
         num_layers=30, d_model=576, num_heads=9, num_kv_heads=3, head_dim=64,
-        d_ff=1536, vocab_size=49152, tie_embeddings=True)
+        d_ff=1536, vocab_size=49152, tie_embeddings=True,
+        skip_shapes=("long_500k",))
 
 
 def smoke() -> ModelConfig:

@@ -12,6 +12,7 @@ def full() -> ModelConfig:
         num_layers=60, d_model=7168, num_heads=56, num_kv_heads=8,
         head_dim=128, d_ff=20480, vocab_size=64000,
         attention="full", rope_theta=5000000.0,
+        skip_shapes=("long_500k",),
     )
 
 

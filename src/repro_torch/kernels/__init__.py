@@ -22,7 +22,10 @@ in `ref.py`:
                           the tile kernel behind the first three
 
 Each wrapper runs its plain version for CPU tensors, launches the kernel
-for CUDA tensors, and counts its launches in ``<wrapper>.launches``.
+for CUDA tensors (counting its launches in ``<wrapper>.launches``), returns
+an empty output of the plain version's shape and dtype for meta tensors (a
+dry run), and is a kernel region (`_build.kernel_region`) of the trace
+passes of `repro_torch.analysis`.
 """
 from . import ref, tune  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401

@@ -15,6 +15,13 @@ function name through `libcuda` (the `cu*` graph calls), loaded the same way.
 `Plan` and `TileArgs` mirror the structs of `csrc/rns_common.cuh` field for
 field, `FlashArgs` the one of `csrc/flash_common.cuh`; `plan_struct`
 fills a `Plan` from a fold plan and a conversion plan.
+
+`kernel_region` marks each kernel wrapper, the counterpart of a
+``pallas_call`` in a jaxpr, for the trace passes of
+`repro_torch.analysis`: an observer (`add_observer`) hears each outermost
+wrapper call begin and end, and `region_depth` tells a dispatch mode
+whether an op runs inside one (the plain version's ops on the CPU; on the
+card the ctypes launch is invisible to dispatch).
 """
 from __future__ import annotations
 
@@ -24,12 +31,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from repro_torch.core import multiword as mw
 
 __all__ = ["build", "library", "check", "plan_struct", "set_moduli", "Plan",
-           "TileArgs", "FlashArgs", "BUILD_DIR", "SOURCES", "graph_kernels"]
+           "TileArgs", "FlashArgs", "BUILD_DIR", "SOURCES", "graph_kernels",
+           "kernel_region", "region_depth", "add_observer",
+           "remove_observer"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
@@ -41,6 +51,55 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MAXC, MAXR, MAXL, MAXSUB = 12, 8, 6, 4
+
+
+class _Depth(threading.local):
+    depth = 0
+
+
+_region = _Depth()
+# objects with enter(name, args, kwargs) and exit(name, out), told of each
+# outermost region; process-wide, since autograd runs a CUDA backward (and
+# the recompute of a checkpointed layer) on its own device thread
+_observers: list = []
+
+
+def region_depth() -> int:
+    """How many kernel wrappers the calling thread is inside."""
+    return _region.depth
+
+
+def add_observer(obs) -> None:
+    _observers.append(obs)
+
+
+def remove_observer(obs) -> None:
+    _observers.remove(obs)
+
+
+def kernel_region(name: str):
+    """Decorate a kernel wrapper: each call is a region of the calling
+    thread, and the outermost one is reported to the observers.  With none
+    registered it costs one thread-local increment and touches nothing on
+    the device, so a captured CUDA graph holds the same kernels."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def region(*args, **kwargs):
+            depth = _region.depth
+            _region.depth = depth + 1
+            try:
+                if depth or not _observers:
+                    return fn(*args, **kwargs)
+                for obs in tuple(_observers):
+                    obs.enter(name, args, kwargs)
+                out = fn(*args, **kwargs)
+                for obs in tuple(_observers):
+                    obs.exit(name, out)
+                return out
+            finally:
+                _region.depth = depth
+        return region
+    return wrap
 
 
 class Plan(ctypes.Structure):

@@ -82,6 +82,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@_build.kernel_region("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None, pad=None, qpos=None,
@@ -93,7 +94,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``pad[b]`` keys of sequence b.  ``qpos``/``kpos`` ((S,) or (B, S) int,
     −1 = invalid row) switch to explicit positions and exclude ``pad``.
     Fully masked rows are 0.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel of `flash_route`.
+    tensor launches the kernel of `flash_route`; a meta tensor gets an empty
+    output of the plain version's shape and dtype (a dry run).
     """
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
@@ -112,6 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               qpos=qpos, kpos=kpos)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, **kw)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")

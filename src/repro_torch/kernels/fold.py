@@ -39,10 +39,12 @@ def _plan_struct(mods: tuple, bound: int) -> _build.Plan:
     return _build.plan_struct(ChannelPlan.build(mods, bound), None)
 
 
+@_build.kernel_region("fold")
 def fold(x: torch.Tensor, moduli: Sequence[int], bound: int) -> torch.Tensor:
     """Canonicalize (C, S) int32 values in [0, ``bound``) into [0, m_c) per
     channel.  A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel."""
+    the kernel; a meta tensor gets an empty output of the plain version's
+    shape and dtype (a dry run)."""
     mods = tuple(int(m) for m in moduli)
     bound = int(bound)
     if x.ndim != 2 or x.shape[0] != len(mods):
@@ -51,6 +53,8 @@ def fold(x: torch.Tensor, moduli: Sequence[int], bound: int) -> torch.Tensor:
         raise ValueError(f"x must be int32, got {x.dtype}")
     if x.device.type == "cpu":
         return fold_ref(x, mods, bound)
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     if x.device.type != "cuda":
         raise ValueError(f"fold runs on cuda or cpu, not {x.device}")
     st = _plan_struct(mods, bound)

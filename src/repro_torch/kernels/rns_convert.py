@@ -167,11 +167,13 @@ def _pin_launch(threads: int | None = None, per_sm: int | None = None):
         _pinned.update(before)
 
 
+@_build.kernel_region("rns_forward")
 def rns_forward(x: torch.Tensor, moduli: Sequence[int], *,
                 dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """(…,) int8/int32 → (C, …) canonical residues in ``dtype`` (int8 or
     int32).  A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel."""
+    the kernel; a meta tensor gets an empty output of the plain version's
+    shape and dtype (a dry run)."""
     mods = tuple(int(m) for m in moduli)
     if x.dtype not in (torch.int8, torch.int32):
         raise ValueError(f"rns_forward takes int8 or int32, got {x.dtype}")
@@ -183,6 +185,9 @@ def rns_forward(x: torch.Tensor, moduli: Sequence[int], *,
         raise ValueError(f"need 1..{_MAXC} moduli in [2, 2^31), got {mods}")
     if x.device.type == "cpu":
         return rns_forward_ref(x, mods, dtype)
+    if x.device.type == "meta":
+        return torch.empty((len(mods),) + tuple(x.shape), dtype=dtype,
+                           device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"rns_forward runs on cuda or cpu, not {x.device}")
     x = x.contiguous()
@@ -219,16 +224,21 @@ def _reverse_struct(plan: ConversionPlan) -> _build.Plan:
     return _build.plan_struct(None, plan)
 
 
+@_build.kernel_region("rns_reverse")
 def rns_reverse(residues: torch.Tensor, plan: ConversionPlan, *,
                 scale: torch.Tensor | None = None) -> torch.Tensor:
     """(C, …) canonical residues → (…) float32 signed values, times
     ``scale`` (broadcast against the output) when given.  A CPU tensor runs
-    the plain version; a CUDA tensor launches the kernel."""
+    the plain version; a CUDA tensor launches the kernel; a meta tensor gets
+    an empty output of the plain version's shape and dtype (a dry run)."""
     if residues.ndim < 1 or residues.shape[0] != plan.k:
         raise ValueError(f"residues {tuple(residues.shape)} need {plan.k} "
                          "channels on axis 0")
     if residues.device.type == "cpu":
         return rns_reverse_ref(residues, plan, scale)
+    if residues.device.type == "meta":
+        return torch.empty(residues.shape[1:], dtype=torch.float32,
+                           device="meta")
     if residues.device.type != "cuda":
         raise ValueError(f"rns_reverse runs on cuda or cpu, not "
                          f"{residues.device}")

@@ -215,6 +215,7 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
     tile_launches[tm] += 1
 
 
+@_build.kernel_region("rns_fused_matmul")
 def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
                      scale_col: torch.Tensor, gate: torch.Tensor | None = None,
                      emit: str = "float"):
@@ -233,7 +234,9 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
     ``emit="float"`` returns (M, N) float32 ``(y·s_row)·s_col``;
     ``emit="residues"`` returns the activation :class:`RNSTensor` of the
     in-domain requantized product, scale ``s_row·requant_const(s_col, K)``.
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel;
+    a meta tensor gets an empty output of the plain version's shape and
+    dtype (a dry run).
     """
     if emit not in ("float", "residues"):
         raise ValueError(f"emit must be 'float' or 'residues', got {emit!r}")
@@ -298,6 +301,10 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
     if x.device.type == "cpu":
         out = rns_fused_matmul_ref(x, w, basis, scale_row=srow,
                                    scale_col=scol, gate=gate, creq=creq)
+    elif x.device.type == "meta":
+        out = (torch.empty((plan.k, M, N), dtype=torch.int8, device="meta")
+               if creq is not None else
+               torch.empty((M, N), dtype=torch.float32, device="meta"))
     elif x.device.type != "cuda":
         raise ValueError(f"rns_fused_matmul runs on cuda or cpu, not "
                          f"{x.device}")
@@ -372,6 +379,7 @@ def _crt_plan_struct(plan: ChannelPlan, mods: tuple, sched: tuple,
     return st
 
 
+@_build.kernel_region("rns_fused_crt_partial")
 def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
                           crt_mc, quantize: bool = False,
                           scale_row: torch.Tensor | None = None,
@@ -394,7 +402,8 @@ def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
     (C_l, K, N) int8 residue slice.  Raw signed int8 activations and live
     (K, N) weights, which no configuration reaches, raise
     ``NotImplementedError``.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel.
+    tensor launches the kernel; a meta tensor gets an empty output of the
+    plain version's shape and dtype (a dry run).
     """
     residue_in = x.ndim == 3
     if residue_in:
@@ -444,6 +453,9 @@ def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
                                          sched=sched, crt_v=crt_v,
                                          crt_mc=crt_mc, scale_row=srow,
                                          gate=gate)
+    if x.device.type == "meta":
+        return torch.empty((len(crt_mc[0]), M, N), dtype=torch.int32,
+                           device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"rns_fused_crt_partial runs on cuda or cpu, not "
                          f"{x.device}")

@@ -30,6 +30,7 @@ def _plan_struct(plan: ChannelPlan) -> _build.Plan:
     return _build.plan_struct(plan, None)
 
 
+@_build.kernel_region("rns_matmul")
 def rns_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
                moduli: Sequence[int], *, signed_a: bool = False,
                plan: ChannelPlan | None = None) -> torch.Tensor:
@@ -37,7 +38,9 @@ def rns_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
 
     ``plan`` defaults to ``ChannelPlan.for_matmul(moduli, K,
     signed=signed_a)``; its signedness must match ``signed_a``.  A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel."""
+    tensor runs the plain version; a CUDA tensor launches the kernel; a
+    meta tensor gets an empty output of the plain version's shape and dtype
+    (a dry run)."""
     mods = tuple(int(m) for m in moduli)
     if a_res.ndim != 3 or b_res.ndim != 3:
         raise ValueError(f"need (C, M, K) and (C, K, N) residues, got "
@@ -57,6 +60,8 @@ def rns_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
     if a_res.device.type == "cpu":
         return rns_matmul_ref(a_res, b_res, mods, signed_a=signed_a,
                               plan=plan)
+    if a_res.device.type == "meta":
+        return torch.empty((C, M, N), dtype=torch.int32, device="meta")
     if a_res.device.type != "cuda":
         raise ValueError(f"rns_matmul runs on cuda or cpu, not "
                          f"{a_res.device}")

@@ -53,13 +53,15 @@ def direct_mod(mods: Sequence[int], dtype: torch.dtype) -> bool:
     return True
 
 
+@_build.kernel_region("rns_modmul")
 def rns_modmul(a_res: torch.Tensor, b_res: torch.Tensor,
                moduli: Sequence[int], *,
                out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """(C, …) × (C, …) int8 or int32 canonical residues → (C, …) canonical
     products in ``out_dtype`` (int32, or int8 when every modulus is at most
     128).  A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel."""
+    kernel; a meta tensor gets an empty output of the plain version's shape
+    and dtype (a dry run)."""
     mods = tuple(int(m) for m in moduli)
     if a_res.shape != b_res.shape or a_res.shape[0] != len(mods):
         raise ValueError(f"need two (C={len(mods)}, ...) operands of one "
@@ -75,6 +77,8 @@ def rns_modmul(a_res: torch.Tensor, b_res: torch.Tensor,
                          f"got {len(mods)}")
     if a_res.device.type == "cpu":
         return rns_modmul_ref(a_res, b_res, mods, out_dtype=out_dtype)
+    if a_res.device.type == "meta":
+        return torch.empty(a_res.shape, dtype=out_dtype, device="meta")
     if a_res.device.type != "cuda":
         raise ValueError(f"rns_modmul runs on cuda or cpu, not "
                          f"{a_res.device}")

@@ -105,7 +105,13 @@ class _EmbedRows(torch.autograd.Function):
         ids, = ctx.saved_tensors
         flat = ids.reshape(-1)
         g64 = g.reshape(flat.numel(), -1).to(torch.float64)
-        uniq, inv = torch.unique(flat, return_inverse=True)
+        if g.device.type == "meta":
+            # a dry run has no ids to read: take the most distinct ids the
+            # batch can hold, so the shapes bound the work
+            uniq = flat.new_empty(min(ctx.rows, flat.numel()))
+            inv = torch.empty_like(flat)
+        else:
+            uniq, inv = torch.unique(flat, return_inverse=True)
         out = torch.zeros((ctx.rows, g64.shape[1]), dtype=ctx.dtype,
                           device=g.device)
         step = max(1, (1 << 24) // max(1, flat.numel()))

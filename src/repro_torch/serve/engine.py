@@ -59,7 +59,7 @@ from repro_torch.core.rns_tensor import encode_params
 from repro_torch.kernels import tune
 from repro_torch.models import transformer as T
 
-__all__ = ["Engine", "bucket_plen"]
+__all__ = ["Engine", "bucket_plen", "encoded_params"]
 
 # decode captures kept per engine: (lanes, smax, sampled) keys
 _SCAN_CACHE_MAX = 8
@@ -148,6 +148,20 @@ class _ScanState:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
 
 
+def encoded_params(cfg, params):
+    """The parameters a config serves: its linear weights encoded to
+    residues once when the config encodes them (`encode_params`), else
+    ``params`` as they are."""
+    spec = cfg.linear_spec
+    if not (spec.is_rns and spec.encode_weights):
+        return params
+    # a residue-resident GLU MLP needs its weights in the chain basis,
+    # sized for the gated down product d_ff·127³
+    gb = ({"mlp": basis_for_chain(cfg.d_ff)}
+          if spec.domain == "residue" and cfg.glu and cfg.d_ff > 0 else None)
+    return encode_params(params, group_basis=gb)
+
+
 class Engine:
     """Serving engine over ``params`` (the reference's layout, as from
     `models.transformer.make_params` or `weights.from_jax_params`).
@@ -176,16 +190,8 @@ class Engine:
         self.lanes = None if lanes is None else int(lanes)
         self.smax = int(smax)
         params = _to_device(params, self.device)
-        spec = cfg.linear_spec
-        if spec.is_rns and spec.encode_weights:
-            # a residue-resident GLU MLP needs its weights in the chain
-            # basis, sized for the gated down product d_ff·127³
-            gb = ({"mlp": basis_for_chain(cfg.d_ff)}
-                  if spec.domain == "residue" and cfg.glu and cfg.d_ff > 0
-                  else None)
-            with torch.inference_mode():
-                params = encode_params(params, group_basis=gb)
-        self.params = params
+        with torch.inference_mode():
+            self.params = encoded_params(cfg, params)
         self._scan: "OrderedDict[tuple, _ScanState]" = OrderedDict()
         self.scan_replays = 0
         self.scan_captures = 0

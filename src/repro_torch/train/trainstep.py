@@ -48,10 +48,13 @@ def loss_fn(cfg: ModelConfig, params, batch):
 
 
 def _value_and_grad(cfg: ModelConfig, params, batch):
-    """(loss, metrics, grads in the params' dtypes)."""
+    """(loss, metrics, grads in the params' dtypes); a parameter the loss
+    does not read (the token table of an embeddings frontend, the unused
+    gate of a non-GLU MLP) gets a zero gradient, as in the reference."""
     flat = [p.detach().requires_grad_() for p in leaves(params)]
     loss, metrics = loss_fn(cfg, unflatten(params, flat), batch)
-    grads = torch.autograd.grad(loss, flat)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             unflatten(params, list(grads)))
 

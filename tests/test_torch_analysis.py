@@ -4,7 +4,8 @@ the admissibility pass on (tm, splits) launches and tune-table rows, the
 schema validators, the lint over the port's registry, the interval
 domain, ``Engine(verify="static")``, and `check_config` reporting the same
 findings as the reference's for every ported config, full and smoke.  The
-reference's jaxpr passes (``absint``, ``residency``) are not ported."""
+trace passes (``absint``, ``residency``) have files of their own,
+`tests/test_torch_absint.py` and `tests/test_torch_residency.py`."""
 import json
 
 import pytest
@@ -80,7 +81,7 @@ def test_bounds_flags_undersized_chain_basis_at_large_dff():
     with pytest.raises(AnalysisError, match="dynamic range deficit"):
         rep.raise_if_failed()
     with pytest.raises(AnalysisError, match="dynamic range deficit"):
-        tan.assert_clean(spec)
+        tan.assert_clean(None, spec)
     ok = PipelineSpec.for_basis(basis_for_chain(F), F, x_bound=127,
                                 w_bound=127, residue_in=True, gate=True)
     assert check_pipeline(ok)[0].ok

@@ -1324,3 +1324,84 @@ def test_train_step_fused_equals_staged_and_repeats(dev):
         l2, g2 = _smoke_grads(name, dev, pol)
         assert torch.equal(loss, l2), (name, pol)
         assert all(torch.equal(a, b) for a, b in zip(grads, g2)), (name, pol)
+
+
+RESIDENCY_CONFIGS = ["rns-smollm-135m-fused", "rns-smollm-135m-resident",
+                     "rns-smollm-135m-pallas"]
+
+
+@pytest.mark.parametrize("name", RESIDENCY_CONFIGS)
+def test_residency_counts_on_the_card(dev, name):
+    """The residency pass on the card, at smoke size: an eager prefill and
+    decode step call exactly `residency.expected_*`, each call one launch
+    (the launch counters move as much), the step syncs nothing to the
+    host, and the resident path runs no remainder outside a kernel."""
+    from repro_torch.analysis import residency as R
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = get_smoke_config(name)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    eng = E.Engine(cfg, params, smax=32, lanes=2, device=dev)
+    batch, plen = eng._pack([[1, 2, 3], [4, 5]])
+    tok = torch.ones((2, 1), dtype=torch.int32, device=dev)
+    launched = [rns_fused_matmul.launches, rns_forward.launches,
+                rns_matmul.launches, rns_reverse.launches]
+    with torch.inference_mode(), R.TraceMode() as mode:
+        _, cache, _ = T.prefill(cfg, eng.params, batch, eng.smax)
+    pre = mode.summary
+    with torch.inference_mode(), R.TraceMode() as mode:
+        T.decode_step(cfg, eng.params, cache, {"tokens": tok}, plen,
+                      positions=plen - batch["pad"])
+    torch.cuda.synchronize()
+    dec = mode.summary
+    assert dict(pre.kernel_calls) == R.kernel_calls(R.expected_prefill(cfg))
+    assert dict(dec.kernel_calls) == R.kernel_calls(R.expected_step(cfg))
+    moved = [rns_fused_matmul.launches, rns_forward.launches,
+             rns_matmul.launches, rns_reverse.launches]
+    assert sum(moved) - sum(launched) == pre.kernel_total + dec.kernel_total
+    assert R.check_no_callbacks(dec).ok, dict(dec.syncs)
+    # the kernels ran as ctypes launches: no aten op inside a region but
+    # the wrappers' own allocations and views
+    assert dec.inside.get("aten.remainder", 0) == 0
+    if cfg.linear_spec.domain == "residue":
+        assert R.check_resident(dec).ok and R.check_resident(pre).ok
+
+
+def test_residency_train_step_on_the_card(dev):
+    """A smoke train step on the card: the forward's and the backward's
+    recompute (run on autograd's device thread) both reach the trace."""
+    from repro_torch.analysis import residency as R
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainstep as TS
+
+    cfg = get_smoke_config("rns-smollm-135m-fused")
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    opt = O.make_optimizer(cfg, total_steps=10)
+    b = batch_for_step(0, 0, 4, 64, cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    step = TS.make_train_step(cfg, opt)
+    with R.TraceMode() as mode:
+        step(params, opt.init(params), batch, 0)
+    torch.cuda.synchronize()
+    assert dict(mode.summary.kernel_calls) == \
+        R.kernel_calls(R.expected_train_step(cfg)) == \
+        {"rns_fused_matmul": 28}
+
+
+def test_host_syncs_on_the_card_are_flagged(dev):
+    from repro_torch.analysis import residency as R
+
+    x = torch.arange(8.0, device=dev)
+    summ = R.summarize_fn(lambda t: (t.sum().item(), t.cpu(),
+                                     torch.nonzero(t > 3)), x)
+    assert dict(summ.syncs) == {"aten._local_scalar_dense": 1,
+                                R.TO_HOST: 1, "aten.nonzero": 1}
+    clean = R.summarize_fn(lambda t: t * 2 + 1, x)
+    assert not clean.syncs
