@@ -133,10 +133,38 @@ Phases, each of which must pass:
      `roofline:` line for each path's prefill and scan decode step and the
      train step (analytic bound on the H100 constants of
      `launch.roofline` against the serve and train phases' times); the dry
-     run (`launch.dryrun --all`, meta tensors, worker processes, run
-     beside the phase's card work) over every registered config ×
+     run (`launch.dryrun --all`, meta tensors, worker processes started
+     with the script, beside the kernel build and the device-timed kernel
+     rows, and ended before the serve phase, whose times are the host's)
+     over every registered config ×
      `SHAPES` (a `dryrun:` count line), and the train step's meta memory
      estimate within 25% of its `max_memory_allocated` plus arguments.
+  14. dist   — sharded serving (`repro_torch.dist`) on `torch.distributed`:
+     ranks are spawned processes on the one card in a ``gloo`` group over
+     a `FileStore`, each joined with its own deadline; any rank's failure
+     fails the phase.  A 5-rank group (channel layout: C = 5 on every
+     basis, one channel a rank) and a 2-rank group (column layout forced)
+     each check every distinct full-width linear of `-fused` and the
+     resident chain's shapes (``emit="residues"`` included) at M = 8 and
+     512: every rank's `sharded_fused_matmul` bit-equal to the full-basis
+     `rns_fused_matmul`, the rank's kernel device µs (graph-timed, one rank
+     at a time) beside the full-basis launch's and the bound, the wall µs
+     of the collective step that follows the kernel (the all-reduce and
+     the epilogue, as `rns_shard.rank_launch` splits the launch) and
+     `comms` wire bytes; then
+     `rns-smollm-135m-sharded` (5 ranks channel, 2 ranks column) and
+     `-resident-sharded` (5 ranks auto) through `Engine(mesh=…)`: 4 ragged
+     prompts in 8 lanes, 8 greedy tokens (4 for the 5-rank channel run)
+     under ``engine="host"`` and 2 under the uncaptured ``"scan"``, tokens
+     and prefill logits bit-equal to the unsharded Engine's on every rank,
+     a decode step's launches a rank as `dist.engine.decode_launches`
+     reads them off the placed weights (210 `rns_fused_crt_partial` and
+     no `rns_fused_matmul` for the channel run); one channel decode step
+     under the residency pass (only limb-plane and float collectives,
+     `check_reduced_wire` clean, `comms.collective_wire_bytes` beside
+     `costs.comms_bytes_decode`); `compressed_mean_all_reduce` on 2 ranks
+     over the fused model's parameter shapes bit-equal to the formula on
+     one process.
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
 the route each shape takes (`split`, `mma` or `fma`, named on its row;
@@ -149,8 +177,8 @@ kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
 `serve:` line per model, one `sched:` line per scheduled model, a
 `chain:` line, an `entry:` line, the `twit:` lines, one `check:`
 line per smoke config, the `families:` lines, the `train:` lines, the
-`residency:`, `costs:`, `roofline:` and `dryrun:` lines, the nvidia-smi
-line, the kernels JSON line and, last, the device JSON line.  ``--record
+`residency:`, `costs:`, `roofline:` and `dryrun:` lines, the `dist:`
+lines, the nvidia-smi line, the kernels JSON line and, last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
 Exits non-zero without a CUDA device or without the port's sources beside
 it.
@@ -3053,22 +3081,48 @@ def _analytic(cfg, shape):
     return analytic_cost(cfg, shape, n_pods=1, data=1, model=1)
 
 
-def _dryrun_proc(path):
+def _dryrun_start():
     """Start the dry run over every registered config × SHAPES in worker
-    processes (its meta ops cost host time only, and the phase's card work
-    leaves the other cores idle); its output goes to ``path`` + ".log"."""
+    processes, in a session of its own; its output goes to
+    ``build/chip_smoke/dryrun.jsonl`` (+ ".log").  Its meta ops cost host
+    time only: it runs beside the kernel build and the device-timed kernel
+    rows, `_dryrun_wait` ends it before the first host-timed phase, and an
+    exit of this script stops it (`_dryrun_stop`)."""
+    import atexit
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "dryrun.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     if os.path.exists(path):
         os.remove(path)
     jobs = max(1, min(8, (os.cpu_count() or 2) - 2))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    log = open(path + ".log", "w")
-    try:
-        return subprocess.Popen(
+    with open(path + ".log", "w") as log:
+        proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
              "--jobs", str(jobs), "--out", path], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), jobs
+            stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
+    atexit.register(_dryrun_stop, proc)
+    return {"proc": proc, "jobs": jobs, "path": path,
+            "t0": time.perf_counter()}
+
+
+def _dryrun_stop(proc):
+    """Kill the dry run and its workers (its whole session) if it runs."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _dryrun_wait(dry):
+    """Wait for the dry run (at most 900 s; then it is killed): its exit
+    code and wall seconds go into ``dry``."""
+    try:
+        dry["rc"] = dry["proc"].wait(timeout=900)
     finally:
-        log.close()
+        _dryrun_stop(dry["proc"])
+    dry["seconds"] = time.perf_counter() - dry["t0"]
 
 
 def _served_residency(arch, dev, lanes, smi):
@@ -3227,66 +3281,60 @@ def _roofline(cfg, shape, measured_ms):
                 RL.PEAK_FLOPS * measured_ms / 1e3)}
 
 
-def phase_analysis(dev, smi, serves, train, lanes):
-    """The `analysis` phase (see the module docstring)."""
+def phase_analysis(dev, smi, serves, train, lanes, dry):
+    """The `analysis` phase (see the module docstring); ``dry`` is the dry
+    run `_dryrun_start` started and `_dryrun_wait` ended."""
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
 
     t0 = time.perf_counter()
-    path = os.path.join(ROOT, "build", "chip_smoke", "dryrun.jsonl")
-    proc, jobs = _dryrun_proc(path)
-    try:
-        served = {arch: _served_residency(arch, dev, lanes, smi)
-                  for arch in (ARCH, RESIDENT, STAGED)}
-        tr = _train_residency(dev)
-        print(f"residency: {ARCH} train step (B {TRAIN_SHAPE[0]} x S "
-              f"{TRAIN_SHAPE[1]}, remat full, AdamW) under the dispatch "
-              f"trace: kernel calls {tr['kernel_calls']} (== residency."
-              f"expected_train_step: forward + recompute) | counted float "
-              f"flops {tr['counted_flops']:.4e}, int8 ops "
-              f"{tr['counted_int8_ops']:.4e} | analytic flops "
-              f"{tr['analytic_flops']:.4e}, int8 ops "
-              f"{tr['analytic_int8_ops']:.4e}")
-        print(f"dryrun: {ARCH} train step at B {TRAIN_SHAPE[0]} x S "
-              f"{TRAIN_SHAPE[1]}: meta estimate (arguments "
-              f"{tr['meta_argument_bytes'] / 1e9:.3f} GB + peak live "
-              f"{tr['meta_temp_bytes'] / 1e9:.3f} GB) "
-              f"{tr['meta_estimate_bytes'] / 1e9:.3f} GB vs the card's peak "
-              f"{tr['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated over "
-              f"the step + its arguments): {100 * tr['rel_err']:.1f}% off "
-              f"(<= {100 * MEMORY_RTOL:.0f}%) | on {smi}")
-        if tr["rel_err"] > MEMORY_RTOL:
-            raise AssertionError(f"meta memory estimate "
-                                 f"{tr['meta_estimate_bytes']} vs peak "
-                                 f"{tr['peak_bytes']}")
-        roof = {}
-        for arch in (ARCH, RESIDENT, STAGED):
-            cfg, sv = get_config(arch), serves[arch]
-            B, plen = served[arch]["shapes"]["prefill"]
-            roof[f"{arch} prefill"] = _roofline(
-                cfg, ShapeConfig("prefill", plen, B, "prefill"),
-                sv["prefill_ms"])
-            roof[f"{arch} decode (scan)"] = _roofline(
-                cfg, ShapeConfig("decode", ANALYSIS_SMAX, B, "decode"),
-                sv["decode_ms_per_token_scan"])
-        B, S = TRAIN_SHAPE
-        roof[f"{ARCH} train step"] = _roofline(
-            get_config(ARCH), ShapeConfig("train", S, B, "train"),
-            train["ms_per_step"]["fused"])
-        for k, r in roof.items():
-            print(f"roofline: {k}: model flops {r['model_flops']:.4e} | "
-                  f"analytic bound {r['bound_ms']:.4f} ms ({r['dominant']}; "
-                  f"compute {r['compute_ms']:.4f}, memory "
-                  f"{r['memory_ms']:.4f}) on H100 constants | measured "
-                  f"{r['measured_ms']:.3f} ms | bound/measured "
-                  f"{r['fraction']:.4f}, model flops at the bf16 peak / "
-                  f"measured {r['model_flops_fraction']:.5f} | on {smi}")
-        card_s = time.perf_counter() - t0
-        rc = proc.wait(timeout=900)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    path, jobs, rc = dry["path"], dry["jobs"], dry["rc"]
+    served = {arch: _served_residency(arch, dev, lanes, smi)
+              for arch in (ARCH, RESIDENT, STAGED)}
+    tr = _train_residency(dev)
+    print(f"residency: {ARCH} train step (B {TRAIN_SHAPE[0]} x S "
+          f"{TRAIN_SHAPE[1]}, remat full, AdamW) under the dispatch "
+          f"trace: kernel calls {tr['kernel_calls']} (== residency."
+          f"expected_train_step: forward + recompute) | counted float "
+          f"flops {tr['counted_flops']:.4e}, int8 ops "
+          f"{tr['counted_int8_ops']:.4e} | analytic flops "
+          f"{tr['analytic_flops']:.4e}, int8 ops "
+          f"{tr['analytic_int8_ops']:.4e}")
+    print(f"dryrun: {ARCH} train step at B {TRAIN_SHAPE[0]} x S "
+          f"{TRAIN_SHAPE[1]}: meta estimate (arguments "
+          f"{tr['meta_argument_bytes'] / 1e9:.3f} GB + peak live "
+          f"{tr['meta_temp_bytes'] / 1e9:.3f} GB) "
+          f"{tr['meta_estimate_bytes'] / 1e9:.3f} GB vs the card's peak "
+          f"{tr['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated over "
+          f"the step + its arguments): {100 * tr['rel_err']:.1f}% off "
+          f"(<= {100 * MEMORY_RTOL:.0f}%) | on {smi}")
+    if tr["rel_err"] > MEMORY_RTOL:
+        raise AssertionError(f"meta memory estimate "
+                             f"{tr['meta_estimate_bytes']} vs peak "
+                             f"{tr['peak_bytes']}")
+    roof = {}
+    for arch in (ARCH, RESIDENT, STAGED):
+        cfg, sv = get_config(arch), serves[arch]
+        B, plen = served[arch]["shapes"]["prefill"]
+        roof[f"{arch} prefill"] = _roofline(
+            cfg, ShapeConfig("prefill", plen, B, "prefill"),
+            sv["prefill_ms"])
+        roof[f"{arch} decode (scan)"] = _roofline(
+            cfg, ShapeConfig("decode", ANALYSIS_SMAX, B, "decode"),
+            sv["decode_ms_per_token_scan"])
+    B, S = TRAIN_SHAPE
+    roof[f"{ARCH} train step"] = _roofline(
+        get_config(ARCH), ShapeConfig("train", S, B, "train"),
+        train["ms_per_step"]["fused"])
+    for k, r in roof.items():
+        print(f"roofline: {k}: model flops {r['model_flops']:.4e} | "
+              f"analytic bound {r['bound_ms']:.4f} ms ({r['dominant']}; "
+              f"compute {r['compute_ms']:.4f}, memory "
+              f"{r['memory_ms']:.4f}) on H100 constants | measured "
+              f"{r['measured_ms']:.3f} ms | bound/measured "
+              f"{r['fraction']:.4f}, model flops at the bf16 peak / "
+              f"measured {r['model_flops_fraction']:.5f} | on {smi}")
+    card_s = time.perf_counter() - t0
     if rc != 0:
         with open(path + ".log") as fh:
             raise AssertionError(f"the dry run exited {rc}: "
@@ -3304,8 +3352,8 @@ def phase_analysis(dev, smi, serves, train, lanes):
           f"on meta, {jobs} worker processes): ok {counts['ok']}, skip "
           f"{counts['skip']}, error {counts['error']}, fits one 80 GB card "
           f"{counts['fits']}" + (f" | errors: {errors}" if errors else "")
-          + f" | {time.perf_counter() - t0:.1f} s in all, card work "
-          f"{card_s:.1f} s")
+          + f" | {dry['seconds']:.1f} s from its start (beside the build "
+          f"and the kernel rows), the phase's card work {card_s:.1f} s")
     if len(recs) != cells or counts["ok"] + counts["skip"] + \
             counts["error"] != cells:
         raise AssertionError(f"the dry run wrote {len(recs)} records for "
@@ -3314,6 +3362,573 @@ def phase_analysis(dev, smi, serves, train, lanes):
     return {"served": served, "train": tr, "roofline": roof,
             "dryrun": counts, "dryrun_errors": errors,
             "seconds": time.perf_counter() - t0}
+
+# ------------------------------------------------------------- phase dist --
+SHARDED = "rns-smollm-135m-sharded"
+RESIDENT_SHARDED = "rns-smollm-135m-resident-sharded"
+# 4 ragged prompts, bucket 16: a prefill's launches are M = 128 rows (the
+# launch cases hold M = 512), so its all-reduces stay small
+DIST_PROMPT_LENS = [3, 5, 9, 14]
+DIST_NEW_TOKENS = 8                   # the unsharded references' tokens
+DIST_SCAN_TOKENS = 2                  # the uncaptured scan run's tokens
+DIST_TIMEOUT_S = 240                  # each rank's own deadline
+# (group size, layout of its launch cases, its engine runs: (arch,
+# layout, greedy tokens of its host generate)); the 5-rank group also
+# traces the wire, the 2-rank group reduces the compressed gradients.
+# The 5-rank channel run's decode step is 210 all-reduces of ~10 ms on
+# one card (PERF.md §5): 3 decode steps hold its tokens and launch count
+DIST_GROUPS = ((5, "channel", ((SHARDED, "channel", 4),
+                               (RESIDENT_SHARDED, "auto", 8))),
+               (2, "column", ((SHARDED, "column", 8),)))
+
+
+def _dist_cases(cfg):
+    """(label, K, N, basis, form) of each distinct full-width linear of
+    `-fused` (quantize launches in ``basis_for_int8_matmul(K)``) and of the
+    resident chain (residue-in; ``up`` exits in the domain, ``down`` is
+    gated; the MLP's in ``basis_for_chain(d_ff)``)."""
+    from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+
+    d, f = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    per_k, chain = basis_for_int8_matmul, basis_for_chain(f)
+    return [("q/wo", d, qd, per_k(d), "quantize"),
+            ("k/v", d, kvd, per_k(d), "quantize"),
+            ("gate/up", d, f, per_k(d), "quantize"),
+            ("down", f, d, per_k(f), "quantize"),
+            ("res qkv", d, qd + 2 * kvd, per_k(d), "residues:float"),
+            ("res up", d, f, chain, "residues:residues"),
+            ("res down", f, d, chain, "gated")]
+
+
+def _dist_operands(case, M, dev):
+    """Seeded operands of one launch case at M rows: (x, encoded weight,
+    the launch's keyword arguments, basis)."""
+    import torch
+    from repro_torch.core.quant import quant_scale
+    from repro_torch.core.rns_tensor import encode, encode_activation
+
+    _, K, N, basis, form = case
+    g = torch.Generator(device=dev).manual_seed(7 * K + 13 * N + M)
+    x = torch.randn(M, K, generator=g, device=dev)
+    wt = encode(torch.randn(K, N, generator=g, device=dev) / math.sqrt(K),
+                basis)
+    kw = {"scale_col": wt.scale, "gate": None, "emit": "float"}
+    if form == "quantize":
+        x = x.to(torch.bfloat16)
+        kw["scale_row"] = quant_scale(x, dim=-1)
+    else:
+        x = encode_activation(x, basis)
+        kw["scale_row"] = x.scale
+        if form == "gated":
+            kw["gate"] = torch.randint(-128, 128, (M, K), generator=g,
+                                       device=dev, dtype=torch.int8)
+            kw["scale_row"] = x.scale * 0.5
+        if form == "residues:residues":
+            kw["emit"] = "residues"
+    return x, wt, kw, basis
+
+
+def _dist_kernel(case, M, ctx, dev):
+    """This rank's part of one sharded case as the sharded engine runs it
+    (`rns_shard.rank_launch`): its layout, its kernel (the channel slice's
+    `rns_fused_crt_partial`, the column slice's `rns_fused_matmul`, or the
+    whole launch when it replicates) and the collective step on the
+    kernel's output, as thunks, and the kernel's (bytes, ops)."""
+    from repro_torch.core.rns_tensor import RNSTensor
+    from repro_torch.dist import rns_shard as rs
+
+    x, wt, kw, basis = _dist_operands(case, M, dev)
+    part = rs.rank_launch(x, wt, ctx=ctx, **kw)
+    C, (K, N), n = len(basis.moduli), wt.shape, ctx.nshards
+    res_in = isinstance(x, RNSTensor)
+    # the A operand's bytes (a channel's residues, or the float block),
+    # a weight channel's, an output element's
+    xbytes = (x.residues if res_in else x).element_size() * M * K
+    wbytes = wt.residues.element_size() * K
+    out_b = C if kw["emit"] == "residues" else 4
+    if part.layout == "channel":
+        cl = C // n
+        nbytes = xbytes * (cl if res_in else 1) + wbytes * cl * N \
+            + 4 * rs.crt_tables(basis)[2] * M * N
+        ops = 2.0 * M * K * N * cl
+    else:
+        nl = N // n if part.layout == "column" else N
+        nbytes = xbytes * (C if res_in else 1) + wbytes * C * nl \
+            + out_b * M * nl
+        ops = 2.0 * M * K * nl * C
+    return part.layout, (lambda i=0: part.kernel()), part.finish, nbytes, \
+        ops
+
+
+def _full_basis(case, M, dev):
+    """The one-process launch of a case on the full basis, as a thunk."""
+    from repro_torch.kernels import rns_fused_matmul
+
+    x, wt, kw, _ = _dist_operands(case, M, dev)
+    return lambda i=0: rns_fused_matmul(x, wt, **kw)
+
+
+def _bits(out):
+    """Raw bytes of a launch's output (residues and scale of an RNSTensor)."""
+    import torch
+
+    if hasattr(out, "residues"):
+        return _bits(out.residues) + _bits(out.scale)
+    return out.contiguous().view(-1).view(torch.uint8).cpu().numpy() \
+        .tobytes()
+
+
+def _dist_launches(ctx, dev, cfg):
+    """Every launch case at M = 8 and 512 on this rank: bit-equality of the
+    sharded launch with the full-basis one, this rank's kernel and the
+    full-basis launch in device µs (graph-timed, one rank at a time), the
+    collective step's wall µs (every rank together: the all-reduce, and
+    the channel layout's CRT finish or the column gather's scatter)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.rns_shard import crt_tables, sharded_fused_matmul
+
+    rows = []
+    for case in _dist_cases(cfg):
+        for M in (8, 512):
+            x, wt, kw, _ = _dist_operands(case, M, dev)
+            want = _full_basis(case, M, dev)()
+            got = sharded_fused_matmul(x, wt, ctx=ctx, **kw)
+            lay, launch, finish, nbytes, ops = _dist_kernel(case, M, ctx,
+                                                            dev)
+            full = _full_basis(case, M, dev)
+            us = full_us = None
+            for r in range(ctx.nshards):
+                dist.barrier(group=ctx.group)
+                if r == ctx.rank:
+                    us = 1e3 * device_ms(launch, 10)
+                    full_us = 1e3 * device_ms(full, 10)
+                    torch.cuda.synchronize()
+                dist.barrier(group=ctx.group)
+            coll = []
+            if lay != "replicate":
+                out = launch()
+                for i in range(10):
+                    # the channel step sums into the kernel's output
+                    arg = out.clone() if lay == "channel" else out
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    finish(arg)
+                    torch.cuda.synchronize()
+                    if i >= 3:
+                        coll.append(1e6 * (time.perf_counter() - t0))
+            label, K, N, basis, form = case
+            rows.append({
+                "label": label, "K": K, "N": N, "M": M, "form": form,
+                "C": len(wt.moduli), "L1": crt_tables(basis)[2],
+                "layout": lay,
+                "equal": _bits(got) == _bits(want), "us": us,
+                "full_us": full_us,
+                "bound_us": 1e3 * bound_ms(nbytes, ops)[0],
+                "collective_us": (statistics.median(coll) if coll
+                                  else None)})
+    return rows
+
+
+def _dist_engine(arch, layout, tokens, ctx, mesh, dev, ref, wire=False):
+    """One sharded Engine run of a full-width config: one prefill (its
+    logits against the unsharded ``ref``'s, its launches), then with
+    ``wire`` one decode step from its cache under the residency pass
+    (`_dist_wire`); the host generate of ``tokens`` tokens (its launches,
+    tokens against the first of ``ref``'s) and the uncaptured scan's
+    first tokens; a decode step's launches as `dist.engine.
+    decode_launches` reads them off the placed weights.  Counts are set
+    to 0 just before each counted call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.engine import decode_launches
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config(arch)
+    params = T.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in DIST_PROMPT_LENS]
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, smax=128, lanes=8, device=dev, mesh=mesh,
+                 dist_layout=layout)
+    batch, _ = eng._pack(prompts)
+    reset_launches()
+    with torch.inference_mode(), eng._ctx():
+        logits, cache, pos0 = T.prefill(cfg, eng.params, batch, eng.smax)
+    torch.cuda.synchronize()
+    prefill = read_launches()
+    out = {"arch": arch, "layout": layout, "nshards": ctx.nshards,
+           "logits_equal": _bits(logits) == _bits(ref["logits"])}
+    if wire:
+        out["wire"] = _dist_wire(eng, ctx, batch, logits, cache, pos0)
+    del cache
+    reset_launches()
+    t1 = time.perf_counter()
+    host = eng.generate(prompts, tokens, engine="host")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    gen = read_launches()
+    # the uncaptured scan: the first tokens of the host run's
+    scan = eng.generate(prompts, DIST_SCAN_TOKENS, engine="scan")
+
+    def cut(outs, n):
+        return [o[:len(q) + n] for o, q in zip(outs, prompts)]
+
+    out.update({
+        "tokens": tokens,
+        "tokens_equal": host == cut(ref["tokens"], tokens)
+        and scan == cut(host, DIST_SCAN_TOKENS),
+        "captured": eng.captured, "scan_replays": eng.scan_replays,
+        "prefill_launches": prefill, "generate_launches": gen,
+        "step_launches": {k: (gen[k] - prefill[k]) // (tokens - 1)
+                          for k in gen},
+        "step_expected": decode_launches(cfg, eng.params),
+        "host_s": host_s, "seconds": time.perf_counter() - t0})
+    return out
+
+
+def _dist_wire(eng, ctx, batch, logits, cache, pos0):
+    """One sharded decode step of a sharded engine, from its prefill's
+    cache, under the residency pass: its collectives by name and operand,
+    `check_reduced_wire`, and their ring wire bytes beside the cost
+    model's."""
+    import torch
+    from repro_torch.analysis import check_reduced_wire
+    from repro_torch.analysis.residency import TraceMode
+    from repro_torch.dist import comms
+    from repro_torch.dist.engine import launch_bases
+    from repro_torch.dist.rns_shard import crt_tables
+    from repro_torch.launch import costs
+    from repro_torch.models import transformer as T
+
+    cfg = eng.cfg
+    with torch.inference_mode(), eng._ctx():
+        cur = torch.argmax(logits, -1)
+        with TraceMode() as mode:
+            T.decode_step(cfg, eng.params, cache, {"tokens": cur[:, None]},
+                          pos0, positions=pos0 - batch["pad"])
+        torch.cuda.synchronize()
+    summ = mode.summary
+    bases = launch_bases(cfg)
+    rep = check_reduced_wire(summ, {len(b.moduli) for b in bases},
+                             nlimbs={crt_tables(b)[2] for b in bases},
+                             subject=f"{cfg.name} decode")
+    kinds = sorted({f"{name} {dtype} x{len(shape)}d"
+                    for name, ops in summ.collectives
+                    for shape, dtype in ops})
+    return {"collectives": len(summ.collectives), "kinds": kinds,
+            "clean": rep.ok, "findings": [str(f) for f in rep.findings],
+            "only_reduced": all(dtype in ("int32", "float32")
+                                for _, ops in summ.collectives
+                                for _, dtype in ops),
+            "kernel_calls": dict(summ.kernel_calls),
+            "wire_bytes": comms.collective_wire_bytes(summ, ctx.nshards),
+            "model_bytes": costs.comms_bytes_decode(
+                cfg, batch["tokens"].shape[0], ndev=ctx.nshards,
+                layout=ctx.layout)}
+
+
+def _dist_compression(ctx, dev, cfg):
+    """`compressed_mean_all_reduce` of a gradient tree of the fused model's
+    parameter shapes (rank r's drawn from seed 1000 + r), against the same
+    formula over every rank's tree computed in this one process."""
+    import torch
+    from repro_torch.launch.inputs import abstract_params
+    from repro_torch.train.compression import (compressed_mean_all_reduce,
+                                               dequantize, quantize)
+
+    shapes = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        else:
+            shapes.append(tuple(node.shape))
+
+    walk(abstract_params(cfg, encoded=False))
+
+    def grads(r):
+        g = torch.Generator(device=dev).manual_seed(1000 + r)
+        return [torch.randn(s, generator=g, device=dev) * (1.0 + r)
+                for s in shapes]
+
+    mine = grads(ctx.rank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compressed_mean_all_reduce(mine, ctx.group)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    every = [grads(r) for r in range(ctx.nshards)]
+    equal = True
+    for i, out in enumerate(got):
+        amax = max(torch.amax(torch.abs(g[i])) for g in every)
+        qs = [quantize(g[i], amax) for g in every]
+        total = sum(q for q, _ in qs[1:]) + qs[0][0]
+        want = dequantize(total, qs[0][1], ctx.nshards, out.dtype)
+        equal &= _bits(out) == _bits(want)
+    return {"leaves": len(shapes), "elements": sum(math.prod(s)
+                                                   for s in shapes),
+            "equal": equal, "wall_s": wall}
+
+
+def _dist_rank(rank, n, tmp, layout, runs, device):
+    """One rank of a phase-14 group (a spawned process on ``device``,
+    cuda:0 on the card): the
+    launch cases, the engine runs, and the wire trace (5 ranks) or the
+    compressed all-reduce (2 ranks); writes its results as JSON."""
+    import datetime
+    import traceback
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), n),
+            rank=rank, world_size=n,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        from repro_torch.configs.base import get_config
+        from repro_torch.dist.context import DistContext
+        from repro_torch.dist.engine import make_context
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(model=n)
+        cfg = get_config(SHARDED)
+        out = {"rank": rank, "launch": _dist_launches(
+            DistContext(mesh=mesh, layout=layout), dev, cfg)}
+        out["engine"] = []
+        for arch, lay, tokens in runs:
+            ref = torch.load(os.path.join(tmp, f"ref_{arch}.pt"))
+            ctx = make_context(get_config(arch), mesh, layout=lay)
+            run = _dist_engine(arch, lay, tokens, ctx, mesh, dev, ref,
+                               wire=arch == SHARDED and lay == "channel")
+            if "wire" in run:
+                out["wire"] = run.pop("wire")
+            out["engine"].append(run)
+            torch.cuda.empty_cache()
+        if n == 2:
+            out["compression"] = _dist_compression(
+                DistContext(mesh=mesh), dev, cfg)
+        from repro_torch.dist import comms
+        out["transport"] = comms.transport(mesh.group("model"), dev)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def _spawn_ranks(n, tmp, layout, runs, device):
+    """Start the n ranks of one group and join each with a deadline; any
+    rank's failure or lateness fails the phase (the rest are killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, n, tmp, layout, runs, device))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT_S + 60
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
+            for r in range(n)
+            if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
+    if late or errs or any(p.exitcode for p in procs):
+        raise AssertionError(f"dist: {n}-rank group failed: late ranks "
+                             f"{late}, exit codes "
+                             f"{[p.exitcode for p in procs]}, errors {errs}")
+    out = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def phase_dist(dev, smi):
+    """The `dist` phase (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.context import DistContext
+    from repro_torch.kernels import tune
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine, bucket_plen
+
+    t0 = time.perf_counter()
+    cfg = get_config(SHARDED)
+    # resolve every rank-0 slice launch once here, alone on the card, so
+    # the tuner's sweeps run before the ranks and their rows are table
+    # hits there
+    sweeps = tune.stats["sweeps"]
+    prefill_m = 8 * bucket_plen(cfg, max(DIST_PROMPT_LENS))
+    for n, layout, _ in DIST_GROUPS:
+        fake = DistContext(mesh=Mesh({"data": 1, "model": n}), layout=layout)
+        for case in _dist_cases(cfg):
+            for M in (8, prefill_m, 512):
+                _dist_kernel(case, M, fake, dev)[1]()
+                _full_basis(case, M, dev)()
+    torch.cuda.synchronize()
+    swept = tune.stats["sweeps"] - sweeps
+    # the unsharded references, one per config, on the seed-0 weights
+    tmp_root = os.path.join(ROOT, "build", "chip_smoke", "dist")
+    shutil.rmtree(tmp_root, ignore_errors=True)
+    refs = {}
+    for arch in (SHARDED, RESIDENT_SHARDED):
+        acfg = get_config(arch)
+        params = T.make_params(acfg,
+                               torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, acfg.vocab_size, n).tolist()
+                   for n in DIST_PROMPT_LENS]
+        eng = Engine(acfg, params, smax=128, lanes=8, device=dev)
+        refs[arch] = {"tokens": eng.generate(prompts, DIST_NEW_TOKENS,
+                                             engine="host"),
+                      "logits": eng.prefill_logits(prompts).cpu()}
+        del eng, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    groups = {}
+    for n, layout, runs in DIST_GROUPS:
+        tmp = os.path.join(tmp_root, f"group{n}")
+        os.makedirs(tmp)
+        for arch, ref in refs.items():
+            torch.save(ref, os.path.join(tmp, f"ref_{arch}.pt"))
+        t1 = time.perf_counter()
+        groups[n] = (_spawn_ranks(n, tmp, layout, runs, str(dev)),
+                     time.perf_counter() - t1)
+    return {"groups": groups, "sweeps": swept, "ref_s": ref_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def print_dist(res, smi):
+    """The `dist:` lines, and the phase's gates: every rank bit-equal, the
+    decode step's launches, the wire, the compressed all-reduce."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import comms
+
+    groups = res["groups"]
+    bad = []
+    for n, (ranks, secs) in groups.items():
+        transport = ranks[0]["transport"]
+        for i, row in enumerate(ranks[0]["launch"]):
+            rows = [r["launch"][i] for r in ranks]
+            equal = all(r["equal"] for r in rows)
+            if not equal:
+                bad.append(f"launch {row['label']} M={row['M']} on {n}")
+            us = [r["us"] for r in rows]
+            C, M, N = row["C"], row["M"], row["N"]
+            emit = "residues" if row["form"] == "residues:residues" else \
+                "float"
+            wire = (comms.channel_bytes(M, N, row["L1"], n, emit=emit)
+                    if row["layout"] == "channel" else
+                    comms.column_bytes(C, M, N, n, emit=emit, itemsize=1)
+                    if row["layout"] == "column" else 0.0)
+            coll = [r["collective_us"] for r in rows]
+            print(f"dist: launch {row['label']} (K {row['K']}, N "
+                  f"{row['N']}, C {C}, {row['form']}) M={M} on {n} ranks, "
+                  f"{row['layout']}: every rank bit-equal to the full-basis "
+                  f"rns_fused_matmul {equal} | rank kernel device us "
+                  f"[{', '.join(f'{u:.1f}' for u in us)}] (median "
+                  f"{statistics.median(us):.1f}) vs full-basis launch "
+                  f"{statistics.median(r['full_us'] for r in rows):.1f} us, "
+                  f"bound {row['bound_us']:.2f} us"
+                  + (f" | collective step (all-reduce and epilogue) wall "
+                     f"us (median of ranks) "
+                     f"{statistics.median(coll):.0f}, {wire:.0f} wire bytes "
+                     f"a rank (comms model), over {transport}"
+                     if row["collective_us"] is not None else
+                     " | replicated, no collective")
+                  + f" | on {smi}")
+        for j, run in enumerate(ranks[0]["engine"]):
+            runs = [r["engine"][j] for r in ranks]
+            ok = all(r["tokens_equal"] and r["logits_equal"]
+                     and r["captured"] is False for r in runs)
+            step = runs[0]["step_launches"]
+            if not ok:
+                bad.append(f"engine {run['arch']} {run['layout']} on {n}")
+            want = run["step_expected"]
+            if any({k: r["step_launches"][k] for k in r["step_expected"]}
+                   != r["step_expected"] for r in runs):
+                bad.append(f"decode step launches {step} on {n} ranks, "
+                           f"expected {want}")
+            layers = get_config(SHARDED).num_layers
+            if run["arch"] == SHARDED and run["layout"] == "channel" and \
+                    want != {"rns_fused_crt_partial": 7 * layers,
+                             "rns_fused_matmul": 0}:
+                bad.append(f"channel decode step {want}: expected 210 "
+                           "rns_fused_crt_partial and no rns_fused_matmul")
+            print(f"dist: engine {run['arch']} dist_layout="
+                  f"{run['layout']} on {n} ranks (processes on one card, "
+                  f"gloo), 4 ragged prompts in 8 lanes, {run['tokens']} "
+                  f"greedy tokens: tokens (host, and the uncaptured scan's "
+                  f"first {DIST_SCAN_TOKENS}, captured="
+                  f"{runs[0]['captured']}) and prefill logits "
+                  f"bit-equal to the unsharded Engine on every rank {ok} | "
+                  f"launches a decode step a rank "
+                  f"{ {k: v for k, v in step.items() if v} } (expected "
+                  f"{want}), a prefill "
+                  f"{ {k: v for k, v in runs[0]['prefill_launches'].items() if v} }"
+                  f" | host generate {runs[0]['host_s']:.2f} s, run "
+                  f"{runs[0]['seconds']:.1f} s | on {smi}")
+        if "wire" in ranks[0]:
+            ws = [r["wire"] for r in ranks]
+            ok = all(w["clean"] and w["only_reduced"] for w in ws)
+            if not ok:
+                bad.append(f"wire on {n}: {[w['findings'] for w in ws]}")
+            w = ws[0]
+            print(f"dist: wire {SHARDED} channel, one decode step (8 lanes) "
+                  f"under the residency pass on {n} ranks: {w['collectives']}"
+                  f" collectives ({', '.join(w['kinds'])}), only limb planes "
+                  f"and floats {w['only_reduced']}, check_reduced_wire clean "
+                  f"{all(x['clean'] for x in ws)} | kernel calls "
+                  f"{w['kernel_calls']} | comms.collective_wire_bytes of the "
+                  f"trace {w['wire_bytes']:.0f} B a rank, "
+                  f"costs.comms_bytes_decode {w['model_bytes']:.0f} B")
+        if "compression" in ranks[0]:
+            cs = [r["compression"] for r in ranks]
+            if not all(c["equal"] for c in cs):
+                bad.append("compression")
+            print(f"dist: compression compressed_mean_all_reduce on {n} "
+                  f"ranks over {cs[0]['leaves']} gradient leaves of "
+                  f"{ARCH}'s parameter shapes ({cs[0]['elements']} "
+                  f"elements): bit-equal to the formula on one process "
+                  f"{all(c['equal'] for c in cs)} | "
+                  f"{max(c['wall_s'] for c in cs):.2f} s over {transport} "
+                  f"| on {smi}")
+        print(f"dist: {n}-rank group {secs:.1f} s")
+    print(f"dist: phase {res['seconds']:.1f} s (tuner sweeps before the "
+          f"ranks {res['sweeps']}, unsharded references "
+          f"{res['ref_s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"dist: {bad}")
 
 
 def _to(node, dev):
@@ -3367,6 +3982,7 @@ def main() -> int:
         marks[phase] = round(time.perf_counter() - t_start - sum(
             marks.values()), 1)
 
+    dry = _dryrun_start()
     dev_info = phase_device(layer_shapes, lanes, lanes * bucket)
     mark("device")
     dev = torch.device("cuda")
@@ -3495,6 +4111,8 @@ def main() -> int:
           f"check_pipeline refuses the undersized chain basis with "
           f"AnalysisError: " + "; ".join(verify["findings"]))
     mark("tune+verify")
+    _dryrun_wait(dry)
+    mark("dryrun wait")
     print("phase serve:")
     misses = tune.stats["capture_misses"]
     serves = {}
@@ -3691,8 +4309,12 @@ def main() -> int:
           f"{train['seconds']} | on {smi}")
     mark("train")
     print("phase analysis:")
-    analysis = phase_analysis(dev, smi, serves, train, lanes)
+    analysis = phase_analysis(dev, smi, serves, train, lanes, dry)
     mark("analysis")
+    print("phase dist:")
+    dist_res = phase_dist(dev, smi)
+    print_dist(dist_res, smi)
+    mark("dist")
     print(f"time: seconds by phase {marks}, "
           f"{time.perf_counter() - t_start:.0f} s in all")
 
@@ -3714,6 +4336,25 @@ def main() -> int:
             f"train:{ARCH}": train}
     quantize = {a: n - runs[a]["launches"]["residue_in"]
                 for a, n in by_path("rns_fused_matmul").items()}
+    # the sharded engine runs, summed over each group's ranks (prefill
+    # logits and the host generate; the scan run is not counted)
+    def dist_launches(run, name):
+        pre, gen = run["prefill_launches"], run["generate_launches"]
+        if name == "rns_fused_matmul":          # the quantize launches
+            return (pre[name] + gen[name] - pre["residue_in"]
+                    - gen["residue_in"])
+        return pre[name] + gen[name]
+
+    dist_paths = {k: {} for k in ("rns_fused_crt_partial",
+                                  "rns_fused_matmul", "residue_in")}
+    for n, (ranks, _) in dist_res["groups"].items():
+        for j, run in enumerate(ranks[0]["engine"]):
+            key = f"dist:{run['arch']}/{run['layout']}/{n} ranks"
+            for name, paths in dist_paths.items():
+                got = sum(dist_launches(r["engine"][j], name) for r in ranks)
+                if got:
+                    paths[key] = got
+    quantize.update(dist_paths["rns_fused_matmul"])
     src = "src/repro_torch/csrc/"
 
     def entry(name, source, replaces, launches, agg, rows_of):
@@ -3740,7 +4381,8 @@ def main() -> int:
                                                           rows2)
               + rows_of("rns_forward", fam_rows)),
         entry("rns_fused_matmul:residue_in", src + "rns_common.cuh",
-              "src/repro/kernels/rns_fused.py:352", by_path("residue_in"),
+              "src/repro/kernels/rns_fused.py:352",
+              {**by_path("residue_in"), **dist_paths["residue_in"]},
               resid, rows_of("rns_fused_matmul:residue_in", rows2)),
         entry("rns_matmul", src + "rns_common.cuh",
               "src/repro/kernels/rns_matmul.py:84", by_path("rns_matmul"),
@@ -3765,7 +4407,8 @@ def main() -> int:
         entry("rns_fused_crt_partial", src + "rns_common.cuh",
               "src/repro/kernels/rns_fused.py:569",
               {"entry:rns_fused_crt_partial":
-               entries["launches"]["rns_fused_crt_partial"]}, crt,
+               entries["launches"]["rns_fused_crt_partial"],
+               **dist_paths["rns_fused_crt_partial"]}, crt,
               rows_of("rns_fused_crt_partial", rows3)),
     ]
     for k in kernels:
@@ -3787,7 +4430,8 @@ def main() -> int:
                        "tune_stats": dict(tune.stats),
                        "families": families, "zoo_check": zoo,
                        "family_kernels": fam_rows, "train": train,
-                       "analysis": analysis, "phase_seconds": marks},
+                       "analysis": analysis, "dist": dist_res,
+                       "phase_seconds": marks},
                       fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

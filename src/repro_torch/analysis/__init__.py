@@ -9,7 +9,8 @@ Three passes and a schema check, one vocabulary:
     over the aten ops of a traced call (`absint`);
   * **residency** — structural invariants of a traced call (no modular
     reduction outside a kernel region, exactly N kernel calls, no host
-    sync in a step), from a ``TorchDispatchMode`` trace;
+    sync in a step, no residue slab on a sharded step's wire), from a
+    ``TorchDispatchMode`` trace;
   * **admissibility** — each tile launch's (tile height, K splits) against
     the kernel's constants (compiled heights, cluster size, shared memory,
     the 32-row tile's channels and alignment), plan-table moduli limits,
@@ -33,7 +34,8 @@ from .findings import AnalysisError, Finding, Report, merged
 from .intervals import TOP, Interval, dtype_range
 from .lint import check_config
 from .residency import (TraceMode, TraceSummary, check_kernel_count,
-                        check_no_callbacks, check_resident, summarize_fn)
+                        check_no_callbacks, check_reduced_wire,
+                        check_resident, summarize_fn)
 from .schema import (validate_bench, validate_bench_file, validate_tune_table,
                      validate_tune_table_file)
 
@@ -44,7 +46,7 @@ __all__ = [
     "pipeline_specs_for",
     "check_fn_bounds", "interpret", "AbsintResult",
     "TraceSummary", "TraceMode", "summarize_fn", "check_resident",
-    "check_kernel_count", "check_no_callbacks",
+    "check_kernel_count", "check_no_callbacks", "check_reduced_wire",
     "check_launch", "check_basis_tables", "check_tune_table",
     "check_config_launches",
     "validate_bench", "validate_bench_file", "validate_tune_table",

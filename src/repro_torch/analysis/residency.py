@@ -14,6 +14,12 @@ modular reduction outside a kernel", "exactly N kernel calls", "no host
 sync in the step" (the precondition of capturing a step as a CUDA graph,
 the port's stand-in for the reference's decode scan).
 
+Collectives (`torch.distributed`'s ``c10d`` ops, which reach the
+dispatcher) run outside a kernel are recorded by name and operands
+(shape, dtype) in ``TraceSummary.collectives``: `check_reduced_wire`
+holds a sharded step to the channel layout's wire contract, and
+`dist.comms.collective_wire_bytes` prices what crossed.
+
 The mode also counts what the dry run reads (`launch/dryrun.py`): the
 float flops outside the regions by `torch.utils.flop_counter`'s formulas,
 each kernel call's operations from its shapes (`kernel_ops`), and the peak
@@ -40,7 +46,8 @@ from .findings import Report
 
 __all__ = [
     "TraceSummary", "TraceMode", "RegionMode", "summarize_fn", "check_resident",
-    "check_kernel_count", "check_no_callbacks", "kernel_ops",
+    "check_kernel_count", "check_no_callbacks", "check_reduced_wire",
+    "kernel_ops", "COLLECTIVES",
     "expected_launches", "expected_step", "expected_prefill",
     "expected_train_step", "kernel_calls", "tensors", "MODULAR_OPS",
     "SYNC_OPS", "TO_HOST", "WRAPPERS", "COUNTED", "decomposed",
@@ -64,6 +71,21 @@ WRAPPERS = ("rns_fused_matmul", "rns_fused_crt_partial", "rns_matmul",
 COUNTED = ("rns_fused_matmul", "residue_in", "rns_forward", "rns_matmul",
            "rns_reverse", "rns_modmul", "flash_attention", "fold",
            "rns_fused_crt_partial")
+
+# the c10d ops recorded as collectives: op -> (name, the argument holding
+# the operands this process contributes)
+COLLECTIVES = {
+    "c10d.allreduce_": ("all_reduce", 0),
+    "c10d.allreduce_coalesced_": ("all_reduce", 0),
+    "c10d.broadcast_": ("broadcast", 0),
+    "c10d.allgather_": ("all_gather", 1),
+    "c10d._allgather_base_": ("all_gather", 1),
+    "c10d.allgather_into_tensor_coalesced_": ("all_gather", 1),
+    "c10d.reduce_scatter_": ("reduce_scatter", 1),
+    "c10d._reduce_scatter_base_": ("reduce_scatter", 1),
+    "c10d.alltoall_": ("all_to_all", 1),
+    "c10d.alltoall_base_": ("all_to_all", 1),
+}
 
 
 _NAMES: Dict = {}                 # op overload -> "aten.<name>"
@@ -114,6 +136,9 @@ class TraceSummary:
     kernel_ops: Counter           # wrapper -> operations of its calls
     peak_bytes: int = 0           # peak live bytes of storages made
     failed_op: Optional[str] = None   # the op that raised, if any
+    # one entry a collective outside the regions: (name, ((shape, dtype
+    # name), ...)) of the operands this process contributes
+    collectives: list = dataclasses.field(default_factory=list)
 
     def count_outside(self, names: Iterable[str]) -> int:
         return sum(self.outside.get(n, 0) for n in names)
@@ -256,6 +281,11 @@ class TraceMode(RegionMode):
         inside = _build.region_depth() > 0
         s = self.summary
         (s.inside if inside else s.outside)[name] += 1
+        coll = COLLECTIVES.get(name)
+        if coll is not None and not inside:
+            s.collectives.append((coll[0], tuple(
+                (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for t in tensors(args[coll[1]]))))
         if not inside and name in SYNC_OPS:
             s.syncs[name] += 1
         try:
@@ -342,6 +372,34 @@ def check_no_callbacks(summary: TraceSummary, *,
         rep.add("residency", "host boundary",
                 f"host sync(s) in the step: {dict(summary.syncs)} — a "
                 f"captured step cannot read the device on the host")
+    return rep
+
+
+def check_reduced_wire(summary: TraceSummary, channels: Iterable[int], *,
+                       nlimbs: Optional[Iterable[int]] = None,
+                       subject: str = "trace") -> Report:
+    """Channel-sharded wire invariant: residues never cross between ranks.
+
+    A channel-sharded launch communicates only its reduced result: the
+    narrow (L1, M, N) int32 CRT limb planes, or a float output.  A
+    collective whose operand is an integer stack of 3+ dims led by a
+    launch basis' channel count (``channels``) means a residue slab was on
+    the wire.  ``nlimbs`` lists the limb-plane leading dims, so a basis
+    whose L1 equals another basis' C does not false-positive.
+    """
+    rep = Report(subject=f"residency:{subject}")
+    chans = set(int(c) for c in channels)
+    limbs = set(int(v) for v in (nlimbs or ()))
+    for name, operands in summary.collectives:
+        for shape, dtype in operands:
+            if (len(shape) >= 3 and shape[0] in chans
+                    and shape[0] not in limbs
+                    and "int" in dtype and "uint" not in dtype[:4]):
+                rep.add("residency", "reduced wire",
+                        f"collective '{name}' moves an integer {shape} "
+                        f"{dtype} stack whose leading dim matches a launch "
+                        f"basis' channel count — residues crossed between "
+                        f"ranks instead of the reduced result")
     return rep
 
 

@@ -3,10 +3,11 @@
 configuration and a smoke twin of the same family, with the reference's
 training fields (remat, its policy and the optimizer) and the shapes its
 dry run skips (``skip_shapes``); `SHAPES` are the dry run's global
-(seq_len × global_batch) cells.  The reference's ``attn_impl`` and
-``grad_compression`` are fixed at its defaults (blocked attention, no
-gradient compression: the cost model reads them as such), ``dist_layout``
-waits for the distributed port, and ``scan_layers`` has no counterpart (a
+(seq_len × global_batch) cells.  ``dist_layout`` is the layout preference
+an Engine built with a mesh reads (`repro_torch.dist`), and
+``grad_compression`` the int8 gradient all-reduce the cost model bills
+(`train/compression.py`).  The reference's ``attn_impl`` is fixed at its
+default (blocked attention), and ``scan_layers`` has no counterpart (a
 Python loop runs the layers)."""
 from __future__ import annotations
 
@@ -77,6 +78,11 @@ class ModelConfig:
     # "float" or "residue": stacked QKV and the GLU MLP stay in the residue
     # domain between launches (needs encode_weights).
     linear_domain: str = "float"
+    # "none" | "auto" | "channel" | "column": the layout preference of
+    # sharded serving (`repro_torch.dist`), read only by an Engine built
+    # with a mesh: "channel" splits the residue channels C over "model",
+    # "column" the output columns N, "auto" picks per launch by wire bytes
+    dist_layout: str = "none"
     param_dtype: str = "bfloat16"
     # training: remat one layer at a time, recomputing the whole layer
     # ("full"), all but the mixer's and the MLP's outputs ("save_ar") or
@@ -84,6 +90,7 @@ class ModelConfig:
     remat: bool = True
     remat_policy: str = "full"            # full | save_ar | none
     optimizer: str = "adamw"              # adamw | adafactor
+    grad_compression: bool = False        # int8 all-reduce of the gradients
     attn_block_kv: int = 1024         # key block of the online softmax
     # shapes of `SHAPES` the dry run skips (a full-attention stack has no
     # sub-quadratic structure for long_500k)
@@ -94,7 +101,8 @@ class ModelConfig:
         """The structured datapath of every projection (built once)."""
         return dataclasses.replace(LinearSpec.parse(self.linear_backend),
                                    encode_weights=self.encode_weights,
-                                   domain=self.linear_domain)
+                                   domain=self.linear_domain,
+                                   dist=self.dist_layout)
 
     @property
     def d_inner(self) -> int:

@@ -1,5 +1,4 @@
-"""The paper's RNS-accelerator LM, port of `repro/configs/rns_paper.py`
-but for its two `-sharded` entries (the port has no multi-device layout):
+"""The paper's RNS-accelerator LM, port of `repro/configs/rns_paper.py`:
 the smollm backbone with every linear on the RNS datapath.
 
   (none)    — `rns-smollm-135m`: live weights on the ``auto`` backend (the
@@ -12,7 +11,16 @@ the smollm backbone with every linear on the RNS datapath.
               gate → down with one activation encode and one MRC exit;
   -pallas   — live weights on the staged kernels: per call, the weight's
               quantize and forward conversion, the broadcast channel matmul
-              and the MRC reverse.
+              and the MRC reverse;
+  -sharded  — the fused cell with the "channel" layout preference of
+              sharded serving (`repro_torch.dist`): built with a mesh, the
+              Engine splits every launch's residue channels over "model",
+              each rank folding its own slice and one all-reduce of the
+              (L1, M, N) CRT limb planes combining them; without a mesh it
+              serves as `-fused` does;
+  -resident-sharded — residue residency and the channel preference: the
+              chain interior (``emit="residues"``) replicates, each chain's
+              float exit pays the one limb all-reduce.
 """
 import dataclasses
 
@@ -77,8 +85,33 @@ def smoke_pallas() -> ModelConfig:
                                linear_backend="rns_int8:pallas")
 
 
+def full_sharded() -> ModelConfig:
+    return dataclasses.replace(full_fused(), name="rns-smollm-135m-sharded",
+                               dist_layout="channel")
+
+
+def smoke_sharded() -> ModelConfig:
+    return dataclasses.replace(smoke_fused(), name="rns-smollm-smoke-sharded",
+                               dist_layout="channel")
+
+
+def full_resident_sharded() -> ModelConfig:
+    return dataclasses.replace(full_resident(),
+                               name="rns-smollm-135m-resident-sharded",
+                               dist_layout="channel")
+
+
+def smoke_resident_sharded() -> ModelConfig:
+    return dataclasses.replace(smoke_resident(),
+                               name="rns-smollm-smoke-resident-sharded",
+                               dist_layout="channel")
+
+
 register("rns-smollm-135m", full, smoke)
 register("rns-smollm-135m-encoded", full_encoded, smoke_encoded)
 register("rns-smollm-135m-fused", full_fused, smoke_fused)
 register("rns-smollm-135m-resident", full_resident, smoke_resident)
 register("rns-smollm-135m-pallas", full_pallas, smoke_pallas)
+register("rns-smollm-135m-sharded", full_sharded, smoke_sharded)
+register("rns-smollm-135m-resident-sharded", full_resident_sharded,
+         smoke_resident_sharded)

@@ -14,11 +14,17 @@ port of `repro/core/linear_spec.py`.
   * ``domain``         — "float" (each linear enters and leaves the residue
                          domain) or "residue" (stacked QKV and the GLU MLP
                          hand residues from launch to launch; needs encoded
-                         weights).
+                         weights);
+  * ``dist``           — the layout preference of sharded serving
+                         (`repro_torch.dist`): "none", "auto" (per launch
+                         by wire bytes, `dist.comms`), "channel" (split the
+                         residue channels over "model"; only the summed CRT
+                         limb planes cross) or "column" (split the output
+                         columns, gathered at the exit).  Anything but
+                         "none" needs the RNS mode.
 
 The reference's "jnp" backend (plain XLA ops) has no counterpart: the port's
-plain versions run only on CPU tensors.  Multi-device layouts (the
-reference's ``dist``) are not ported.
+plain versions run only on CPU tensors.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ class LinearSpec:
     broadcast: bool = True
     encode_weights: bool = False
     domain: str = "float"
+    dist: str = "none"
 
     def __post_init__(self):
         if self.mode not in _MODES:
@@ -54,6 +61,13 @@ class LinearSpec:
             raise ValueError("domain='residue' needs mode='rns_int8' with "
                              "encode_weights=True: residue-resident chains "
                              "consume weights encoded in the chain basis")
+        if self.dist not in ("none", "auto", "channel", "column"):
+            raise ValueError(f"dist must be 'none', 'auto', 'channel' or "
+                             f"'column', got {self.dist!r}")
+        if self.dist != "none" and not self.is_rns:
+            raise ValueError("dist layouts shard the RNS launches; a bf16 "
+                             "linear has none: use mode='rns_int8' or "
+                             "dist='none'")
 
     @classmethod
     def parse(cls, spec) -> "LinearSpec":

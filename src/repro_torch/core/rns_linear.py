@@ -17,6 +17,13 @@ it (``emit="residues"``), with an optional fused modular gate — fused on
 "pallas_fused", as the staged twin (forward, modmul, canonical matmul,
 reverse) on "pallas"; the two are bit-identical.
 
+While a `repro_torch.dist` context is active (a sharded Engine's prefill
+and decode), every fused launch goes through
+`dist.rns_shard.sharded_fused_matmul`, which splits it over the mesh with
+the same bits; the staged backend and the backward stay unsharded.  A
+placed weight shard (`RNSShard`) is serving-only: it takes the forward
+alone, without the estimator.
+
 ``rns_dense`` is differentiable with the reference's straight-through
 estimator (two `torch.autograd.Function`s, one a weight form): gradients
 flow as if the layer were a dense float32 matmul, ``gx = gy @ w.T`` and
@@ -37,7 +44,7 @@ from .conversion_plan import ConversionPlan, forward
 from .linear_spec import BACKENDS
 from .quant import QMAX, quant_scale, quantize_int8, requant_const
 from .rns import RNSBasis, basis_for_int8_matmul
-from .rns_tensor import RNSTensor
+from .rns_tensor import RNSShard, RNSTensor
 
 __all__ = ["rns_dense", "rns_int_matmul", "rns_chain_linear",
            "reconstruct_mrc"]
@@ -48,6 +55,18 @@ def _fused(backend: str) -> bool:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     return backend != "pallas"
+
+
+def _fused_matmul(x, w, basis=None, **kw):
+    """One fused launch: `rns_fused_matmul`, or under an active
+    distribution context (or for a placed shard) its sharded twin."""
+    # deferred: dist imports the kernels, which import the core package
+    from repro_torch.dist import context
+    if context.current() is not None or isinstance(w, RNSShard):
+        from repro_torch.dist.rns_shard import sharded_fused_matmul
+        return sharded_fused_matmul(x, w, basis, **kw)
+    from repro_torch.kernels.rns_fused import rns_fused_matmul
+    return rns_fused_matmul(x, w, basis, **kw)
 
 
 def reconstruct_mrc(residues: torch.Tensor, basis: RNSBasis, *,
@@ -74,8 +93,6 @@ def rns_int_matmul(xq: torch.Tensor, wq) -> torch.Tensor:
 
 def _dense_forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
     """The forward of `rns_dense` (no autograd)."""
-    # deferred: the kernel modules import the core package
-    from repro_torch.kernels.rns_fused import rns_fused_matmul
     if not _fused(backend):
         xq, sx = quantize_int8(x, dim=-1)                 # per row
         if isinstance(w, RNSTensor):
@@ -86,11 +103,11 @@ def _dense_forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
         return ((y * sx) * sw).to(x.dtype)
     sx = quant_scale(x, dim=-1)                           # per row
     if isinstance(w, RNSTensor):
-        y = rns_fused_matmul(x, w, scale_row=sx, scale_col=w.scale)
+        y = _fused_matmul(x, w, scale_row=sx, scale_col=w.scale)
     else:
         wq, sw = quantize_int8(w, dim=0)                  # per column
-        y = rns_fused_matmul(x, wq, basis_for_int8_matmul(x.shape[-1]),
-                             scale_row=sx, scale_col=sw)
+        y = _fused_matmul(x, wq, basis_for_int8_matmul(x.shape[-1]),
+                          scale_row=sx, scale_col=sw)
     return y.to(x.dtype)
 
 
@@ -140,6 +157,8 @@ def rns_dense(x: torch.Tensor, w, backend: str = "auto", *,
     if not broadcast:
         raise NotImplementedError("the per-channel (broadcast=False) "
                                   "datapath is not ported")
+    if isinstance(w, RNSShard):
+        return _dense_forward(x, w, backend)
     if isinstance(w, RNSTensor):
         return _EncodedSTE.apply(x, w.residues, w.scale, w.basis, backend)
     return _DenseSTE.apply(x, w, backend)
@@ -159,8 +178,6 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = 
     ``emit="residues"`` the requantized product as the next launch's
     activation RNSTensor.
     """
-    # deferred: the kernel modules import the core package
-    from repro_torch.kernels.rns_fused import rns_fused_matmul
     if emit not in ("float", "residues"):
         raise ValueError(f"emit must be 'float' or 'residues', got {emit!r}")
     if not isinstance(x, RNSTensor) or x.residues.ndim != 3:
@@ -183,8 +200,8 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = 
     if gate is not None:
         srow = srow * gate_scale.to(torch.float32).reshape(M, 1)
     if _fused(backend):
-        return rns_fused_matmul(x, wt, gate=gate, emit=emit, scale_row=srow,
-                                scale_col=wt.scale)
+        return _fused_matmul(x, wt, gate=gate, emit=emit, scale_row=srow,
+                             scale_col=wt.scale)
 
     # The staged twin: the same pipeline as standalone kernels.
     moduli = x.moduli

@@ -24,8 +24,8 @@ from .conversion_plan import forward as _forward_convert
 from .quant import quantize_int8
 from .rns import RNSBasis, basis_for_int8_matmul
 
-__all__ = ["RNSTensor", "encode", "encode_activation", "encode_params",
-           "ENCODED_LINEAR_LEAVES"]
+__all__ = ["RNSTensor", "RNSShard", "cat_columns", "encode",
+           "encode_activation", "encode_params", "ENCODED_LINEAR_LEAVES"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -52,6 +52,59 @@ class RNSTensor:
         if self.residues.ndim < 4:
             raise IndexError("only stacked (n_blocks, C, K, N) tensors index")
         return RNSTensor(self.residues[i], self.scale[i], self.basis)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RNSShard(RNSTensor):
+    """Shard ``index`` of ``nshards`` of an encoded weight.
+
+    ``layout="channel"``: ``residues`` hold channels ``[index·C/n,
+    (index+1)·C/n)`` of every column.  ``layout="column"``: every channel
+    of some columns; ``cols`` maps them, each ``(global_start,
+    local_start, width)`` a run of ``width`` global columns from
+    ``global_start`` held at ``local_start`` (a stacked QKV weight holds
+    one run a projection).  ``scale`` is the full ``(…, 1, N)`` column
+    scale either way, ``n_global`` the full column count N."""
+
+    layout: str = "channel"
+    index: int = 0
+    nshards: int = 1
+    n_global: int = 0
+    cols: Tuple[Tuple[int, int, int], ...] = ()
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The logical shape of the whole weight."""
+        shp = tuple(self.residues.shape)
+        return shp[:-3] + (shp[-2], self.n_global)
+
+    def __getitem__(self, i: int) -> "RNSShard":
+        if self.residues.ndim < 4:
+            raise IndexError("only stacked (n_blocks, C, K, N) tensors index")
+        return dataclasses.replace(self, residues=self.residues[i],
+                                   scale=self.scale[i])
+
+
+def cat_columns(ws) -> RNSTensor:
+    """Weights in one basis side by side along the output columns (the
+    stacked QKV launch): one :class:`RNSTensor`, or one :class:`RNSShard`
+    when every weight is a shard of one placement."""
+    ws = list(ws)
+    res = torch.cat([w.residues for w in ws], -1)
+    scale = torch.cat([w.scale for w in ws], -1)
+    if not any(isinstance(w, RNSShard) for w in ws):
+        return RNSTensor(residues=res, scale=scale, basis=ws[0].basis)
+    first = ws[0]
+    if not all(isinstance(w, RNSShard) and (w.layout, w.index, w.nshards)
+               == (first.layout, first.index, first.nshards) for w in ws):
+        raise ValueError("cat_columns needs every weight placed alike")
+    cols, g0, l0 = [], 0, 0
+    for w in ws:
+        cols += [(g + g0, lo + l0, n) for g, lo, n in w.cols]
+        g0 += w.n_global
+        l0 += w.residues.shape[-1]
+    return dataclasses.replace(first, residues=res, scale=scale,
+                               n_global=g0, cols=tuple(cols))
 
 
 def encode(w: torch.Tensor, basis: RNSBasis | None = None) -> RNSTensor:

@@ -1,24 +1,49 @@
-"""Channel layout of a sharded fused launch: port of the collective-free
-part of `repro/dist/rns_shard.py`.
+"""Sharded fused launches, port of `repro/dist/rns_shard.py`.
 
-Each of n shards holds a C/n slice of the residue stacks and runs
-`kernels.rns_fused.rns_fused_crt_partial` on it: Stage ②–④ and the CRT
-partial sum Σ_j |r_j·v_j|_{m_j}·(M/m_j) over its own channels, as
-``(L1, M, N)`` int32 15-bit limb planes.  The sum of the shards' planes
-(what one all-reduce computes) goes through `crt_finish`, which recovers
-the exact canonical value mod M and replays the fused kernel's signed
-float tail bit for bit.
+Two partitionings of ONE launch over the "model" axis of the active
+`dist.context.DistContext`, one process a rank:
+
+channel (split C) — each rank holds a C/n slice of the residue stacks and
+  runs `kernels.rns_fused.rns_fused_crt_partial` on it: Stage ②–④ and the
+  CRT partial sum Σ_j |r_j·v_j|_{m_j}·(M/m_j) over its own channels, as
+  ``(L1, M, N)`` int32 15-bit limb planes.  ONE all-reduce (SUM) of those
+  planes, then `crt_finish`, which recovers the exact canonical value mod
+  M and replays the fused kernel's signed float tail bit for bit, and the
+  epilogue's ``(y·s_row)·s_col`` in its order.  Residues never cross:
+  what crosses is the reduced value.  ``emit="residues"`` launches
+  replicate (re-encoding needs every modulus).
+
+column (split N) — every rank keeps the full basis and runs
+  `rns_fused_matmul` on its N/n weight columns (bit-equal per column under
+  any tiling), then gathers them along the last axis: each rank writes its
+  columns into a zeroed full-width buffer, floats as their int32 bits, and
+  one all-reduce (SUM) assembles it, every column having one non-zero
+  contributor (``x + 0`` is bitwise on int32, where a float −0.0 would not
+  survive).  The reference built its gather so for an XLA bug; here it is
+  the collective ``gloo`` takes for CUDA tensors (it has no CUDA
+  all-gather).  ``emit="residues"`` gathers the (C, M, N) slab, its
+  requantize constant taken from the full column scale.
+
+`sharded_fused_matmul` resolves each launch as the reference does:
+``auto`` by `comms.choose_layout`, a forced layout falling back preferred
+→ other → replicate, a channel-layout ``emit="residues"`` launch
+replicating, and with no context (or one shard) it is `rns_fused_matmul`.
+`rank_launch` is its launch on this rank in two steps, the rank's kernel
+and then the collective with the epilogue, so that each can be timed.
+A weight placed by `dist.engine.place_params` (an `RNSShard`) carries the
+layout it was resolved to.  The reference's ``_isolate``, an XLA fusion
+fence, has no counterpart: eager torch runs each op as written.
 
 ``crt_tables`` gives the per-channel CRT constants, ``local_plan`` the
-plan every shard's launch is shaped by.  ``channel_partials`` makes the n
-slice launches of one linear and ``channel_sliced_matmul`` composes them in
-one process; the sharded launch and the collective wait for the
-`torch.distributed` layer.
+plan every shard's launch is shaped by; ``channel_partials`` makes the n
+slice launches of one linear and ``channel_sliced_matmul`` composes them
+in one process (no collective).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -26,12 +51,20 @@ import torch
 from repro_torch.core import multiword as mw
 from repro_torch.core.channel_plan import ChannelPlan, residue_dtype_for
 from repro_torch.core.conversion_plan import ConversionPlan
-from repro_torch.core.rns import _modinv
-from repro_torch.core.rns_tensor import RNSTensor
+from repro_torch.core.conversion_plan import forward as _forward_convert
+from repro_torch.core.quant import requant_const
+from repro_torch.core.rns import _modinv, basis_for_int8_matmul
+from repro_torch.core.rns_tensor import RNSShard, RNSTensor
 from repro_torch.kernels.ref import rns_fused_crt_partial_ref
-from repro_torch.kernels.rns_fused import rns_fused_crt_partial
+from repro_torch.kernels.rns_fused import (rns_fused_crt_partial,
+                                           rns_fused_matmul)
 
-__all__ = ["crt_tables", "local_plan", "crt_finish", "channel_partials",
+from . import comms
+from .context import current
+
+__all__ = ["sharded_fused_matmul", "rank_launch", "RankLaunch",
+           "resolve_layout", "crt_tables",
+           "local_plan", "crt_finish", "channel_partials",
            "channel_sliced_matmul"]
 
 
@@ -83,6 +116,19 @@ def local_plan(plan_g: ChannelPlan, nshards: int) -> ChannelPlan:
                                rungs=plan_g.rungs[:Cl])
 
 
+@functools.lru_cache(maxsize=256)
+def _slice_launch(moduli: tuple, K: int, signed: bool, nshards: int,
+                  index: int):
+    """(local plan, the slice's mods / sched / CRT rows, the channel
+    slice) of shard ``index``'s launch."""
+    plan_g = ChannelPlan.for_matmul(moduli, K, signed=signed)
+    v, mc, _ = _crt_tables_cached(moduli)
+    Cl = len(moduli) // nshards
+    sl = slice(index * Cl, (index + 1) * Cl)
+    return (local_plan(plan_g, nshards), plan_g.mods[sl], plan_g.sched[sl],
+            v[sl], mc[sl], sl)
+
+
 def crt_finish(total: torch.Tensor, conv_g: ConversionPlan,
                C: int) -> torch.Tensor:
     """Summed ``(L1, M, N)`` limb planes → the fused kernel's float32 value.
@@ -120,20 +166,15 @@ def channel_partials(x, w: RNSTensor, nshards: int, *,
     `rns_fused_crt_partial`, to hold the kernel against it.
     """
     residue_in = isinstance(x, RNSTensor)
-    moduli = w.basis.moduli
-    C = len(moduli)
-    plan_g = ChannelPlan.for_matmul(moduli, w.residues.shape[-2],
-                                    signed=not residue_in)
-    lp = local_plan(plan_g, nshards)
-    v, mc, _ = crt_tables(w.basis)
+    moduli = tuple(int(m) for m in w.basis.moduli)
     srow = None if residue_in else scale_row.to(torch.float32).reshape(-1, 1)
-    Cl = C // nshards
     parts = []
     for i in range(nshards):
-        sl = slice(i * Cl, (i + 1) * Cl)
+        lp, mods, sched, v, mc, sl = _slice_launch(
+            moduli, w.residues.shape[-2], not residue_in, nshards, i)
         xs = x.residues[sl] if residue_in else x
-        kw = dict(plan=lp, mods=plan_g.mods[sl], sched=plan_g.sched[sl],
-                  crt_v=v[sl], crt_mc=mc[sl], scale_row=srow, gate=gate)
+        kw = dict(plan=lp, mods=mods, sched=sched, crt_v=v, crt_mc=mc,
+                  scale_row=srow, gate=gate)
         parts.append(
             rns_fused_crt_partial_ref(xs, w.residues[sl], **kw) if plain
             else rns_fused_crt_partial(xs, w.residues[sl],
@@ -151,3 +192,206 @@ def channel_sliced_matmul(x, w: RNSTensor, nshards: int, *,
     val = crt_finish(sum(parts[1:], parts[0]),
                      ConversionPlan.for_basis(w.basis), len(w.basis.moduli))
     return (val * scale_row.reshape(-1, 1)) * scale_col.reshape(1, -1)
+
+
+# ------------------------------------------------------- the collectives --
+class RankLaunch(NamedTuple):
+    """One launch of `sharded_fused_matmul` on this rank, in two steps:
+    ``kernel()`` runs this rank's kernel and returns its output (the
+    channel slice's limb planes, the column slice's output, or the whole
+    launch's when it replicates); ``finish(out)`` runs the collective on
+    that output, which it may overwrite, and the epilogue, and returns the
+    launch's result."""
+
+    layout: str
+    kernel: Callable[[], Any]
+    finish: Callable[[Any], Any]
+
+
+def _channel_weight(w, sl, moduli):
+    """This rank's (C/n, K, N) weight residues: a placed channel shard as
+    it is, the slice of a full encoded weight, or a raw (K, N) int8
+    weight forward-converted in the slice's moduli."""
+    if isinstance(w, RNSShard):
+        return w.residues
+    if isinstance(w, RNSTensor):
+        return w.residues[sl]
+    if w.ndim == 3:
+        return w[sl]
+    return _forward_convert(w, moduli[sl], residue_dtype_for(moduli))
+
+
+def _channel_launch(ctx, x, w, basis, *, srow, scol, gate):
+    moduli = tuple(int(m) for m in basis.moduli)
+    residue_in = isinstance(x, RNSTensor)
+    K = (x.residues if residue_in else x).shape[-1]
+    lp, mods, sched, v, mc, sl = _slice_launch(
+        moduli, K, not residue_in, ctx.nshards, ctx.rank)
+    xs = x.residues[sl] if residue_in else x
+    ws = _channel_weight(w, sl, moduli)
+
+    def kernel():
+        return rns_fused_crt_partial(
+            xs, ws, plan=lp, mods=mods, sched=sched, crt_v=v, crt_mc=mc,
+            quantize=not residue_in,
+            scale_row=None if residue_in else srow, gate=gate)
+
+    def finish(part):
+        total = comms.all_reduce(part, ctx.group)
+        # the kernel epilogue's pinned dequant order: (y·s_row)·s_col
+        val = crt_finish(total, ConversionPlan.for_basis(basis), len(moduli))
+        return (val * srow) * scol
+
+    return RankLaunch("channel", kernel, finish)
+
+
+def _column_runs(w, N: int, ctx):
+    """(this rank's weight columns, their runs ``(global_start,
+    local_start, width)``)."""
+    if isinstance(w, RNSShard):
+        return w.residues, w.cols
+    Nl = N // ctx.nshards
+    g = ctx.rank * Nl
+    res = w.residues if isinstance(w, RNSTensor) else w
+    return res[..., g:g + Nl], ((g, 0, Nl),)
+
+
+def _gather_columns(local: torch.Tensor, runs, N: int, group):
+    """The full-width tensor of every rank's columns: each rank's runs
+    scattered into zeros (floats as their int32 bits), summed by one
+    all-reduce."""
+    f32 = local.dtype == torch.float32
+    plane = local.view(torch.int32) if f32 else local
+    buf = plane.new_zeros(plane.shape[:-1] + (N,))
+    for g, lo, n in runs:
+        buf[..., g:g + n] = plane[..., lo:lo + n]
+    comms.all_reduce(buf, group)
+    return buf.view(torch.float32) if f32 else buf
+
+
+def _column_launch(ctx, x, w, basis, *, srow, scol, gate, emit):
+    N = scol.shape[-1]
+    w_loc, runs = _column_runs(w, N, ctx)
+    w_loc = w_loc.contiguous()
+    scol_loc = torch.cat([scol[:, g:g + n] for g, _, n in runs], -1)
+    creq = None
+    if emit == "residues":
+        # the requantize constant of the FULL column scale: a slice-local
+        # max would differ by rank
+        K = (x.residues if isinstance(x, RNSTensor) else x).shape[-1]
+        creq = requant_const(scol, K)
+
+    def kernel():
+        return rns_fused_matmul(x, w_loc, basis, scale_row=srow,
+                                scale_col=scol_loc, gate=gate, emit=emit,
+                                requant_creq=creq)
+
+    def finish(out):
+        if emit == "residues":
+            return RNSTensor(residues=_gather_columns(out.residues, runs, N,
+                                                      ctx.group),
+                             scale=srow * creq, basis=basis)
+        return _gather_columns(out, runs, N, ctx.group)
+
+    return RankLaunch("column", kernel, finish)
+
+
+# ---------------------------------------------------------------- dispatch --
+def resolve_layout(layout: str, *, C: int, N: int, nlimbs: int, ndev: int,
+                   emit: str = "float", itemsize: int = 1, M: int = 1,
+                   parts=None) -> str:
+    """The layout one launch runs in: "channel", "column" or "replicate".
+
+    ``layout`` "auto" asks `comms.choose_layout` (whose choice does not
+    depend on M: both costs scale with M·N); a forced layout falls back
+    preferred → other → replicate when the axis size does not divide C
+    (resp. N, or one of ``parts``, the widths of weights side by side);
+    a channel ``emit="residues"`` launch replicates."""
+    parts = (N,) if parts is None else tuple(parts)
+    cols_ok = all(p % ndev == 0 for p in parts)
+    chan_ok = C % ndev == 0
+    lay = layout
+    if lay == "auto":
+        lay = comms.choose_layout(C=C, M=M, N=N, nlimbs=nlimbs, ndev=ndev,
+                                  emit=emit, itemsize=itemsize)
+    if lay not in ("channel", "column", "replicate"):
+        raise ValueError(f"unknown layout {lay!r}")
+    if lay == "channel" and not chan_ok:
+        lay = "column" if cols_ok else "replicate"
+    elif lay == "column" and not cols_ok:
+        lay = "channel" if chan_ok else "replicate"
+    if lay == "channel" and emit == "residues":
+        lay = "replicate"
+    return lay
+
+
+def rank_launch(x, w, basis=None, *, scale_row: torch.Tensor,
+                scale_col: torch.Tensor, gate: torch.Tensor | None = None,
+                emit: str = "float", ctx=None,
+                layout: str | None = None) -> RankLaunch:
+    """This rank's part of `sharded_fused_matmul`'s launch, its arguments
+    resolved as it resolves them, as a :class:`RankLaunch`: what the
+    sharded engine runs, split so that the kernel and the collective can
+    be timed apart.  ``ctx`` must be a context of more than one shard."""
+    ctx = ctx if ctx is not None else current()
+    if isinstance(w, RNSTensor):
+        basis = w.basis
+    elif isinstance(x, RNSTensor):
+        basis = x.basis
+    elif basis is None:
+        basis = basis_for_int8_matmul(x.shape[-1])
+    moduli = tuple(int(m) for m in basis.moduli)
+    xr = x.residues if isinstance(x, RNSTensor) else x
+    M = xr.shape[-2]
+    N = w.shape[-1]
+    if isinstance(w, RNSShard):
+        if (w.nshards, w.index) != (ctx.nshards, ctx.rank):
+            raise ValueError(f"weight shard {w.index} of {w.nshards} under a "
+                             f"context of rank {ctx.rank} of {ctx.nshards}")
+        lay = w.layout
+        if lay == "channel" and emit == "residues":
+            raise ValueError("an emit='residues' launch replicates under the "
+                             "channel layout: its weight must be whole")
+    else:
+        lay = resolve_layout(
+            layout or ctx.layout, C=len(moduli), M=M, N=N,
+            nlimbs=crt_tables(basis)[2], ndev=ctx.nshards, emit=emit,
+            itemsize=residue_dtype_for(moduli).itemsize)
+    if lay == "replicate":
+        return RankLaunch("replicate", functools.partial(
+            rns_fused_matmul, x, w, basis, scale_row=scale_row,
+            scale_col=scale_col, gate=gate, emit=emit), lambda out: out)
+    srow = scale_row.to(torch.float32).reshape(M, 1)
+    scol = scale_col.to(torch.float32).reshape(1, N)
+    if lay == "channel":
+        return _channel_launch(ctx, x, w, basis, srow=srow, scol=scol,
+                               gate=gate)
+    return _column_launch(ctx, x, w, basis, srow=srow, scol=scol, gate=gate,
+                          emit=emit)
+
+
+def sharded_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
+                         scale_col: torch.Tensor,
+                         gate: torch.Tensor | None = None,
+                         emit: str = "float", ctx=None,
+                         layout: str | None = None):
+    """Distribution-aware twin of `kernels.rns_fused.rns_fused_matmul`:
+    its arguments and its bits, run as ONE launch split over
+    ``ctx.axis`` (default: the active `dist.context.current()`).
+
+    ``layout`` (default: the context's) is resolved per launch by
+    `resolve_layout`; a placed `RNSShard` weight runs in the layout it was
+    placed for.  With no context or a one-shard axis this IS
+    `rns_fused_matmul` (a shard then raises: it is not the whole weight).
+    """
+    ctx = ctx if ctx is not None else current()
+    if ctx is None or ctx.nshards <= 1:
+        if isinstance(w, RNSShard):
+            raise ValueError("a placed weight shard runs only under the "
+                             "DistContext it was placed for")
+        return rns_fused_matmul(x, w, basis, scale_row=scale_row,
+                                scale_col=scale_col, gate=gate, emit=emit)
+    launch = rank_launch(x, w, basis, scale_row=scale_row,
+                         scale_col=scale_col, gate=gate, emit=emit, ctx=ctx,
+                         layout=layout)
+    return launch.finish(launch.kernel())

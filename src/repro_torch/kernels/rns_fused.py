@@ -218,7 +218,8 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
 @_build.kernel_region("rns_fused_matmul")
 def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
                      scale_col: torch.Tensor, gate: torch.Tensor | None = None,
-                     emit: str = "float"):
+                     emit: str = "float",
+                     requant_creq: torch.Tensor | None = None):
     """One-launch Stage ②–⑤ pipeline: (M, K) × weight → (M, N).
 
     ``x`` holds the float32/bfloat16 activations (quantized in the kernel by
@@ -233,7 +234,9 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
 
     ``emit="float"`` returns (M, N) float32 ``(y·s_row)·s_col``;
     ``emit="residues"`` returns the activation :class:`RNSTensor` of the
-    in-domain requantized product, scale ``s_row·requant_const(s_col, K)``.
+    in-domain requantized product, scale ``s_row·requant_const(s_col, K)``;
+    ``requant_creq`` (0-d) overrides that constant (a column slice of a
+    sharded launch requantizes by its full column scale's).
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel;
     a meta tensor gets an empty output of the plain version's shape and
     dtype (a dry run).
@@ -297,7 +300,10 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
         raise ValueError("a residue-in launch needs encoded weights")
     srow = scale_row.to(torch.float32).reshape(M, 1)
     scol = scale_col.to(torch.float32).reshape(1, N)
-    creq = requant_const(scol, K) if emit == "residues" else None
+    creq = None
+    if emit == "residues":
+        creq = (requant_const(scol, K) if requant_creq is None else
+                requant_creq.to(torch.float32).reshape(()))
     if x.device.type == "cpu":
         out = rns_fused_matmul_ref(x, w, basis, scale_row=srow,
                                    scale_col=scol, gate=gate, creq=creq)

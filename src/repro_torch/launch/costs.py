@@ -12,9 +12,15 @@ Conventions: 2 flops per MAC; everything is *per device*; bf16
 activations and params; fp32 logits and optimizer.  The mesh arguments
 (``n_pods``, ``data``, ``model``, ``mode``) are the reference's: batch over
 the data axes when divisible, features, heads, experts and sequence over
-the ``model`` axis; one card is ``n_pods=1, data=1, model=1``.  The wire
-bytes of sharded launches (``comms_bytes_decode`` / ``_prefill``) wait for
-the distributed port.
+the ``model`` axis; one card is ``n_pods=1, data=1, model=1``.
+
+``comms_bytes_decode`` / ``comms_bytes_prefill`` are the wire bytes of a
+sharded step's fused launches (`repro_torch.dist`): `dist.comms`'s
+per-launch ring costs over every launch shape of the step
+(`kernels.tune.decode_shapes_for`) times its count a step, each resolved
+as `dist.rns_shard.resolve_layout` resolves a launch.  As in the
+reference, only configs that name the fused backend (``pallas_fused``)
+are billed.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 __all__ = ["analytic_cost", "CostReport", "decode_cache_bytes",
-           "paged_cache_bytes"]
+           "paged_cache_bytes", "comms_bytes_decode", "comms_bytes_prefill"]
 
 BF16 = 2
 F32 = 4
@@ -297,9 +303,10 @@ def analytic_cost(cfg: ModelConfig, shape: ShapeConfig, *,
         ici += moe_b
         bk["ici_moe_a2a"] = moe_b
     if shape.kind == "train":
-        # float32 gradients: no int8 compression (the reference's default
-        # grad_compression, which no config changes)
-        grad_bytes_per_param = F32
+        # the reference's bill under grad_compression: 1 byte a parameter,
+        # the int8 values' width (train/compression.py sums them as
+        # int32, 4 bytes an element, as the reference's psum does)
+        grad_bytes_per_param = 1.0 if cfg.grad_compression else F32
         grad_shard_bytes = Pcnt / mp * grad_bytes_per_param
         if mode == "fsdp_tp":
             # ZeRO-3: all-gather params (fwd+bwd) + reduce-scatter grads
@@ -373,3 +380,90 @@ def paged_cache_bytes(cfg: ModelConfig, n_blocks: int, block_size: int,
         if kind in ("ssm", "hybrid"):
             total += _ssm_state_bytes(cfg, slots, item)
     return total
+
+
+# ------------------------------------------- sharded-launch wire bytes ----
+def _fused_launch_mult(cfg: ModelConfig, s: dict) -> int:
+    """How many times ONE decode step runs a deduped launch shape of
+    `kernels.tune.decode_shapes_for` (matched by (K, N) against the
+    dispatch of `models/{transformer,layers}.py`): every attention layer
+    runs the QKV (+ wo) launches, every GLU MLP layer gate / up / down."""
+    d, F = cfg.d_model, cfg.d_ff
+    H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    has_attn = cfg.attention != "none" or cfg.hybrid
+    n_attn = cfg.num_layers if has_attn else 0
+    n_mlp = sum(1 for l in range(cfg.num_layers)
+                if cfg.mlp_kind(l) == "mlp" and F > 0)
+    K, N = s["K"], s["N"]
+    if cfg.linear_spec.domain == "residue":
+        if (K, N) == (d, (H + 2 * Hk) * dh):
+            return n_attn                         # stacked QKV chain
+        if (K, N) == (H * dh, d):
+            return n_attn                         # wo exit launch
+        if (K, N) == (d, F):
+            return n_mlp                          # gate OR up (emit splits)
+        if (K, N) == (F, d):
+            return n_mlp                          # gated down
+        return 0
+    mult = 0
+    if (K, N) == (d, H * dh):
+        mult += n_attn                            # q
+    if (K, N) == (d, Hk * dh):
+        mult += 2 * n_attn                        # k, v
+    if (K, N) == (H * dh, d):
+        mult += n_attn                            # wo
+    if (K, N) == (d, F):
+        mult += 2 * n_mlp if cfg.glu else n_mlp   # gate (+up)
+    if (K, N) == (F, d):
+        mult += n_mlp                             # down
+    return mult
+
+
+def _fused_wire_bytes(cfg: ModelConfig, M: int, *, ndev: int,
+                      layout: str) -> float:
+    from repro_torch.core.channel_plan import residue_dtype_for
+    from repro_torch.dist import comms
+    from repro_torch.dist.engine import launch_bases
+    from repro_torch.dist.rns_shard import crt_tables, resolve_layout
+    from repro_torch.kernels.tune import decode_shapes_for
+
+    spec = cfg.linear_spec
+    if ndev <= 1 or not (spec.is_rns and spec.backend == "pallas_fused"):
+        return 0.0
+    bases = {len(b.moduli): b for b in launch_bases(cfg)}
+    total = 0.0
+    for s in decode_shapes_for(cfg, batch_sizes=(M,)):
+        basis = bases.get(s["C"])
+        mult = _fused_launch_mult(cfg, s)
+        if basis is None or mult == 0:
+            continue
+        emit = "residues" if s["emit"] else "float"
+        nlimbs = crt_tables(basis)[2]
+        item = residue_dtype_for(basis.moduli).itemsize
+        lay = resolve_layout(layout, C=s["C"], M=s["M"], N=s["N"],
+                             nlimbs=nlimbs, ndev=ndev, emit=emit,
+                             itemsize=item)
+        if lay == "channel":
+            b = comms.channel_bytes(s["M"], s["N"], nlimbs, ndev, emit=emit)
+        elif lay == "column":
+            b = comms.column_bytes(s["C"], s["M"], s["N"], ndev, emit=emit,
+                                   itemsize=item)
+        else:
+            b = 0.0
+        total += mult * b
+    return total
+
+
+def comms_bytes_decode(cfg: ModelConfig, batch: int, *, ndev: int,
+                       layout: str = "auto") -> float:
+    """Per-device wire bytes of ONE sharded decode step over ``ndev``
+    ranks in ``layout`` ("channel" / "column" / "auto"); zero for configs
+    off the fused backend and for one rank."""
+    return _fused_wire_bytes(cfg, batch, ndev=ndev, layout=layout)
+
+
+def comms_bytes_prefill(cfg: ModelConfig, batch: int, seq: int, *,
+                        ndev: int, layout: str = "auto") -> float:
+    """Per-device wire bytes of a sharded prefill of ``batch×seq`` tokens:
+    the decode step's launches at M = batch·seq rows."""
+    return _fused_wire_bytes(cfg, batch * seq, ndev=ndev, layout=layout)

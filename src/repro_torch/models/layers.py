@@ -31,7 +31,8 @@ import torch
 from repro_torch.core.linear_spec import LinearSpec
 from repro_torch.core.quant import quantize_int8
 from repro_torch.core.rns_linear import rns_chain_linear, rns_dense
-from repro_torch.core.rns_tensor import RNSTensor, encode_activation
+from repro_torch.core.rns_tensor import (RNSTensor, cat_columns,
+                                         encode_activation)
 
 __all__ = ["linear", "linear_qkv", "mlp_chain", "rms_norm", "rope",
            "apply_rope", "sinusoidal", "attention", "update_cache_full",
@@ -220,9 +221,7 @@ def linear_qkv(x: torch.Tensor, ws, spec):
     shp = x.shape
     xf = x.reshape(-1, shp[-1]).to(torch.float32)
     basis = _chain_basis_of(*ws)
-    w_cat = RNSTensor(residues=torch.cat([w.residues for w in ws], -1),
-                      scale=torch.cat([w.scale for w in ws], -1),
-                      basis=basis)
+    w_cat = cat_columns(ws)
     xa = encode_activation(xf, basis)
     y = rns_chain_linear(xa, w_cat, backend=spec.backend)
     y = y.reshape(*shp[:-1], y.shape[-1]).to(x.dtype)

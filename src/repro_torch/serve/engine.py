@@ -31,6 +31,16 @@ engine warms the tile kernel's tuner for its decode shapes
 ``lanes``): with a populated table every lookup is a hit and no launch
 sweeps; ``tune_report`` records the hits.
 
+``mesh=`` (a `launch.mesh.Mesh` over an initialised process group, every
+rank a process running the same calls) serves the model sharded
+(`repro_torch.dist`): each rank encodes only its part of every linear
+weight (`dist.engine.place_params`) and every fused launch of prefill and
+decode splits over the mesh's "model" axis, in ``dist_layout`` (default:
+the config's, else "auto"), with tokens and logits bit-equal to the
+unsharded engine's on every rank.  A CUDA graph cannot hold a ``gloo``
+collective, so under a mesh ``engine="scan"`` runs its step uncaptured
+(``captured`` is False).
+
 The linear weights are encoded to residues once at construction when the
 config asks for it (``encode_weights``), so decode does no per-step weight
 quantization or conversion; a residue-resident config (``linear_domain=
@@ -49,6 +59,8 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Callable, List, Optional, Sequence
+
+import contextlib
 
 import numpy as np
 import torch
@@ -169,12 +181,14 @@ class Engine:
     ``device`` defaults to "cuda"; an engine runs on the CPU only when asked
     with ``device="cpu"``, and raises when CUDA is asked for but absent.
     ``scan_replays`` counts the captured decode steps replayed,
-    ``scan_captures`` the graphs captured.
+    ``scan_captures`` the graphs captured; ``captured`` says whether
+    ``engine="scan"`` captures its step (on CUDA without a mesh).
     """
 
     def __init__(self, cfg: ModelConfig, params, smax: int = 2048,
                  lanes: Optional[int] = None, device=None,
-                 verify: Optional[str] = None):
+                 verify: Optional[str] = None, mesh=None,
+                 dist_layout: Optional[str] = None):
         if verify not in (None, "static"):
             raise ValueError(f"verify={verify!r}: expected None or 'static'")
         if verify == "static":
@@ -186,12 +200,26 @@ class Engine:
             raise RuntimeError("Engine needs a CUDA device and none is "
                                "available; pass device='cpu' to run on the "
                                "CPU")
+        self._dist_ctx = None
+        if mesh is not None:
+            from repro_torch.dist import engine as dist_engine
+
+            self._dist_ctx = dist_engine.make_context(cfg, mesh,
+                                                      layout=dist_layout)
+        elif dist_layout is not None:
+            raise ValueError("dist_layout= without mesh=: pass the mesh the "
+                             "layout should shard over")
         self.cfg = cfg
         self.lanes = None if lanes is None else int(lanes)
         self.smax = int(smax)
+        self.captured = self.device.type == "cuda" and mesh is None
         params = _to_device(params, self.device)
         with torch.inference_mode():
-            self.params = encoded_params(cfg, params)
+            if self._dist_ctx is not None:
+                self.params = dist_engine.place_params(self._dist_ctx, cfg,
+                                                       params)
+            else:
+                self.params = encoded_params(cfg, params)
         self._scan: "OrderedDict[tuple, _ScanState]" = OrderedDict()
         self.scan_replays = 0
         self.scan_captures = 0
@@ -200,6 +228,23 @@ class Engine:
             sizes = tuple(sorted({*sizes, self.lanes}))
         self.tune_report = tune.warm_for_config(cfg, sizes,
                                                 device=self.device)
+
+    def _ctx(self):
+        """The engine's distribution context, active around prefill and
+        decode (a null context without a mesh)."""
+        if self._dist_ctx is None:
+            return contextlib.nullcontext()
+        from repro_torch.dist import context
+
+        return context.use(self._dist_ctx)
+
+    def prefill_logits(self, prompts: List[List[int]]) -> torch.Tensor:
+        """The (B, V) last-position logits of one prefill of ``prompts``,
+        packed as `generate` packs them."""
+        batch, _ = self._pack(prompts)
+        with torch.inference_mode(), self._ctx():
+            logits, _, _ = T.prefill(self.cfg, self.params, batch, self.smax)
+        return logits
 
     def _pack(self, prompts: List[List[int]]):
         """Left-pad ragged prompts to a bucketed common length; dummy lanes
@@ -252,7 +297,7 @@ class Engine:
         eos = -1 if eos_id is None else int(eos_id)
         run = self._generate_scan if engine == "scan" else \
             self._generate_host
-        with torch.inference_mode():
+        with torch.inference_mode(), self._ctx():
             toks = run(batch, max_new_tokens, float(temperature), int(seed),
                        eos)
         out = [list(p) for p in prompts]
@@ -325,7 +370,7 @@ class Engine:
         after a sequence's EOS, read from the device once."""
         pad = batch["pad"]
         st = self._state(pad.shape[0], temperature > 0.0)
-        if st.graph is None and self.device.type == "cuda" and new > 1:
+        if st.graph is None and self.captured and new > 1:
             # warm up and capture before the prefill: the warm-up runs the
             # step for real (a KV slot, a ring slot, the SSM state's
             # recurrence), and the prefill resets and rewrites every cache

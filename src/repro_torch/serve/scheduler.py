@@ -43,8 +43,10 @@ step would.
 Scope: full-attention and pure-SSM stacks, and hybrids of the two (SSM
 state is resident, one row a slot, spliced in at admission); a stack with
 sliding-window ring caches is refused at construction, as in the
-reference.  A mesh or a multi-device layout is rejected, since the port has
-none.
+reference.  ``mesh=`` / ``dist_layout=`` pass through to the engine
+(`serve.Engine`): every launch of admission and decode is sharded, and the
+chunk's step runs uncaptured (a CUDA graph cannot hold a ``gloo``
+collective; ``engine.captured`` is False).
 """
 from __future__ import annotations
 
@@ -113,9 +115,6 @@ class SlotScheduler:
                  dist_layout: Optional[str] = None, device=None):
         if slot_tokens % block_size:
             raise ValueError("slot_tokens must be a multiple of block_size")
-        if mesh is not None or dist_layout is not None:
-            raise ValueError("the port has no multi-device layout: "
-                             "SlotScheduler takes no mesh or dist_layout")
         self.cfg = cfg
         self.slots = int(slots)
         self.block_size = int(block_size)
@@ -131,7 +130,8 @@ class SlotScheduler:
         init_paged_cache(cfg, 2, self.block_size, 1, device="meta")
         # lanes=slots: the solo reference decodes at the chunk's shapes
         self.engine = Engine(cfg, params, smax=slot_tokens, lanes=self.slots,
-                             device=device)
+                             device=device, mesh=mesh,
+                             dist_layout=dist_layout)
         self.device = dev = self.engine.device
         # the persistent buffers a captured step reads and writes
         self._cache = init_paged_cache(cfg, self.n_blocks, self.block_size,
@@ -321,7 +321,7 @@ class SlotScheduler:
                 raise ValueError("request's lifetime block reservation "
                                  f"exceeds the pool ({self.n_blocks - 1} "
                                  "usable blocks)")
-        with torch.inference_mode():
+        with torch.inference_mode(), self.engine._ctx():
             return self._serve(requests)
 
     def _serve(self, requests: Sequence[Request]) -> List[List[int]]:
@@ -333,7 +333,7 @@ class SlotScheduler:
         self._alloc = BlockAllocator(self.n_blocks)
         self._slots: List[Optional[_Slot]] = [None] * self.slots
         self._reset()
-        if self._graph is None and self.device.type == "cuda":
+        if self._graph is None and self.engine.captured:
             self._capture()
             self._reset()
         pool_bytes = paged_cache_nbytes(self._cache)

@@ -1,0 +1,241 @@
+"""Process groups of the port's distributed tests: `spawn_group` starts n
+ranks (spawned processes, ``gloo`` over a `FileStore` in the test's own
+directory, so concurrent groups never share a port), runs one task on
+every rank and returns each rank's result; the task functions below are
+what the ranks run.  Torch and the port only: the reference is compared in
+the parent.  Every rank is joined with a deadline; a rank that fails or
+outlives it fails the group, and the rest are killed."""
+import pathlib
+import time
+import traceback
+
+import numpy as np
+import torch
+
+PROMPTS = [[5, 6, 7, 8, 9], [3, 1, 4, 1, 5, 9, 2, 6], [2, 7], [11, 3, 8]]
+NEW_TOKENS = 8
+LAYOUTS = ("channel", "column")
+# the scheduled serve: 2 slots of 24 tokens in blocks of 4, chunks of 2
+# steps; five requests (two sharing a prefix) arriving staggered, so that
+# admissions splice prefills into a running decode
+SCHED = {"slots": 2, "block_size": 4, "slot_tokens": 24, "decode_chunk": 2}
+SCHED_REQUESTS = [([5, 6, 7, 8, 9, 10], 6, 0.0),
+                  ([5, 6, 7, 8, 2, 7, 1], 4, 1.0), ([3, 1, 4, 1, 5], 8, 2.0),
+                  ([11, 3, 8], 7, 3.0), ([9, 2, 6, 5, 3, 5, 8, 9, 7], 5, 6.0)]
+
+
+def _rank_main(task, rank, n, tmp, args, errq):
+    try:
+        import torch.distributed as dist
+
+        torch.set_num_threads(1)
+        store = dist.FileStore(str(pathlib.Path(tmp) / "store"), n)
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=n)
+        from repro_torch.launch.mesh import make_host_mesh
+
+        out = task(rank, n, make_host_mesh(model=n), *args)
+        torch.save(out, pathlib.Path(tmp) / f"rank{rank}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        errq.put((rank, traceback.format_exc()))
+        raise
+
+
+def spawn_group(task, n, tmp, *args, timeout=170.0):
+    """``task(rank, n, mesh, *args)`` on n spawned ranks; the list of their
+    results (whatever `torch.save` keeps), rank order."""
+    import torch.multiprocessing as mp
+
+    tmp = pathlib.Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    errq = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(task, r, n, str(tmp), args,
+                                                  errq), daemon=True)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        errors = []
+        while not errq.empty():
+            errors.append(errq.get())
+        if errors:
+            raise AssertionError(f"ranks failed: {errors}")
+        if late:
+            raise AssertionError(f"ranks {late} of {n} outlived {timeout} s")
+        bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
+        if bad:
+            raise AssertionError(f"ranks exited with {bad}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(n)]
+
+
+# ------------------------------------------------------------------ tasks --
+def launch_operands(seed=0, M=8, K=64, N=32):
+    """The seeded numpy operands of the launch cases: x (M, K), w (K, N),
+    a raw int8 gate (M, K)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x[0, :2] = (40.0, -40.0)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    gate = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    return x, w, gate
+
+
+LAUNCH_CASES = [(lay, form) for lay in LAYOUTS
+                for form in ("residues:float", "residues:residues",
+                             "quantize", "gated", "live")]
+
+
+def launch_outputs(x, w, gate, layout, form, ctx=None):
+    """One launch case through `sharded_fused_matmul` (``ctx`` None: the
+    plain `rns_fused_matmul`, the one-process answer): the float output,
+    or (residues, scale) for an ``emit="residues"`` launch."""
+    from repro_torch.core import rns_tensor as rt
+    from repro_torch.core.quant import quant_scale, quantize_int8
+    from repro_torch.core.rns import basis_for_int8_matmul
+    from repro_torch.dist.rns_shard import sharded_fused_matmul
+    from repro_torch.kernels.rns_fused import rns_fused_matmul
+
+    basis = basis_for_int8_matmul(x.shape[1])
+    xt, wtf = torch.from_numpy(x), torch.from_numpy(w)
+    xa, wt = rt.encode_activation(xt, basis), rt.encode(wtf, basis)
+    fn = rns_fused_matmul if ctx is None else \
+        (lambda *a, **k: sharded_fused_matmul(*a, ctx=ctx, layout=layout,
+                                              **k))
+    if form.startswith("residues:"):
+        emit = form.split(":")[1]
+        out = fn(xa, wt, scale_row=xa.scale, scale_col=wt.scale, emit=emit)
+        return (out.residues, out.scale) if emit == "residues" else out
+    if form == "gated":
+        srow = xa.scale * 0.5
+        return fn(xa, wt, scale_row=srow, scale_col=wt.scale,
+                  gate=torch.from_numpy(gate))
+    sx = quant_scale(xt, dim=-1)
+    if form == "quantize":
+        return fn(xt, wt, scale_row=sx, scale_col=wt.scale)
+    wq, sw = quantize_int8(wtf, dim=0)
+    return fn(xt, wq, basis, scale_row=sx, scale_col=sw)
+
+
+def launch_task(rank, n, mesh, x, w, gate):
+    from repro_torch.dist.context import DistContext
+
+    return {(lay, form): launch_outputs(x, w, gate, lay, form,
+                                        DistContext(mesh=mesh, layout=lay))
+            for lay, form in LAUNCH_CASES}
+
+
+def engine_task(rank, n, mesh, cases, params_path):
+    """Each (arch, layout): a sharded smoke Engine's greedy tokens under
+    ``engine="host"`` and the uncaptured ``"scan"``, its prefill logits,
+    its crt / fused launches by kernel region over a generate of 2 tokens,
+    and the decode step's as `dist.engine.decode_launches` reads them off
+    the placed weights."""
+    from repro_torch.analysis.residency import TraceMode
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.dist.engine import decode_launches
+    from repro_torch.serve.engine import Engine
+
+    params = torch.load(params_path, weights_only=False)
+    out = {}
+    for arch, layout in cases:
+        eng = Engine(get_smoke_config(arch), params[arch], smax=64, lanes=4,
+                     device="cpu", mesh=mesh, dist_layout=layout)
+        res = {"host": eng.generate(PROMPTS, NEW_TOKENS, engine="host"),
+               "scan": eng.generate(PROMPTS, NEW_TOKENS, engine="scan"),
+               "logits": eng.prefill_logits(PROMPTS),
+               "captured": eng.captured, "replays": eng.scan_replays}
+        with TraceMode() as mode:
+            eng.generate(PROMPTS[:1], 2, engine="host")
+        res["generate_calls"] = dict(mode.summary.kernel_calls)
+        res["decode_launches"] = decode_launches(eng.cfg, eng.params)
+        out[(arch, layout)] = res
+    return out
+
+
+def sched_requests():
+    from repro_torch.serve import Request
+
+    return [Request(p, m, arrival=a) for p, m, a in SCHED_REQUESTS]
+
+
+def sched_task(rank, n, mesh, cases, params_path):
+    """Each (arch, layout): the tokens and stats of a `SlotScheduler`
+    under the mesh serving `SCHED_REQUESTS`, its kernel calls by region,
+    and whether its engine captured."""
+    from repro_torch.analysis.residency import TraceMode
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.serve import SlotScheduler
+
+    params = torch.load(params_path, weights_only=False)
+    out = {}
+    for arch, layout in cases:
+        sched = SlotScheduler(get_smoke_config(arch), params[arch],
+                              device="cpu", mesh=mesh, dist_layout=layout,
+                              **SCHED)
+        with TraceMode() as mode:
+            tokens = sched.serve(sched_requests())
+        out[(arch, layout)] = {"tokens": tokens,
+                               "calls": dict(mode.summary.kernel_calls),
+                               "stats": dict(sched.stats),
+                               "admissions": sched.admissions,
+                               "captured": sched.engine.captured}
+    return out
+
+
+def wire_task(rank, n, mesh, arch, params_path):
+    """One channel-sharded decode step of ``arch``'s smoke twin under the
+    residency pass, and a planted all-reduce of a (C, M, N) int8 residue
+    stack: both traces' collectives."""
+    from repro_torch.analysis.residency import TraceMode
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.dist import comms
+    from repro_torch.dist import context as dc
+    from repro_torch.dist.engine import make_context, place_params
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config(arch)
+    params = torch.load(params_path, weights_only=False)[arch]
+    ctx = make_context(cfg, mesh, layout="channel")
+    with torch.inference_mode():
+        placed = place_params(ctx, cfg, params)
+        cache = T.init_cache(cfg, 2, 32, "cpu")
+        tok = torch.zeros((2, 1), dtype=torch.int64)
+        with dc.use(ctx), TraceMode() as mode:
+            T.decode_step(cfg, placed, cache, {"tokens": tok}, 4)
+        with TraceMode() as planted:
+            comms.all_reduce(torch.zeros((4, 2, 16), dtype=torch.int8),
+                             ctx.group)
+    return {"step": mode.summary.collectives,
+            "calls": dict(mode.summary.kernel_calls),
+            "planted": planted.summary.collectives}
+
+
+def dist_task(rank, n, mesh, operands, cases, params_path, wire_arch,
+              sched_cases):
+    """`launch_task`, `engine_task`, `sched_task` and `wire_task` in one
+    group."""
+    return {"launch": launch_task(rank, n, mesh, *operands),
+            "engine": engine_task(rank, n, mesh, cases, params_path),
+            "sched": sched_task(rank, n, mesh, sched_cases, params_path),
+            "wire": wire_task(rank, n, mesh, wire_arch, params_path)}
+
+
+def compression_task(rank, n, mesh, grads_path):
+    """`compressed_mean_all_reduce` of this rank's gradients (entry
+    ``rank`` of the saved per-rank lists)."""
+    from repro_torch.train.compression import compressed_mean_all_reduce
+
+    grads = torch.load(grads_path, weights_only=False)[rank]
+    return compressed_mean_all_reduce(grads, mesh.group("model"))

@@ -97,6 +97,13 @@ def test_scan_sees_the_port():
             "src/repro_torch/kernels/fold.py",
             "src/repro_torch/kernels/flash_attention.py",
             "src/repro_torch/dist/rns_shard.py",
+            "src/repro_torch/dist/context.py",
+            "src/repro_torch/dist/comms.py",
+            "src/repro_torch/dist/engine.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/sharding.py",
+            "src/repro_torch/train/compression.py",
+            "src/repro_torch/kernels/ops.py",
             "src/repro_torch/core/linear_spec.py",
             "src/repro_torch/core/rns_linear.py",
             "src/repro_torch/serve/engine.py",
@@ -119,7 +126,46 @@ def test_scan_sees_the_port():
             "repro_torch.configs.llama4_maverick_400b_a17b",
             "repro_torch.configs.phi_3_vision_4_2b",
             "repro_torch.train", "repro_torch.train.tree",
-            "repro_torch.launch.train"} <= set(PORT_MODULES)
+            "repro_torch.launch.train", "repro_torch.dist.context",
+            "repro_torch.dist.comms", "repro_torch.dist.engine",
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.train.compression",
+            "repro_torch.kernels.ops"} <= set(PORT_MODULES)
+
+
+def test_dist_package_imports_light():
+    """`core.rns_linear` imports `repro_torch.dist.context` on every fused
+    launch: the package loads the standard library only (no torch, no
+    `torch.distributed`, no sharded launch)."""
+    code = ("import sys, repro_torch.dist; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'repro_torch', 'numpy')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.split() == ["['repro_torch',", "'repro_torch.dist',",
+                                  "'repro_torch.dist.context']"]
+
+
+def test_engine_mesh_scan_is_uncaptured():
+    """An Engine built with a mesh never captures its scan step (a CUDA
+    graph cannot hold a gloo collective); one without a mesh captures on
+    CUDA only."""
+    from repro_torch.launch.mesh import Mesh
+    cfg = get_smoke_config("rns-smollm-135m-sharded")
+    params = T.make_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert Engine(cfg, params, smax=32, device="cpu").captured is False
+    with pytest.raises(ValueError, match="without mesh"):
+        Engine(cfg, params, smax=32, device="cpu", dist_layout="column")
+    eng = Engine(cfg, params, smax=32, device="cpu",
+                 mesh=Mesh({"data": 1, "model": 1}))
+    assert eng.captured is False and eng._dist_ctx.nshards == 1
+    # a one-rank model axis serves as the unsharded engine does
+    want = Engine(cfg, params, smax=32, device="cpu").generate([[3, 4, 5]],
+                                                               4)
+    assert eng.generate([[3, 4, 5]], 4) == want
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):

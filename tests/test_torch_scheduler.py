@@ -161,8 +161,11 @@ def test_non_dense_and_multi_device_rejected_at_construction(arch):
     with pytest.raises(ValueError, match="sliding-window ring cache"):
         SlotScheduler(dataclasses.replace(cfg, attention="swa", window=8),
                       _params(arch), **kw)
-    for extra in ({"mesh": object()}, {"dist_layout": "channel"}):
-        with pytest.raises(ValueError, match="multi-device"):
+    # a layout without a mesh, and a mesh without a "model" axis
+    from repro_torch.launch.mesh import Mesh
+    for extra, msg in (({"mesh": Mesh({"data": 2})}, "no 'model'"),
+                       ({"dist_layout": "channel"}, "without mesh")):
+        with pytest.raises(ValueError, match=msg):
             SlotScheduler(cfg, _params(arch), **kw, **extra)
     with pytest.raises(ValueError, match="multiple of block_size"):
         SlotScheduler(cfg, _params(arch), **dict(kw, slot_tokens=22))
