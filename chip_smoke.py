@@ -67,7 +67,18 @@ Phases, each of which must pass:
      against the plain version), `fold`, and one smollm layer's linears as
      one-channel `rns_fused_crt_partial` slices composed by
      `dist.rns_shard.channel_sliced_matmul` and held bit for bit against
-     `rns_fused_matmul`;
+     `rns_fused_matmul`; then the `int8` phase: the exact-int8 entry
+     `rns_int_matmul` on its three routes (fused raw-int8
+     `rns_fused_matmul`; staged forward + broadcast `rns_matmul` +
+     reverse; per-channel, both operands converted), encoded and live
+     weights, scales none, (1, N), (M, 1), (M, N), on the four smollm
+     layer shapes at M = 8 and 512, every result bit-equal to the float64
+     product of the int8 operands times the scale and to its plain
+     version, the launches of each call as its route implies, and the
+     raw-int8 `rns_fused_crt_partial` (encoded and live) as one-channel
+     slices composed through `crt_finish`; the new forms timed (`int8:`
+     lines: one layer at decode and prefill beside `torch._int_mm` and
+     bf16 `torch.matmul`);
   7. tune    — before serve: the tile kernel's autotuner
      (`kernels/tune.py`, reading and writing a copy of the committed H100
      table under build/) on the three full models: every decode shape an
@@ -164,18 +175,23 @@ Phases, each of which must pass:
      `check_reduced_wire` clean, `comms.collective_wire_bytes` beside
      `costs.comms_bytes_decode`); `compressed_mean_all_reduce` on 2 ranks
      over the fused model's parameter shapes bit-equal to the formula on
-     one process.
+     one process; each group also runs `rns_int_matmul` with raw int8
+     x in its layout (5 ranks channel, 2 column), live and encoded
+     weights, every scale form: every rank bit-equal to the unsharded
+     launch.
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
 the route each shape takes (`split`, `mma` or `fma`, named on its row;
 bf16 prefill also pinned to `fma`, held alike and timed in turns with
 `mma`; a `flash:` line sums up decode, prefill and `fold`),
 `fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
-for n = 1 and n = C) against their plain versions.  Lines: per-shape
+for n = 1 and n = C) against their plain versions; the flash rows include
+the zoo's other head sizes (256, 80, 96, and 8 padded to 16; a
+`flash heads:` line).  Lines: per-shape
 kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
 `decode:` and `prefill:` sums, the `tune:` lines, a `verify:` line, one
 `serve:` line per model, one `sched:` line per scheduled model, a
-`chain:` line, an `entry:` line, the `twit:` lines, one `check:`
+`chain:` line, an `entry:` line, the `int8:` lines, the `twit:` lines, one `check:`
 line per smoke config, the `families:` lines, the `train:` lines, the
 `residency:`, `costs:`, `roofline:` and `dryrun:` lines, the `dist:`
 lines, the nvidia-smi line, the kernels JSON line and, last, the device JSON line.  ``--record
@@ -200,6 +216,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the output for bf16; fully masked rows must be exactly 0.
 FLASH_TOL = {"bfloat16": (2.0**-7, 1e-3), "float32": (0.0, 2e-5)}
 COLD_L2_BYTES = 120 << 20          # > 2x the 50 MB L2: weights read cold
+# the raw-int8 tile instances: 16-row by channel count, then 32-row
+RAW_TILE_SOURCES = ("rns_tile_raw.cu", "rns_tile_raw_wide.cu",
+                    "rns_tile_mma_raw.cu")
 ARCH = "rns-smollm-135m-fused"
 RESIDENT = "rns-smollm-135m-resident"
 STAGED = "rns-smollm-135m-pallas"
@@ -390,10 +409,14 @@ def phase_device(layer_shapes, decode_m, prefill_m):
     so, log = _build.build()
     _build.library()
     build_s = time.perf_counter() - t0
-    # ptxas -v per kernel: its entry, then spills, then registers
-    kernels, spills = [], []
+    # ptxas -v per kernel: its entry, then spills, then registers; each
+    # source's compile seconds on its "==" line
+    kernels, spills, files = [], [], {}
     for ln in log.splitlines():
-        if "Compiling entry function" in ln:
+        if ln.startswith("== ") and ln.endswith(" s)"):
+            name, secs = ln[3:].rsplit(" (", 1)
+            files[name] = float(secs[:-3])
+        elif "Compiling entry function" in ln:
             kernels.append({"kernel": ln.split("'")[1]})
         elif "spill stores" in ln and kernels:
             kernels[-1]["spill"] = ln.strip()
@@ -424,12 +447,16 @@ def phase_device(layer_shapes, decode_m, prefill_m):
           f"dynamic shared memory; spills: {spills or 'none'}) | "
           f"16-row clusters (K splits) of one layer, static rule: "
           f"{clusters}")
+    print("build: compile seconds by source (all at once, beside the dry "
+          "run): " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+              files.items(), key=lambda kv: -kv[1])))
     print("build: flash_attention routes (instance: registers/spill "
           "bytes): " + "; ".join(
               f"{route} {len(ins)} instances "
               + ", ".join(f"{k}: {r}/{sp}" for k, r, sp in ins)
               for route, ins in flash.items()))
     return {"name": name, "smi": smi, "build_s": build_s,
+            "compile_s": files,
             "ptxas": kernels, "spills": spills, "flash_instances": flash,
             "tile16_smem_bytes": [min(smem), max(smem)],
             "clusters": clusters}
@@ -986,6 +1013,21 @@ FLASH_CASES = [
     ("noncausal-2000", 8, 9, 2000, 2000, 64, False, None, None, None),
     ("positions", 8, 9, 64, 2048, 64, True, None, None, "pos"),
 ]
+# the zoo's other head sizes, at their models' heads and masks: gemma2-2b
+# (256, 8 heads, window 4096, softcap 50 on the prefill), h2o-danube-1.8b
+# (80, 32 heads, window 4096), phi-3-vision-4.2b (96, 32 heads) and the
+# yi-34b smoke twin (8, 8 heads: padded to the compiled 16)
+FLASH_HEADS = [
+    ("prefill-pad D256", 8, 8, 2048, 2048, 256, True, 4096, 50.0, "pad"),
+    ("decode-2048 D256", 8, 8, 1, 2048, 256, True, 4096, None, "pad"),
+    ("prefill-pad D80", 8, 32, 2048, 2048, 80, True, 4096, None, "pad"),
+    ("decode-2048 D80", 8, 32, 1, 2048, 80, True, 4096, None, "pad"),
+    ("prefill-pad D96", 8, 32, 2048, 2048, 96, True, None, None, "pad"),
+    ("decode-2048 D96", 8, 32, 1, 2048, 96, True, None, None, "pad"),
+    ("prefill-pad D8", 8, 8, 2048, 2048, 8, True, None, None, "pad"),
+    ("decode-2048 D8", 8, 8, 1, 2048, 8, True, None, None, "pad"),
+]
+FLASH_CASES += FLASH_HEADS
 
 
 def phase_entries(layer_shapes, chain, lanes, dev):
@@ -1061,6 +1103,270 @@ def phase_entries(layer_shapes, chain, lanes, dev):
             x, wt, scale_row=srow, scale_col=wt.scale, gate=gate))
     return {"launches": {k: launches[k] for k in SLICE3},
             "flash_routes": routes, "ok": bool(ok)}
+
+
+INT8_ROUTES = {"fused": {"backend": "auto"}, "staged": {"backend": "pallas"},
+               "per_channel": {"broadcast": False}}
+
+
+def _int8_counters():
+    from repro_torch.kernels import (rns_forward, rns_fused_crt_partial,
+                                     rns_fused_matmul, rns_matmul,
+                                     rns_reverse)
+
+    return (rns_fused_matmul, rns_forward, rns_matmul, rns_reverse,
+            rns_fused_crt_partial)
+
+
+def _int8_plain(route, x, w, wenc, basis, s):
+    """The plain version of one `rns_int_matmul` call on the card: the
+    fused kernel's, or the staged route's three kernels' composed."""
+    import torch
+    from repro_torch.core.channel_plan import ChannelPlan
+    from repro_torch.core.conversion_plan import ConversionPlan
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rns_fused import lower_scale
+
+    mods = basis.moduli
+    w_res = wenc.residues if wenc is not None else \
+        ref.rns_forward_ref(w, mods, torch.int8)
+    if route == "fused":
+        M, N = x.shape[0], w_res.shape[-1]
+        srow, scol, sc = lower_scale(s, M, N, None, None, x.device)
+        return ref.rns_fused_matmul_ref(x, w_res, basis, scale_row=srow,
+                                        scale_col=scol, scale=sc)
+    if route == "staged":
+        res = ref.rns_matmul_ref(x[None], w_res, mods, signed_a=True)
+    else:
+        plan = ChannelPlan.for_matmul(mods, x.shape[-1])
+        res = ref.rns_matmul_ref(ref.rns_forward_ref(x, mods, torch.int8),
+                                 w_res, mods, plan=plan)
+    return ref.rns_reverse_ref(res, ConversionPlan.for_basis(basis), s)
+
+
+def phase_int8(layer_shapes, decode_m, prefill_m, dev):
+    """The exact-int8 entry, `core.rns_linear.rns_int_matmul`, at the
+    reference's signature on its three routes (fused: one raw-int8
+    `rns_fused_matmul`; staged: forward, broadcast `rns_matmul`, reverse;
+    per-channel: both operands forward-converted, canonical `rns_matmul`,
+    reverse), encoded and live weights, each scale form (none, (1, N),
+    (M, 1), (M, N)), on the four smollm-135m layer shapes at M = 8 and
+    512, driven once with the counts set to 0 just before and read just
+    after; the raw-int8 `rns_fused_crt_partial` (encoded and live) as
+    one-channel slices of the same launches composed through
+    `crt_finish`.  Gates: every result bit-equal to the float64 product
+    of the int8 operands (exact: |sum| <= 1536·128² < 2^53) times the
+    scale, and to its plain version; each call's launches.  Then the new
+    forms timed over operand copies that outgrow the L2: the raw-int8
+    fused launch (encoded and live) beside `torch._int_mm` (M > 16) and
+    bf16 `torch.matmul`, and the one-channel raw-int8 slices."""
+    import torch
+    from repro_torch.core import rns_linear
+    from repro_torch.core.channel_plan import ChannelPlan
+    from repro_torch.core.rns import basis_for_int8_matmul
+    from repro_torch.core.rns_tensor import RNSTensor
+    from repro_torch.dist.rns_shard import (channel_sliced_matmul,
+                                            crt_tables, local_plan)
+    from repro_torch.kernels import (ref, rns_fused_crt_partial,
+                                     rns_fused_matmul, tune)
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    shapes = sorted({(k, n) for _, k, n, _ in layer_shapes})
+    ops = {}
+    for M in (decode_m, prefill_m):
+        for K, N in shapes:
+            x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                              dtype=torch.int8)
+            w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                              dtype=torch.int8)
+            x[0, :] = -128                  # the worst accumulator K·128²
+            w[:, 0] = -128
+
+            def u(*shape):
+                return torch.rand(shape, generator=g, device=dev) + 0.01
+            scales = {"none": None, "1n": u(1, N), "m1": u(M, 1),
+                      "mn": u(M, N)}
+            ops[(M, K, N)] = (x, w, RNSTensor.from_int8(w), scales)
+    torch.cuda.synchronize()
+    sweeps = tune.stats["sweeps"]
+    fns = _int8_counters()
+    for f in fns:
+        f.launches = 0
+    fns[0].raw_launches = fns[4].raw_launches = 0
+    outs, calls = [], []
+    for (M, K, N), (x, w, wenc, scales) in ops.items():
+        basis = basis_for_int8_matmul(K)
+        for route, kw in INT8_ROUTES.items():
+            for wname, wq in (("encoded", wenc), ("live", w)):
+                for sname, s in scales.items():
+                    before = [f.launches for f in fns[:4]]
+                    out = rns_linear.rns_int_matmul(x, wq, scale=s, **kw)
+                    calls.append((route, wname,
+                                  [f.launches - b for f, b in
+                                   zip(fns[:4], before)]))
+                    outs.append(((M, K, N), route, wname, sname, out))
+        for wname, wq in (("encoded", wenc), ("live", w)):
+            outs.append(((M, K, N), "crt", wname, "none",
+                         channel_sliced_matmul(x, wq, len(basis.moduli),
+                                               basis=basis)))
+    torch.cuda.synchronize()
+    launches = {"rns_fused_matmul": fns[0].launches,
+                "raw_int8": fns[0].raw_launches,
+                "rns_forward": fns[1].launches, "rns_matmul": fns[2].launches,
+                "rns_reverse": fns[3].launches,
+                "rns_fused_crt_partial": fns[4].launches,
+                "crt_raw_int8": fns[4].raw_launches}
+    want_calls = {("fused", "encoded"): [1, 0, 0, 0],
+                  ("fused", "live"): [1, 0, 0, 0],
+                  ("staged", "encoded"): [0, 0, 1, 1],
+                  ("staged", "live"): [0, 1, 1, 1],
+                  ("per_channel", "encoded"): [0, 1, 1, 1],
+                  ("per_channel", "live"): [0, 2, 1, 1]}
+    calls_ok = all(c == want_calls[(r, wn)] for r, wn, c in calls)
+    exact_ok = plain_ok = True
+    for (M, K, N), route, wname, sname, out in outs:
+        x, w, wenc, scales = ops[(M, K, N)]
+        s = scales[sname]
+        exact = (x.double() @ w.double()).float()
+        exact_ok &= torch.equal(out, exact if s is None else exact * s)
+        if route != "crt":
+            plain = _int8_plain(route, x, w, wenc if wname == "encoded"
+                                else None, basis_for_int8_matmul(K), s)
+            plain_ok &= torch.equal(out, plain)
+    swept = tune.stats["sweeps"] - sweeps
+
+    # timing: the raw-int8 fused launch and the one-channel raw slices
+    rows, ok = [], True
+    for (M, K, N), (x, w, wenc, _) in ops.items():
+        basis = basis_for_int8_matmul(K)
+        C = len(basis.moduli)
+        pool = _copies(lambda: torch.randint(0, 37, (C, K, N), dtype=torch.int8,
+                                             device=dev), C * K * N)
+        live = _copies(lambda: torch.randint(-128, 128, (K, N),
+                                             dtype=torch.int8, device=dev),
+                       K * N)
+        bf16 = _bf16_matmul((M, K), K, N, g, dev)
+        bf16_ms = device_ms(*bf16)
+        lib, extra = None, {}
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            # cuBLASLt's int8 GEMM wants a column-major mat2: (N, K) copies
+            # read transposed; the row-major (K, N) one is timed beside it
+            live_t = _copies(lambda: torch.randint(
+                -128, 128, (N, K), dtype=torch.int8, device=dev), K * N)
+            lib = (lambda i, x=x, live_t=live_t: torch._int_mm(
+                x, live_t[i].t()), len(live_t))
+            extra["int_mm_row_major_ms"] = device_ms(
+                lambda i, x=x, live=live: torch._int_mm(x, live[i]),
+                len(live))
+        for wname, arg, wpool in (("encoded", wenc.residues, pool),
+                                  ("live", w, live)):
+            def launch(i, x=x, wpool=wpool, basis=basis):
+                return rns_fused_matmul(x, wpool[i], basis)
+
+            def plain(x=x, arg=arg, basis=basis):
+                return ref.rns_fused_matmul_ref(x, arg, basis)
+
+            # bound: the exact int8 product's 2·M·K·N operations (what
+            # `torch._int_mm` does); the C channels' 2·C·M·K·N beside it
+            nbytes = M * K + arg.numel() + 4 * M * N
+            ok &= _measure(
+                rows, "rns_fused_matmul:raw_int8",
+                f"M={M} K={K} N={N} {wname}",
+                rns_fused_matmul(x, arg, basis), plain(), launch, plain,
+                lib, len(wpool), nbytes, 2 * M * K * N,
+                again=(lambda x=x, arg=arg, basis=basis: rns_fused_matmul(
+                    x, arg, basis)) if M > 16 else None,
+                M=M, K=K, N=N, C=C, weights=wname, bf16_ms=bf16_ms,
+                bound_channels_ms=bound_ms(nbytes, 2 * C * M * K * N)[0],
+                **extra)
+        # the first one-channel raw-int8 slice (encoded, live) of the
+        # launches composed above
+        v, mc, L1 = crt_tables(basis)
+        plan = ChannelPlan.for_matmul(basis.moduli, K, signed=True)
+        tables = dict(plan=local_plan(plan, C), mods=plan.mods[:1],
+                      sched=plan.sched[:1], crt_v=v[:1], crt_mc=mc[:1])
+        for wname, arg, wpool in (("encoded", wenc.residues[:1], pool),
+                                  ("live", w, live)):
+            def run(i, x=x, wpool=wpool, wname=wname, tables=tables):
+                wi = wpool[i][:1] if wname == "encoded" else wpool[i]
+                return rns_fused_crt_partial(x, wi, **tables)
+
+            def plain(x=x, arg=arg, tables=tables):
+                return ref.rns_fused_crt_partial_ref(x, arg, **tables)
+
+            def full(i, x=x, wpool=wpool, basis=basis):
+                return rns_fused_matmul(x, wpool[i], basis)
+
+            ok &= _measure(
+                rows, "rns_fused_crt_partial:raw_int8",
+                f"M={M} K={K} N={N} {wname} slice 1/{C}",
+                rns_fused_crt_partial(x, arg, **tables), plain(), run,
+                plain, (full, len(wpool)), len(wpool),
+                M * K + K * N + 4 * L1 * M * N, 2 * M * K * N,
+                again=(lambda x=x, arg=arg, tables=tables:
+                       rns_fused_crt_partial(x, arg, **tables))
+                if M > 16 else None,
+                M=M, K=K, N=N, C=C, weights=wname)
+        del pool, live
+    return {"launches": launches, "calls": len(calls), "calls_ok": calls_ok,
+            "exact_ok": bool(exact_ok), "plain_ok": bool(plain_ok),
+            "sweeps": swept, "rows": rows, "ok": bool(ok and calls_ok
+                                                     and exact_ok
+                                                     and plain_ok)}
+
+
+def int8_per_layer(rows, layer_shapes, M, kernel, weights):
+    """One layer's 7 launches of ``kernel`` (``weights`` encoded or live)
+    at M rows, summed (`_sum`), with the bf16 yardstick's sum."""
+    picked = [next(r for r in rows if r["kernel"] == kernel
+                   and r["M"] == M and (r["K"], r["N"]) == (k, n)
+                   and r["weights"] == weights)
+              for _, k, n, _ in layer_shapes]
+    agg = _sum(picked)
+    for key in ("bf16_ms", "bound_channels_ms", "int_mm_row_major_ms"):
+        agg[key] = sum(r.get(key, 0.0) for r in picked)
+    return agg
+
+
+def print_int8(res, layer_shapes, decode_m, prefill_m, smi):
+    """The `int8:` lines and the phase's gates."""
+    print(f"int8: rns_int_matmul (fused, staged, per-channel routes; "
+          f"encoded and live weights; scales none, (1, N), (M, 1), (M, N)) "
+          f"on the 4 smollm-135m layer shapes at M={decode_m} and "
+          f"{prefill_m}: {res['calls']} calls, bit-equal to the float64 "
+          f"product times the scale {res['exact_ok']}, to the plain "
+          f"versions {res['plain_ok']}, launches per call as the route "
+          f"implies {res['calls_ok']} | raw-int8 rns_fused_crt_partial "
+          f"(encoded and live) as one-channel slices composed == exact "
+          f"{res['exact_ok']} | launches {res['launches']} | tuner sweeps "
+          f"{res['sweeps']}")
+    for kernel, what in (("rns_fused_matmul:raw_int8", "launches"),
+                         ("rns_fused_crt_partial:raw_int8",
+                          "one-channel slices")):
+        for M in (decode_m, prefill_m):
+            parts = []
+            for weights in ("encoded", "live"):
+                a = int8_per_layer(res["rows"], layer_shapes, M, kernel,
+                                   weights)
+                lib = ("n/a" if a["library_ms"] is None
+                       else f"{1e3 * a['library_ms']:.1f} us")
+                fused = kernel.startswith("rns_fused_matmul")
+                if fused and a["library_ms"] is not None:
+                    lib += (f" (row-major mat2 "
+                            f"{1e3 * a['int_mm_row_major_ms']:.1f} us)")
+                yard = (f"torch._int_mm {lib}, bf16 torch.matmul "
+                        f"{1e3 * a['bf16_ms']:.1f} us"
+                        if fused else f"the full-basis raw-int8 launch {lib}")
+                chans = (f"; over the C channels "
+                         f"{1e3 * a['bound_channels_ms']:.2f} us"
+                         if fused else "")
+                parts.append(f"{weights} {1e3 * a['ms']:.1f} us ({yard}, "
+                             f"bound {1e3 * a['bound_ms']:.2f} us{chans})")
+            print(f"int8: {kernel} one layer's 7 {what} at M={M}: "
+                  + "; ".join(parts) + f" | on {smi}")
+    if not res["ok"]:
+        raise AssertionError("int8: a result, a plain version or a launch "
+                             "count disagrees")
 
 
 def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
@@ -3531,6 +3837,47 @@ def _dist_launches(ctx, dev, cfg):
     return rows
 
 
+def _dist_int8(ctx, dev, cfg):
+    """`rns_int_matmul` on its fused route with raw int8 x (M = 8, one
+    smollm gate/up shape, K 576 × N 1536) under this rank's context, live
+    and encoded weights, each scale form: every call bit-equal to the
+    unsharded launch made on this rank with no context, the layout each
+    resolved to, and the raw-int8 launches it made."""
+    import torch
+    from repro_torch.core.rns_linear import rns_int_matmul
+    from repro_torch.core.rns_tensor import RNSTensor
+    from repro_torch.dist import context
+    from repro_torch.dist.rns_shard import rank_launch
+    from repro_torch.kernels import rns_fused_crt_partial, rns_fused_matmul
+
+    M, K, N = 8, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    scales = {"none": None,
+              "1n": torch.rand(1, N, generator=g, device=dev) + 0.01,
+              "m1": torch.rand(M, 1, generator=g, device=dev) + 0.01,
+              "mn": torch.rand(M, N, generator=g, device=dev) + 0.01}
+    cases = []
+    for wname, wq in (("live", w), ("encoded", RNSTensor.from_int8(w))):
+        for sname, sc in scales.items():
+            want = rns_int_matmul(x, wq, scale=sc)
+            raw = (rns_fused_matmul.raw_launches,
+                   rns_fused_crt_partial.raw_launches)
+            with context.use(ctx):
+                got = rns_int_matmul(x, wq, scale=sc)
+            cases.append({
+                "weights": wname, "scale": sname,
+                "equal": _bits(got) == _bits(want),
+                "raw_fused": rns_fused_matmul.raw_launches - raw[0],
+                "raw_crt": rns_fused_crt_partial.raw_launches - raw[1]})
+    torch.cuda.synchronize()
+    return {"M": M, "K": K, "N": N,
+            "layout": rank_launch(x, w, ctx=ctx).layout, "cases": cases}
+
+
 def _dist_engine(arch, layout, tokens, ctx, mesh, dev, ref, wire=False):
     """One sharded Engine run of a full-width config: one prefill (its
     logits against the unsharded ``ref``'s, its launches), then with
@@ -3709,6 +4056,8 @@ def _dist_rank(rank, n, tmp, layout, runs, device):
         cfg = get_config(SHARDED)
         out = {"rank": rank, "launch": _dist_launches(
             DistContext(mesh=mesh, layout=layout), dev, cfg)}
+        out["int8"] = _dist_int8(DistContext(mesh=mesh, layout=layout), dev,
+                                 cfg)
         out["engine"] = []
         for arch, lay, tokens in runs:
             ref = torch.load(os.path.join(tmp, f"ref_{arch}.pt"))
@@ -3867,6 +4216,23 @@ def print_dist(res, smi):
                      if row["collective_us"] is not None else
                      " | replicated, no collective")
                   + f" | on {smi}")
+        i8 = [r["int8"] for r in ranks]
+        ok8 = all(c["equal"] for r in i8 for c in r["cases"]) and all(
+            r["layout"] == i8[0]["layout"] for r in i8)
+        want_kernel = "raw_crt" if i8[0]["layout"] == "channel" else \
+            "raw_fused"
+        ok8 &= all(c[want_kernel] == 1 for r in i8 for c in r["cases"])
+        if not ok8:
+            bad.append(f"rns_int_matmul on {n}")
+        print(f"dist: rns_int_matmul raw int8 (M {i8[0]['M']}, K "
+              f"{i8[0]['K']}, N {i8[0]['N']}; live and encoded weights; "
+              f"scales none, (1, N), (M, 1), (M, N)) on {n} ranks, "
+              f"{i8[0]['layout']}: every rank bit-equal to the unsharded "
+              f"launch, one raw-int8 "
+              f"{'rns_fused_crt_partial' if want_kernel == 'raw_crt' else 'rns_fused_matmul'}"
+              f" a call: {ok8} | raw-int8 launches over the ranks "
+              f"{sum(c[want_kernel] for r in i8 for c in r['cases'])} "
+              f"| on {smi}")
         for j, run in enumerate(ranks[0]["engine"]):
             runs = [r["engine"][j] for r in ranks]
             ok = all(r["tokens_equal"] and r["logits_equal"]
@@ -4071,6 +4437,14 @@ def main() -> int:
           f"{1e3 * fold_row['ms']:.1f} us, torch.remainder "
           f"{1e3 * fold_row['library_ms']:.1f} us, bound "
           f"{1e3 * fold_row['bound_ms']:.2f} us | on {dev_info['smi']}")
+    heads = {c[0] for c in FLASH_HEADS}
+    print("flash heads: " + " | ".join(
+        f"{r['leaf']} {r['dtype']} ({r['route']}) {1e3 * r['ms']:.1f} us"
+        + ("" if r["library_ms"] is None
+           else f", sdpa {1e3 * r['library_ms']:.1f} us")
+        + f", bound {1e3 * r['bound_ms']:.2f} us ({r['bound_by']})"
+        for r in rows3 if r["kernel"] == "flash_attention"
+        and r["leaf"] in heads) + f" | on {dev_info['smi']}")
 
     smi = dev_info["smi"]
     decode = per_layer(rows, rows2, layer_shapes, lanes)
@@ -4206,7 +4580,9 @@ def main() -> int:
     if not entries["ok"]:
         raise AssertionError("an entry point's output is wrong")
 
-    mark("chain+entry")
+    int8 = phase_int8(layer_shapes, lanes, lanes * bucket, dev)
+    print_int8(int8, layer_shapes, lanes, lanes * bucket, smi)
+    mark("chain+entry+int8")
     twit = phase_twit(dev, dev_info["smi"])
     mark("twit")
     checks = {}
@@ -4355,6 +4731,19 @@ def main() -> int:
                 if got:
                     paths[key] = got
     quantize.update(dist_paths["rns_fused_matmul"])
+    # the raw-int8 launches of the int8 phase and of phase 14's calls
+    raw_paths = {"rns_fused_matmul:raw_int8": {
+        "int8:rns_int_matmul": int8["launches"]["raw_int8"]},
+        "rns_fused_crt_partial:raw_int8": {
+        "int8:channel_sliced_matmul": int8["launches"]["crt_raw_int8"]}}
+    for n, (ranks, _) in dist_res["groups"].items():
+        for name, key in (("rns_fused_matmul:raw_int8", "raw_fused"),
+                          ("rns_fused_crt_partial:raw_int8", "raw_crt")):
+            got = sum(c[key] for r in ranks for c in r["int8"]["cases"])
+            if got:
+                raw_paths[name][f"dist:rns_int_matmul/"
+                                f"{ranks[0]['int8']['layout']}/{n} ranks"] \
+                    = got
     src = "src/repro_torch/csrc/"
 
     def entry(name, source, replaces, launches, agg, rows_of):
@@ -4410,6 +4799,20 @@ def main() -> int:
                entries["launches"]["rns_fused_crt_partial"],
                **dist_paths["rns_fused_crt_partial"]}, crt,
               rows_of("rns_fused_crt_partial", rows3)),
+        entry("rns_fused_matmul:raw_int8", src + "rns_common.cuh",
+              "src/repro/kernels/rns_fused.py:352",
+              raw_paths["rns_fused_matmul:raw_int8"],
+              int8_per_layer(int8["rows"], layer_shapes, lanes,
+                             "rns_fused_matmul:raw_int8", "encoded"),
+              rows_of("rns_fused_matmul:raw_int8", int8["rows"]))
+        | {"sources": [src + f for f in RAW_TILE_SOURCES]},
+        entry("rns_fused_crt_partial:raw_int8", src + "rns_common.cuh",
+              "src/repro/kernels/rns_fused.py:569",
+              raw_paths["rns_fused_crt_partial:raw_int8"],
+              int8_per_layer(int8["rows"], layer_shapes, lanes,
+                             "rns_fused_crt_partial:raw_int8", "encoded"),
+              rows_of("rns_fused_crt_partial:raw_int8", int8["rows"]))
+        | {"sources": [src + f for f in RAW_TILE_SOURCES]},
     ]
     for k in kernels:
         if k["launches"] == 0:
@@ -4421,7 +4824,7 @@ def main() -> int:
         with open(args.record, "w") as fh:
             json.dump({"device": dev_info, "rows": rows + rows2 + rows3,
                        "serve": serves, "sched": scheds, "chain": chain,
-                       "entries": entries,
+                       "entries": entries, "int8": int8,
                        "prefill_per_layer": prefill,
                        "convert_per_layer": convert, "edges": edges,
                        "decode_per_layer": decode,

@@ -61,6 +61,18 @@ class ChannelPlan:
                            int(max_rungs))
 
     @classmethod
+    def for_channels(cls, channels: Sequence[Modulus], bound: int, *,
+                     signed: bool = False,
+                     max_rungs: int = 6) -> "ChannelPlan":
+        """Plan over explicit :class:`Modulus` descriptors, which keep a
+        forced channel width n (the paper's all-n = 5 case study)."""
+        chans = tuple(channels)
+        mods = tuple(ch.m for ch in chans)
+        chans = tuple(None if ch.is_pow2 else ch for ch in chans)
+        return _build_plan(mods, chans, int(bound), bool(signed),
+                           int(max_rungs))
+
+    @classmethod
     def for_matmul(cls, moduli: Sequence[int], k: int, *,
                    signed: bool = False) -> "ChannelPlan":
         """Plan for a K-deep deferred-reduction matmul: |acc| <=

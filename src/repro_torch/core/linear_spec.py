@@ -8,8 +8,9 @@ port of `repro/core/linear_spec.py`.
                          kernels: forward conversion, channel matmul, MRC
                          reverse) or "auto", which is "pallas_fused";
   * ``broadcast``      — broadcast-operand datapath (raw signed int8
-                         activations against weight residues); the
-                         per-channel form (False) is not ported;
+                         activations against weight residues); False is
+                         the paper-literal per-channel datapath (both
+                         operands converted, on the staged kernels);
   * ``encode_weights`` — the weights are encoded to residues once at load;
   * ``domain``         — "float" (each linear enters and leaves the residue
                          domain) or "residue" (stacked QKV and the GLU MLP

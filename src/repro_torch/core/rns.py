@@ -17,14 +17,20 @@ import torch
 from .twit import Modulus, is_power_of_two
 
 __all__ = ["RNSBasis", "PAPER_N5_MODULI", "PAPER_N5_DYNAMIC_RANGE",
-           "paper_n5_basis", "tau_basis", "basis_for_accumulation",
-           "basis_for_chain", "basis_for_int8_matmul"]
+           "paper_n5_basis", "tau_basis", "n8_channels", "n11_channels",
+           "basis_for_accumulation", "basis_for_chain",
+           "basis_for_int8_matmul"]
 
 # The paper's Section IV-D case-study set (order as printed).
 PAPER_N5_MODULI: Tuple[int, ...] = (17, 19, 23, 29, 31, 1024, 35, 37, 39, 41,
                                     43, 47)
 # Exact dynamic range claimed in Section IV-D.
 PAPER_N5_DYNAMIC_RANGE = 28_620_324_425_937_054_720
+
+# Table III's wider channels, for the circuit study (not a coprime set).
+N8_CHANNELS: Tuple[int, ...] = (253, 259, 247, 265, 129, 383)  # 2^8∓{3,9,127}
+N11_CHANNELS: Tuple[int, ...] = (2045, 2051, 2039, 2057, 1025,
+                                 3071)                       # 2^11∓{3,9,1023}
 
 
 def _egcd(a: int, b: int) -> Tuple[int, int, int]:
@@ -151,14 +157,28 @@ def tau_basis(n: int = 22) -> RNSBasis:
     return RNSBasis(name=f"tau-{n}", moduli=(2**n - 1, 2**n, 2**n + 1))
 
 
-def basis_for_accumulation(max_abs: int, name: str | None = None) -> RNSBasis:
-    """Smallest subset of the paper set's odd moduli (largest first) whose
-    dynamic range covers [−max_abs, max_abs].  1024 is left out: its
-    residues do not fit the int8 operands of the kernel."""
+def n8_channels() -> Tuple[Modulus, ...]:
+    """Table III's n = 8 channels as :class:`Modulus` descriptors."""
+    return tuple(Modulus.from_value(m) for m in N8_CHANNELS)
+
+
+def n11_channels() -> Tuple[Modulus, ...]:
+    """Table III's n = 11 channels as :class:`Modulus` descriptors."""
+    return tuple(Modulus.from_value(m) for m in N11_CHANNELS)
+
+
+def basis_for_accumulation(max_abs: int, name: str | None = None,
+                           int8_only: bool = True) -> RNSBasis:
+    """Smallest subset of the paper set (largest moduli first) whose
+    dynamic range covers [−max_abs, max_abs].  With ``int8_only`` 1024 is
+    left out: its 10-bit residues do not fit the kernels' int8 operands.
+    Without it 1024 comes first, as in the paper's set; such a basis is for
+    the plain path only, and a kernel launch on it raises."""
     target = 2 * max_abs + 1
+    odd = sorted((m for m in PAPER_N5_MODULI if m != 1024), reverse=True)
     chosen: List[int] = []
     prod = 1
-    for m in sorted((m for m in PAPER_N5_MODULI if m != 1024), reverse=True):
+    for m in odd if int8_only else [1024] + odd:
         chosen.append(m)
         prod *= m
         if prod >= target:

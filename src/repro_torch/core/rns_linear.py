@@ -77,29 +77,72 @@ def reconstruct_mrc(residues: torch.Tensor, basis: RNSBasis, *,
     return ConversionPlan.for_basis(basis).reverse(residues, scale=scale)
 
 
-def rns_int_matmul(xq: torch.Tensor, wq) -> torch.Tensor:
-    """Exact (M, K) int8 × (K, N) int8 product through residue channels on
-    the staged kernels, as float32 (M, N): the broadcast channel matmul
-    (weights forward-converted unless ``wq`` is an encoded
-    :class:`RNSTensor`) and the MRC reverse."""
+def rns_int_matmul(xq: torch.Tensor, wq, basis: RNSBasis | None = None,
+                   broadcast: bool = True, *, backend: str = "auto",
+                   scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact (M, K) int8 × (K, N) int8 product through residue channels, as
+    float32 (M, N), times ``scale`` (broadcast against (M, N)) when given.
+
+    ``wq`` is a raw (K, N) int8 weight, converted per call, or an encoded
+    :class:`RNSTensor` whose (C, K, N) residues feed the product as they
+    are; ``basis`` defaults to the encoded weight's or to
+    `basis_for_int8_matmul(K)`.  Three routes, as the reference's:
+
+    - fused (``broadcast`` on "auto" or "pallas_fused"): one raw-int8
+      `rns_fused_matmul` launch, the scale in its epilogue, or its sharded
+      twin under an active distribution context;
+    - staged broadcast (``broadcast`` on "pallas"): the broadcast channel
+      matmul (the raw signed activations shared by every channel, only the
+      weight forward-converted), then the MRC reverse with the scale;
+    - per-channel (``broadcast=False`` on any backend, the paper-literal
+      datapath): both operands forward-converted to canonical residues,
+      the canonical channel matmul on the unsigned plan, the MRC reverse.
+
+    All three give the same bits.  ``backend`` is one of `BACKENDS`; the
+    reference's "jnp" and ``interpret`` have no counterpart.
+    """
+    fused = _fused(backend)
     if isinstance(wq, RNSTensor):
-        basis, res = wq.basis, cp.matmul_broadcast(xq, wq.residues,
-                                                   wq.moduli, encoded=True)
+        if wq.residues.ndim != 3:
+            raise ValueError("rns_int_matmul needs an unbatched (C, K, N) "
+                             f"encoded weight, got {tuple(wq.residues.shape)}")
+        if basis is not None and tuple(basis.moduli) != wq.moduli:
+            raise ValueError(f"basis {basis.moduli} does not match encoded "
+                             f"weight channels {wq.moduli}")
+        if wq.bound > 128:
+            raise ValueError(f"encoded weight bound {wq.bound} exceeds the "
+                             "int8 operand range the basis is sized for")
+        basis = wq.basis
     else:
-        basis = basis_for_int8_matmul(xq.shape[-1])
-        res = cp.matmul_broadcast(xq, wq, basis.moduli)
-    return ConversionPlan.for_basis(basis).reverse(res)
+        basis = basis or basis_for_int8_matmul(xq.shape[-1])
+    moduli = tuple(int(m) for m in basis.moduli)
+    if broadcast and fused:
+        return _fused_matmul(xq, wq, basis, scale=scale)
+    encoded = isinstance(wq, RNSTensor)
+    if broadcast:
+        res = cp.matmul_broadcast(xq, wq.residues if encoded else wq, moduli,
+                                  encoded=encoded)
+    else:
+        plan = cp.ChannelPlan.for_matmul(moduli, xq.shape[-1])
+        a_res = forward(xq, moduli, plan.residue_dtype)
+        b_res = (wq.residues.to(plan.residue_dtype) if encoded
+                 else forward(wq, moduli, plan.residue_dtype))
+        res = cp.matmul(a_res, b_res, moduli, plan=plan)
+    return ConversionPlan.for_basis(basis).reverse(res, scale=scale)
 
 
-def _dense_forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
+def _dense_forward(x: torch.Tensor, w, backend: str,
+                   broadcast: bool = True) -> torch.Tensor:
     """The forward of `rns_dense` (no autograd)."""
-    if not _fused(backend):
+    if not (broadcast and _fused(backend)):
+        # the staged kernels: the broadcast or the per-channel datapath
         xq, sx = quantize_int8(x, dim=-1)                 # per row
         if isinstance(w, RNSTensor):
-            y, sw = rns_int_matmul(xq, w), w.scale
+            y = rns_int_matmul(xq, w, broadcast=broadcast, backend="pallas")
+            sw = w.scale
         else:
             wq, sw = quantize_int8(w, dim=0)              # per column
-            y = rns_int_matmul(xq, wq)
+            y = rns_int_matmul(xq, wq, broadcast=broadcast, backend="pallas")
         return ((y * sx) * sw).to(x.dtype)
     sx = quant_scale(x, dim=-1)                           # per row
     if isinstance(w, RNSTensor):
@@ -115,9 +158,9 @@ class _DenseSTE(torch.autograd.Function):
     """Live float weight: the reference's `_rns_dense` custom_vjp."""
 
     @staticmethod
-    def forward(ctx, x, w, backend):
+    def forward(ctx, x, w, backend, broadcast):
         ctx.save_for_backward(x, w)
-        return _dense_forward(x, w, backend)
+        return _dense_forward(x, w, backend, broadcast)
 
     @staticmethod
     def backward(ctx, gy):
@@ -128,7 +171,7 @@ class _DenseSTE(torch.autograd.Function):
             gx = (gy32 @ w.to(torch.float32).T).to(x.dtype)
         if ctx.needs_input_grad[1]:
             gw = (x.to(torch.float32).T @ gy32).to(w.dtype)
-        return gx, gw, None
+        return gx, gw, None, None
 
 
 class _EncodedSTE(torch.autograd.Function):
@@ -137,35 +180,44 @@ class _EncodedSTE(torch.autograd.Function):
     no gradient."""
 
     @staticmethod
-    def forward(ctx, x, residues, scale, basis, backend):
+    def forward(ctx, x, residues, scale, basis, backend, broadcast):
         ctx.basis, ctx.x_dtype = basis, x.dtype
         ctx.save_for_backward(residues, scale)
-        return _dense_forward(x, RNSTensor(residues, scale, basis), backend)
+        return _dense_forward(x, RNSTensor(residues, scale, basis), backend,
+                              broadcast)
 
     @staticmethod
     def backward(ctx, gy):
         residues, scale = ctx.saved_tensors
         w_hat = ConversionPlan.for_basis(ctx.basis).reverse(residues) * scale
         gx = (gy.to(torch.float32) @ w_hat.T).to(ctx.x_dtype)
-        return gx, None, None, None, None
+        return gx, None, None, None, None, None
 
 
 def rns_dense(x: torch.Tensor, w, backend: str = "auto", *,
               broadcast: bool = True) -> torch.Tensor:
     """(M, K) float activations × weight → (M, N) in x's dtype, with the
-    straight-through backward."""
-    if not broadcast:
-        raise NotImplementedError("the per-channel (broadcast=False) "
-                                  "datapath is not ported")
+    straight-through backward.  ``broadcast=False`` takes the per-channel
+    datapath of `rns_int_matmul` on the staged kernels, whatever the
+    backend, as the reference does; the backward is the same."""
     if isinstance(w, RNSShard):
+        if not broadcast:
+            raise ValueError("a placed weight shard serves the fused "
+                             "broadcast datapath only")
         return _dense_forward(x, w, backend)
     if isinstance(w, RNSTensor):
-        return _EncodedSTE.apply(x, w.residues, w.scale, w.basis, backend)
-    return _DenseSTE.apply(x, w, backend)
+        if w.scale is None:
+            raise ValueError("rns_dense needs a dequant scale on the encoded "
+                             "weight; from_int8 tensors carry none")
+        return _EncodedSTE.apply(x, w.residues, w.scale, w.basis, backend,
+                                 broadcast)
+    return _DenseSTE.apply(x, w, backend, broadcast)
 
 
-def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = None,
+def rns_chain_linear(x: RNSTensor, w: RNSTensor, *,
+                     gate: torch.Tensor | None = None,
                      gate_scale: torch.Tensor | None = None,
+                     scale_row: torch.Tensor | None = None,
                      emit: str = "float", backend: str = "auto"):
     """One launch of a residue-resident linear chain.
 
@@ -174,7 +226,9 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = 
     ``gate`` is a raw int8
     (M, K) factor applied per channel as |q_x·q_g|_m, its row scale
     ``gate_scale`` multiplying the row scale as ``x.scale·gate_scale``.
-    ``emit="float"`` returns (M, N) float32 ``(y·s_row)·s_col``;
+    ``scale_row`` replaces the activation's row scale (default
+    ``x.scale``).  ``emit="float"`` returns (M, N) float32
+    ``(y·s_row)·s_col``;
     ``emit="residues"`` the requantized product as the next launch's
     activation RNSTensor.
     """
@@ -196,7 +250,8 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *, gate: torch.Tensor | None = 
                          "weights with group_basis / basis_for_chain")
     M, K = x.residues.shape[-2:]
     N = wt.residues.shape[-1]
-    srow = x.scale.to(torch.float32).reshape(M, 1)
+    srow = (x.scale if scale_row is None else scale_row).to(
+        torch.float32).reshape(M, 1)
     if gate is not None:
         srow = srow * gate_scale.to(torch.float32).reshape(M, 1)
     if _fused(backend):

@@ -16,10 +16,12 @@ the ``(M, 1)`` row scale: the operand of a residue-resident chain
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .channel_plan import residue_dtype_for
+from .conversion_plan import ConversionPlan
 from .conversion_plan import forward as _forward_convert
 from .quant import quantize_int8
 from .rns import RNSBasis, basis_for_int8_matmul
@@ -31,15 +33,23 @@ __all__ = ["RNSTensor", "RNSShard", "cat_columns", "encode",
 @dataclasses.dataclass(frozen=True, eq=False)
 class RNSTensor:
     """Canonical residues ``(*B, C, K, N)`` of int8 weights quantized to
-    ±127, and their dequant scale ``(*B, 1, N)``."""
+    ±127, and their dequant scale ``(*B, 1, N)`` (None for raw int8 from
+    `from_int8`).  ``bound`` is the largest |q| the residues encode: 127
+    for `quantize_int8`'s output, 128 for any int8 (−128 included)."""
 
     residues: torch.Tensor
-    scale: torch.Tensor
+    scale: Optional[torch.Tensor]
     basis: RNSBasis
+    bound: int = 127
 
     @property
     def moduli(self) -> Tuple[int, ...]:
         return tuple(int(m) for m in self.basis.moduli)
+
+    @property
+    def k(self) -> int:
+        """The channel count C."""
+        return len(self.basis.moduli)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -47,11 +57,38 @@ class RNSTensor:
         shp = tuple(self.residues.shape)
         return shp[:-3] + shp[-2:]
 
+    @property
+    def residue_dtype(self) -> torch.dtype:
+        return self.residues.dtype
+
     def __getitem__(self, i: int) -> "RNSTensor":
         """Layer ``i`` of a stacked tensor (a view, no copy)."""
         if self.residues.ndim < 4:
             raise IndexError("only stacked (n_blocks, C, K, N) tensors index")
-        return RNSTensor(self.residues[i], self.scale[i], self.basis)
+        return dataclasses.replace(
+            self, residues=self.residues[i],
+            scale=None if self.scale is None else self.scale[i])
+
+    def dequant(self) -> torch.Tensor:
+        """The MRC reverse (`ConversionPlan.reverse`: the `rns_reverse`
+        kernel on a CUDA tensor) times the scale when there is one: float32
+        ``(*B, K, N)``.  Not on any served path."""
+        q = ConversionPlan.for_basis(self.basis).reverse(
+            self.residues.movedim(-3, 0))
+        return q if self.scale is None else q * self.scale
+
+    @classmethod
+    def from_int8(cls, q: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                  basis: RNSBasis | None = None) -> "RNSTensor":
+        """Encode an int8 tensor ``(…, K, N)`` given from outside: the
+        forward conversion alone, into ``basis`` (default
+        `basis_for_int8_matmul(K)`), ``bound`` 128 since any int8 may come
+        (−128 included)."""
+        basis = basis or basis_for_int8_matmul(q.shape[-2])
+        res = _forward_convert(q, basis.moduli,
+                               residue_dtype_for(basis.moduli))
+        return cls(residues=res.movedim(0, -3).contiguous(), scale=scale,
+                   basis=basis, bound=128)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -77,12 +114,6 @@ class RNSShard(RNSTensor):
         """The logical shape of the whole weight."""
         shp = tuple(self.residues.shape)
         return shp[:-3] + (shp[-2], self.n_global)
-
-    def __getitem__(self, i: int) -> "RNSShard":
-        if self.residues.ndim < 4:
-            raise IndexError("only stacked (n_blocks, C, K, N) tensors index")
-        return dataclasses.replace(self, residues=self.residues[i],
-                                   scale=self.scale[i])
 
 
 def cat_columns(ws) -> RNSTensor:

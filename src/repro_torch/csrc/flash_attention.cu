@@ -48,17 +48,35 @@ using namespace flash;
 constexpr int WARPS = 4;
 constexpr int BK = 32;             // keys per tile: one per lane
 
+// Shared memory of one instance, in floats: the q rows, a key tile (rows
+// padded by 16 bytes, so lanes reading their own key's row hit distinct
+// banks), a value tile and each warp's p by [key][row].  Dynamic: at
+// D = 256 it is 83 KB, above the 48 KB of static shared memory.
+template <int D>
+struct FmaSmem {
+  static constexpr int ROWS = D <= 64 ? 8 : 4;    // query rows per warp
+  static constexpr int BQ = WARPS * ROWS;
+  static constexpr int KS = D + 4;
+  static constexpr int QS = BQ * D, KT = BK * KS, VT = BK * D;
+  static constexpr int PS = WARPS * BK * ROWS;
+  static constexpr int BYTES = 4 * (QS + KT + VT + PS);
+  static_assert(D % 4 == 0, "float4 rows");
+};
+
 template <int D, typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fma_kernel(FlashArgs a) {
-  constexpr int ROWS = D <= 64 ? 8 : 4;     // query rows per warp
-  constexpr int BQ = WARPS * ROWS;
-  constexpr int KS = D + 4;                 // 16-byte rows, no conflicts
-  constexpr int NT = D < 32 ? 1 : D / 32;   // output columns per lane
-  __shared__ __align__(16) float qs[BQ][D];
-  __shared__ __align__(16) float ks[BK][KS];
-  __shared__ __align__(16) float vs[BK][D];
-  __shared__ __align__(16) float ps[WARPS][BK][ROWS];
+  using L = FmaSmem<D>;
+  constexpr int ROWS = L::ROWS;             // query rows per warp
+  constexpr int BQ = L::BQ;
+  constexpr int KS = L::KS;
+  constexpr int NT = (D + 31) / 32;         // output columns per lane
+  extern __shared__ __align__(16) float fma_smem[];
+  float (*qs)[D] = reinterpret_cast<float (*)[D]>(fma_smem);
+  float (*ks)[KS] = reinterpret_cast<float (*)[KS]>(fma_smem + L::QS);
+  float (*vs)[D] = reinterpret_cast<float (*)[D]>(fma_smem + L::QS + L::KT);
+  float (*ps)[BK][ROWS] = reinterpret_cast<float (*)[BK][ROWS]>(
+      fma_smem + L::QS + L::KT + L::VT);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int bh = blockIdx.y, b = bh / a.H;
@@ -196,16 +214,24 @@ flash_fma_kernel(FlashArgs a) {
   }
 }
 
+// One launch; the first launch of an instance sets its shared memory
+// limit (once per instance and process).
+template <int D, typename T>
+int launch_fma_type(const FlashArgs& a, cudaStream_t s) {
+  constexpr int smem = FmaSmem<D>::BYTES;
+  auto* kernel = flash_fma_kernel<D, T>;
+  static const int ready = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (ready != 0) return ready;
+  const dim3 grid((a.Sq + FmaSmem<D>::BQ - 1) / FmaSmem<D>::BQ, a.B * a.H);
+  kernel<<<grid, WARPS * 32, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_fma(const FlashArgs& a, cudaStream_t s) {
-  constexpr int BQ = WARPS * (D <= 64 ? 8 : 4);
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  if (a.bf16) {
-    flash_fma_kernel<D, __nv_bfloat16><<<grid, WARPS * 32, 0, s>>>(a);
-  } else {
-    flash_fma_kernel<D, float><<<grid, WARPS * 32, 0, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return a.bf16 ? launch_fma_type<D, __nv_bfloat16>(a, s)
+                : launch_fma_type<D, float>(a, s);
 }
 
 }  // namespace
@@ -213,7 +239,8 @@ int launch_fma(const FlashArgs& a, cudaStream_t s) {
 extern "C" {
 
 // One launch on a->route; returns 0, a cudaError_t, or -1 for a head size
-// not compiled in (D must be 16, 32, 64 or 128) or a route that does not
+// not compiled in (D must be 16, 32, 64, 80, 96, 128 or 256; the wrapper
+// pads any other D up to 256 with zero columns) or a route that does not
 // take the call (MMA: bf16 only; SPLIT: Sq <= 16).
 int flash_attention_launch(const FlashArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -227,7 +254,10 @@ int flash_attention_launch(const FlashArgs* a, void* stream) {
         case 16: return launch_fma<16>(*a, s);
         case 32: return launch_fma<32>(*a, s);
         case 64: return launch_fma<64>(*a, s);
+        case 80: return launch_fma<80>(*a, s);
+        case 96: return launch_fma<96>(*a, s);
         case 128: return launch_fma<128>(*a, s);
+        case 256: return launch_fma<256>(*a, s);
         default: return -1;
       }
     default:

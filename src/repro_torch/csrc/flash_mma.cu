@@ -10,9 +10,10 @@
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, FA2-style:
 //   * A block owns 64 query rows, 4 warps x 16 rows.  The Q tile lands in
 //     shared memory by cp.async and each warp loads its A fragments once
-//     by ldmatrix into registers.
+//     by ldmatrix into registers (at D = 256, whose output accumulator
+//     takes 128 registers a thread, again at every k step instead).
 //   * K and V tiles of 64 keys stream through an NST-stage cp.async ring
-//     (3 stages; 2 at D = 128, whose stages are twice as large).  Rows
+//     (3 stages; 2 from D = 128, whose stages are twice as large).  Rows
 //     are padded by 16 bytes, so the 8 rows an ldmatrix reads hit 8
 //     distinct bank groups; V's B fragments come by ldmatrix.trans.
 //   * S = Q.K^T accumulates in float32 registers (the C fragment: a row
@@ -50,8 +51,8 @@ template <int D>
 struct MmaSmem {
   static constexpr int PITCH = 2 * D + 16;     // bytes of a padded row
   static constexpr int TILE = 64 * PITCH;
-  // 3 stages; 2 at D = 128, whose stages are twice as large
-  static constexpr int NST = D == 128 ? 2 : 3;
+  // 3 stages; 2 from D = 128, whose stages are twice as large or more
+  static constexpr int NST = D >= 128 ? 2 : 3;
   static constexpr int RING = TILE * 2 * NST;
   static constexpr int KPOS = 4 * MBK * NST;
   static constexpr int BYTES = TILE + RING + KPOS;
@@ -135,6 +136,11 @@ flash_mma_kernel(FlashArgs a) {
   using L = MmaSmem<D>;
   constexpr int KSTEPS = D / 16;   // k steps of Q.K^T
   constexpr int NT = D / 8;        // 8-column tiles of the output
+  // Q's A fragments stay in registers up to D = 128; at D = 256 the
+  // 16 x 256 float32 output already takes 128 registers a thread, so each
+  // k step reads its fragment from the Q tile in shared memory
+  constexpr bool QREG = D <= 128;
+  static_assert(D % 16 == 0, "k steps of 16");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* qsm = smem;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -197,7 +203,12 @@ flash_mma_kernel(FlashArgs a) {
     qp1 = row1 + Sk - Sq;
   }
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[QREG ? KSTEPS : 1][4];
+  auto q_frag = [&](uint32_t (&f)[4], int kk) {
+    ldsm_x4(f, qsm + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
+                         * L::PITCH +
+                   (kk * 16 + (lane >> 4) * 8) * 2);
+  };
   float o[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -212,13 +223,9 @@ flash_mma_kernel(FlashArgs a) {
   for (int i = 0; i < nt; ++i) {
     cp_async_wait<L::NST - 2>();   // this thread's copies of tile i
     __syncthreads();               // everyone's; tile i - 1 is consumed
-    if (i == 0) {
+    if (QREG && i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        ldsm_x4(qf[kk], qsm + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                  * L::PITCH +
-                            (kk * 16 + (lane >> 4) * 8) * 2);
-      }
+      for (int kk = 0; kk < KSTEPS; ++kk) q_frag(qf[QREG ? kk : 0], kk);
     }
     {
       const int nx = i + L::NST - 1;
@@ -238,13 +245,15 @@ flash_mma_kernel(FlashArgs a) {
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int qk = QREG ? kk : 0;
+      if (!QREG) q_frag(qf[0], kk);
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t kb[4];
         ldsm_x4(kb, ks + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * L::PITCH +
                         (kk * 16 + ((lane >> 3) & 1) * 8) * 2);
-        mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16(s[2 * jp], qf[qk], kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qf[qk], kb[2], kb[3]);
       }
     }
 
@@ -381,7 +390,10 @@ int flash_launch_mma(const FlashArgs& a, cudaStream_t stream) {
     case 16: return launch_mma<16>(a, stream);
     case 32: return launch_mma<32>(a, stream);
     case 64: return launch_mma<64>(a, stream);
+    case 80: return launch_mma<80>(a, stream);
+    case 96: return launch_mma<96>(a, stream);
     case 128: return launch_mma<128>(a, stream);
+    case 256: return launch_mma<256>(a, stream);
     default: return -1;
   }
 }

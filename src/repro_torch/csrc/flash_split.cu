@@ -34,16 +34,25 @@ namespace {
 using namespace flash;
 using namespace hopper;
 
-constexpr int SW = 4;      // warps of a block
 constexpr int SBK = 32;    // keys of a warp tile: one a lane
-constexpr int STHREADS = SW * 32;
+constexpr int SMEM_MAX = 232448;   // shared memory a block can have
+
+// Output columns of a lane: the power of two that lets 32 lanes cover D
+// (lanes past D repeat and write nothing).
+__host__ __device__ constexpr int split_cpl(int D) {
+  return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 8;
+}
 
 // Dynamic shared memory of one instance: the warps' rings of K and V
 // tiles (K rows padded by 16 bytes, so lanes reading their own key's row
 // hit distinct banks; a warp reads V one row at a time), the q rows as
 // float32, a warp tile's p by [warp][key][row], the block's partial, and
 // rank 0's receive buffer of the other ranks' partials and its mbarrier.
-// After the key loop the warps' partials are merged over the rings.
+// After the key loop the warps' partials are merged over the rings.  A
+// block has SW = 4 warps, 2 where four rings of one stage would not fit
+// (float32 at D = 256), and clusters of at most MAXS blocks: the most
+// whose receive buffer fits beside the rest (fewer than 8 only at D =
+// 256 with 16 rows).
 template <int D, int R, typename T>
 struct SplitSmem {
   static constexpr int RB = D * static_cast<int>(sizeof(T));  // a key row
@@ -51,25 +60,36 @@ struct SplitSmem {
   static constexpr int KP = RB + 16;
   static constexpr int VP = RB;
   static constexpr int STAGE = SBK * (KP + VP);
+  static constexpr int SW = 4 * STAGE <= 160 * 1024 ? 4 : 2;  // warps
+  static constexpr int THREADS = SW * 32;
   static constexpr int NST = SW * 2 * STAGE <= 160 * 1024 ? 2 : 1;
   static constexpr int RING = SW * NST * STAGE;
   static constexpr int PARTF = (R * (D + 2) + 3) / 4 * 4;  // acc, m, l
   static constexpr int PART = 4 * PARTF;                   // bytes
   static constexpr int QS = 4 * R * D;
   static constexpr int PS = 4 * SW * SBK * R;
-  static constexpr int BYTES = RING + QS + PS + PART +
-                               (MAX_SPLITS - 1) * PART + 16;
+  static constexpr int BASE = RING + QS + PS + PART + 16;
+  static constexpr int MAXS =
+      (SMEM_MAX - BASE) / PART + 1 < MAX_SPLITS
+          ? (SMEM_MAX - BASE) / PART + 1 : MAX_SPLITS;
+  static constexpr int BYTES = BASE + (MAXS - 1) * PART;
   static_assert(RB % 16 == 0, "16-byte key rows");
   static_assert(SW * PART <= RING, "the warps' partials fit the rings");
+  static_assert(MAXS >= 1 && BYTES <= SMEM_MAX, "an instance fits a block");
 };
 
-// N contiguous elements of a shared row as float32 (one load of 2-16
-// bytes).
+// N contiguous elements of a shared row as float32 (one or two loads of
+// 2-16 bytes).
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const unsigned char* p,
                                          float (&out)[N]) {
   if constexpr (sizeof(T) == 4) {
-    if constexpr (N == 4) {
+    if constexpr (N == 8) {
+      const float4 v0 = *reinterpret_cast<const float4*>(p);
+      const float4 v1 = *reinterpret_cast<const float4*>(p + 16);
+      out[0] = v0.x; out[1] = v0.y; out[2] = v0.z; out[3] = v0.w;
+      out[4] = v1.x; out[5] = v1.y; out[6] = v1.z; out[7] = v1.w;
+    } else if constexpr (N == 4) {
       const float4 v = *reinterpret_cast<const float4*>(p);
       out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
     } else if constexpr (N == 2) {
@@ -132,11 +152,13 @@ __device__ __forceinline__ void split_range(const FlashArgs& a, int pad,
 }
 
 template <int D, int R, typename T>
-__global__ void __launch_bounds__(STHREADS)
+__global__ void __launch_bounds__(SplitSmem<D, R, T>::THREADS)
 flash_split_kernel(FlashArgs a) {
   using L = SplitSmem<D, R, T>;
+  constexpr int SW = L::SW;
+  constexpr int STHREADS = L::THREADS;
   constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // a chunk's values
-  constexpr int CPL = D >= 32 ? D / 32 : 1;  // output columns of a lane
+  constexpr int CPL = split_cpl(D);          // output columns of a lane
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
   float* qs = reinterpret_cast<float*>(smem + L::RING);   // [R][D]
@@ -219,7 +241,8 @@ flash_split_kernel(FlashArgs a) {
     for (int t = 0; t < CPL; ++t) acc[r][t] = 0.f;
   }
   float* wps = ps + warp * SBK * R;
-  const int d0 = (lane * CPL) % D;   // D = 16: lanes 16-31 repeat 0-15
+  // lanes past D (D = 16, 80, 96) repeat from column 0 and write nothing
+  const int d0 = (lane * CPL) % D;
 
   for (int i = 0; i < mine; ++i) {
     if (i + L::NST - 1 < mine) issue(i + L::NST - 1);
@@ -385,20 +408,20 @@ flash_split_kernel(FlashArgs a) {
 }
 
 // Set an instance's dynamic shared memory limit and check that a cluster
-// of MAX_SPLITS of its blocks can be co-scheduled on the card.
+// of its largest size (MAXS blocks) can be co-scheduled on the card.
 template <typename Kernel>
-int prepare_split(Kernel kernel, int smem) {
+int prepare_split(Kernel kernel, int smem, int threads, int maxs) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = MAX_SPLITS;
+  attr.val.clusterDim.x = maxs;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(MAX_SPLITS, 1, 1);
-  cfg.blockDim = dim3(STHREADS);
+  cfg.gridDim = dim3(maxs, 1, 1);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
@@ -413,25 +436,29 @@ int prepare_split(Kernel kernel, int smem) {
 // process).
 template <int D, int R, typename T>
 int launch_split(const FlashArgs& a, cudaStream_t stream) {
-  constexpr int smem = SplitSmem<D, R, T>::BYTES;
+  using L = SplitSmem<D, R, T>;
+  constexpr int smem = L::BYTES;
   auto* kernel = flash_split_kernel<D, R, T>;
-  static const int ready = prepare_split(kernel, smem);
+  static const int ready = prepare_split(kernel, smem, L::THREADS, L::MAXS);
   if (ready != 0) return ready;
   if (a.splits < 1 || a.splits > MAX_SPLITS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // the cluster the instance's receive buffer holds (the kernel reads S
+  // off its grid)
+  const int S = a.splits < L::MAXS ? a.splits : L::MAXS;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = a.splits;
+  attr.val.clusterDim.x = S;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.splits, a.B * a.H);
-  cfg.blockDim = dim3(STHREADS);
+  cfg.gridDim = dim3(S, a.B * a.H);
+  cfg.blockDim = dim3(L::THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
-  cfg.numAttrs = a.splits > 1 ? 1 : 0;
+  cfg.numAttrs = S > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
   const cudaError_t last = cudaGetLastError();   // cleared either way
   return static_cast<int>(e != cudaSuccess ? e : last);
@@ -443,7 +470,10 @@ int launch_rows(const FlashArgs& a, cudaStream_t s) {
     case 16: return launch_split<16, R, T>(a, s);
     case 32: return launch_split<32, R, T>(a, s);
     case 64: return launch_split<64, R, T>(a, s);
+    case 80: return launch_split<80, R, T>(a, s);
+    case 96: return launch_split<96, R, T>(a, s);
     case 128: return launch_split<128, R, T>(a, s);
+    case 256: return launch_split<256, R, T>(a, s);
     default: return -1;
   }
 }

@@ -169,6 +169,7 @@ struct TileArgs {
   const int8_t* w;       // (C, K, N) residues, or (K, N) raw int8
   const float* scol;     // (N,) column scale (EMIT_FLOAT / EMIT_RESIDUES)
   const float* creq;     // 1 value: the requantize constant (EMIT_RESIDUES)
+  const float* scale;    // (M, N) full dequant scale (EMIT_FLOAT), or null
   void* out;
   int M, K, N;
   int splits;            // K splits = cluster size (16-row tile, <= 8)
@@ -325,7 +326,7 @@ __device__ __forceinline__ float mrc_value(const int (&r)[C],
 // 0.  An element outside the output (``in`` false) is computed on clamped
 // indices and not written, so the 32-row tile's elements run without
 // branches and interleave.
-template <int C, int EMIT = -1, int LL = 0>
+template <int C, int EMIT = -1, int LL = 0, bool RAW = false>
 __device__ __forceinline__ void tile_emit(const int (&r)[C], int gm, int gn,
                                           const TileArgs& a,
                                           const FusedPlan& p,
@@ -388,29 +389,41 @@ __device__ __forceinline__ void tile_emit(const int (&r)[C], int gm, int gn,
     }
     return;
   }
-  const float y = __fmul_rn(__fmul_rn(val, a.srow[gm]), a.scol[gn]);
+  // the dequant epilogue (y*s_row)*s_col.  A quantized or residue-in A
+  // operand always brings both factors; the raw int8 operand's (RAW, the
+  // A_SHARED instances) are each optional, then *scale: a null operand
+  // multiplies by nothing, so no scale at all writes the exact product
+  float y;
+  if constexpr (RAW) {
+    y = val;
+    if (a.srow) y = __fmul_rn(y, a.srow[gm]);
+    if (a.scol) y = __fmul_rn(y, a.scol[gn]);
+    if (a.scale) y = __fmul_rn(y, a.scale[at]);
+  } else {
+    y = __fmul_rn(__fmul_rn(val, a.srow[gm]), a.scol[gn]);
+  }
   if (in) static_cast<float*>(a.out)[at] = y;
 }
 
 // `tile_emit` with the limb count fixed at compile time for the counts the
 // repo's bases have (2 for the int8-matmul bases, 3 for the chain bases).
-template <int C>
+template <int C, bool RAW>
 __device__ __forceinline__ void tile_emit_nl(const int (&r)[C], int gm,
                                              int gn, const TileArgs& a,
                                              const FusedPlan& p) {
   const int nl = a.emit == EMIT_CRT_LIMBS ? p.L1 : p.L;
   if (nl == 2) {
-    tile_emit<C, -1, 2>(r, gm, gn, a, p);
+    tile_emit<C, -1, 2, RAW>(r, gm, gn, a, p);
   } else if (nl == 3) {
-    tile_emit<C, -1, 3>(r, gm, gn, a, p);
+    tile_emit<C, -1, 3, RAW>(r, gm, gn, a, p);
   } else {
-    tile_emit<C>(r, gm, gn, a, p);
+    tile_emit<C, -1, 0, RAW>(r, gm, gn, a, p);
   }
 }
 
 // The output element (gm, gn) from its C channel accumulators: the fold,
 // then `tile_emit`.
-template <int C, int EMIT = -1>
+template <int C, bool RAW, int EMIT = -1>
 __device__ __forceinline__ void tile_epilogue(const int (&acc)[C], int gm,
                                               int gn, const TileArgs& a,
                                               const FusedPlan& p,
@@ -418,7 +431,7 @@ __device__ __forceinline__ void tile_epilogue(const int (&acc)[C], int gm,
   int r[C];
 #pragma unroll
   for (int j = 0; j < C; ++j) r[j] = fold_channel(acc[j], j, p);
-  tile_emit<C, EMIT>(r, gm, gn, a, p, in);
+  tile_emit<C, EMIT, 0, RAW>(r, gm, gn, a, p, in);
 }
 
 // mma.sync.m16n8k32 with int8 operands and int32 accumulators, in place:
@@ -725,7 +738,7 @@ __device__ __forceinline__ void mma_mainloop(
 // leave fewer registers), each element's C accumulators selected out of
 // registers, with the emit fixed at compile time so the code a block runs
 // stays small.
-template <int C, int EMIT>
+template <int C, bool RAW, int EMIT>
 __device__ __forceinline__ void mma_epilogue(const int (&acc)[16][C], int m0,
                                              int n0, const TileArgs& a,
                                              const FusedPlan& plan,
@@ -746,7 +759,7 @@ __device__ __forceinline__ void mma_epilogue(const int (&acc)[16][C], int m0,
           e[c] = q == i0 + u ? acc[q][c] : e[c];
         }
       }
-      tile_epilogue<C, EMIT>(e, m0 + r, n0 + col, a, plan,
+      tile_epilogue<C, RAW, EMIT>(e, m0 + r, n0 + col, a, plan,
                              m0 + r < a.M && n0 + col < a.N);
     }
   }
@@ -777,18 +790,19 @@ __device__ __forceinline__ void mma_tile(const TileArgs& a,
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0;
   mma_mainloop<C, AM, ENCODED>(a, plan, xs, wsm, acc, m0, n0, 0, a.K, tid);
+  constexpr bool RAW = AM == A_SHARED;   // its epilogue factors optional
   switch (a.emit) {
     case EMIT_FLOAT:
-      mma_epilogue<C, EMIT_FLOAT>(acc, m0, n0, a, plan, tid);
+      mma_epilogue<C, RAW, EMIT_FLOAT>(acc, m0, n0, a, plan, tid);
       break;
     case EMIT_RESIDUES:
-      mma_epilogue<C, EMIT_RESIDUES>(acc, m0, n0, a, plan, tid);
+      mma_epilogue<C, RAW, EMIT_RESIDUES>(acc, m0, n0, a, plan, tid);
       break;
     case EMIT_CANONICAL:
-      mma_epilogue<C, EMIT_CANONICAL>(acc, m0, n0, a, plan, tid);
+      mma_epilogue<C, RAW, EMIT_CANONICAL>(acc, m0, n0, a, plan, tid);
       break;
     default:
-      mma_epilogue<C, EMIT_CRT_LIMBS>(acc, m0, n0, a, plan, tid);
+      mma_epilogue<C, RAW, EMIT_CRT_LIMBS>(acc, m0, n0, a, plan, tid);
   }
 }
 
@@ -1106,6 +1120,7 @@ template <int C, int AM, bool ENCODED>
 __device__ __forceinline__ void dp4a_tile(const TileArgs& a,
                                           const FusedPlan& plan) {
   using L = Tile16<C, AM, ENCODED>;
+  constexpr bool RAW = AM == A_SHARED;   // its epilogue factors optional
   extern __shared__ __align__(16) int8_t tile_smem[];
   int8_t* ring = tile_smem;
   int8_t* wsm = tile_smem + L::RING;        // buffer b at wsm + b * L::WSM
@@ -1224,7 +1239,7 @@ __device__ __forceinline__ void dp4a_tile(const TileArgs& a,
     for (int i = 0; i < NACC; ++i) {
       const int r = tr + RSTEP * i;
       if (m0 + r < M && n0 + tn < N) {
-        tile_epilogue<C>(acc[i], m0 + r, n0 + tn, a, plan);
+        tile_epilogue<C, RAW>(acc[i], m0 + r, n0 + tn, a, plan);
       }
     }
     return;
@@ -1311,7 +1326,7 @@ __device__ __forceinline__ void dp4a_tile(const TileArgs& a,
         }
       }
       if (n0 + e % TN < N) {
-        tile_emit_nl<C>(r, m0 + e / TN, n0 + e % TN, a, plan);
+        tile_emit_nl<C, RAW>(r, m0 + e / TN, n0 + e % TN, a, plan);
       }
     }
   }
@@ -1335,8 +1350,7 @@ rns_tile_kernel(TileArgs a, FusedPlan plan) {
 // 0 for one not compiled (launch_tile's cases).
 template <int AM>
 int tile16_smem_bytes(int C, bool encoded) {
-  if (!encoded && AM != A_F32 && AM != A_BF16) return 0;
-  if (C <= 2 && (!encoded || AM == A_SHARED)) return 0;
+  if (!encoded && AM == A_PLANES) return 0;
   switch (C) {
 #define RNS_SMEM_CASE(CC)                                          \
   case CC:                                                         \
@@ -1408,9 +1422,14 @@ int launch_instance(const TileArgs& a, const FusedPlan& plan, dim3 grid,
   }
 }
 
+// The 16-row instances of a mode are split by channel count across two
+// files, C <= SPLIT_C and C > SPLIT_C, so that they compile in parallel.
+constexpr int SPLIT_C = 7;
+
 // Launch the tile kernel of height TMR and mode AM for the plan's channel
-// count; returns a cudaError_t, or -1 for a channel count not compiled in.
-template <int TMR, int AM>
+// count, with the instances of CLO..CHI channels compiled in; returns a
+// cudaError_t, or -1 for a channel count not compiled in.
+template <int TMR, int AM, int CLO = 1, int CHI = 11>
 int launch_tile(const TileArgs& a, const FusedPlan& plan,
                 cudaStream_t stream) {
   const dim3 grid((a.N + TN - 1) / TN, (a.M + TMR - 1) / TMR, a.splits);
@@ -1418,31 +1437,25 @@ int launch_tile(const TileArgs& a, const FusedPlan& plan,
   if (a.splits < 1 || a.splits > (TMR == TM ? MAX_SPLITS : 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+// Every A mode takes encoded weights; all but the residue planes also
+// take live (K, N) int8 weights, converted per tile.  Channel slices
+// narrower than any basis (C = 1, 2) occur only in the CRT partial
+// launch, which takes every mode and weight form the wider ones do.
 #define RNS_TILE_CASE(CC)                                                   \
   case CC:                                                                  \
-    if constexpr (TMR == TM || CC <= MMA_MAXC) {                            \
+    if constexpr (CLO <= CC && CC <= CHI &&                                 \
+                  (TMR == TM || CC <= MMA_MAXC)) {                          \
       if (a.encoded) return launch_instance<TMR, CC, AM, true>(a, plan,     \
                                                                grid,       \
                                                                stream);    \
-      if constexpr (AM == A_F32 || AM == A_BF16) {                          \
+      if constexpr (AM != A_PLANES) {                                       \
         return launch_instance<TMR, CC, AM, false>(a, plan, grid, stream);  \
       }                                                                     \
     }                                                                       \
     return -1;
-// Channel slices narrower than any basis (C = 1, 2) only occur in the CRT
-// partial launch, which always takes encoded residues and never the
-// shared signed operand: only those instances are built.
-#define RNS_TILE_SLICE_CASE(CC)                                             \
-  case CC:                                                                  \
-    if constexpr (AM != A_SHARED) {                                         \
-      if (a.encoded) return launch_instance<TMR, CC, AM, true>(a, plan,     \
-                                                               grid,       \
-                                                               stream);    \
-    }                                                                       \
-    return -1;
   switch (plan.C) {
-    RNS_TILE_SLICE_CASE(1)
-    RNS_TILE_SLICE_CASE(2)
+    RNS_TILE_CASE(1)
+    RNS_TILE_CASE(2)
     RNS_TILE_CASE(3)
     RNS_TILE_CASE(4)
     RNS_TILE_CASE(5)
@@ -1456,24 +1469,36 @@ int launch_tile(const TileArgs& a, const FusedPlan& plan,
       return -1;
   }
 #undef RNS_TILE_CASE
-#undef RNS_TILE_SLICE_CASE
   return -1;
 }
 
 }  // namespace rns
 
-// Per-file entry points (each .cu instantiates one or two A modes).
+// Per-file entry points (each .cu instantiates one A mode; the 16-row
+// ones, the channel counts up to rns::SPLIT_C or, `_wide`, above it).
 int rns_launch_tile_f32(const TileArgs& a, const FusedPlan& plan,
                         cudaStream_t stream);
 int rns_launch_tile_bf16(const TileArgs& a, const FusedPlan& plan,
                          cudaStream_t stream);
-int rns_launch_tile_int8(int amode, const TileArgs& a, const FusedPlan& plan,
+int rns_launch_tile_raw(const TileArgs& a, const FusedPlan& plan,
+                        cudaStream_t stream);
+int rns_launch_tile_int8(const TileArgs& a, const FusedPlan& plan,
                          cudaStream_t stream);
+int rns_launch_tile_f32_wide(const TileArgs& a, const FusedPlan& plan,
+                             cudaStream_t stream);
+int rns_launch_tile_bf16_wide(const TileArgs& a, const FusedPlan& plan,
+                              cudaStream_t stream);
+int rns_launch_tile_raw_wide(const TileArgs& a, const FusedPlan& plan,
+                             cudaStream_t stream);
+int rns_launch_tile_int8_wide(const TileArgs& a, const FusedPlan& plan,
+                              cudaStream_t stream);
 // The 32-row tensor-core instances, in files of their own so they compile
 // in parallel with the 16-row ones.
 int rns_launch_tile_mma_f32(const TileArgs& a, const FusedPlan& plan,
                             cudaStream_t stream);
 int rns_launch_tile_mma_bf16(const TileArgs& a, const FusedPlan& plan,
                              cudaStream_t stream);
-int rns_launch_tile_mma_int8(int amode, const TileArgs& a,
-                             const FusedPlan& plan, cudaStream_t stream);
+int rns_launch_tile_mma_raw(const TileArgs& a, const FusedPlan& plan,
+                            cudaStream_t stream);
+int rns_launch_tile_mma_int8(const TileArgs& a, const FusedPlan& plan,
+                             cudaStream_t stream);

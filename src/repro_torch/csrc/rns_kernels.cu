@@ -488,21 +488,28 @@ int rns_tile_launch(int amode, const TileArgs* a, const FusedPlan* plan,
       case rns::A_BF16:
         return rns_launch_tile_mma_bf16(*a, *plan, s);
       case rns::A_SHARED:
+        return rns_launch_tile_mma_raw(*a, *plan, s);
       case rns::A_PLANES:
-        return rns_launch_tile_mma_int8(amode, *a, *plan, s);
+        return rns_launch_tile_mma_int8(*a, *plan, s);
       default:
         return -1;
     }
   }
   if (a->tm != rns::TM) return -1;
+  const bool wide = plan->C > rns::SPLIT_C;
   switch (amode) {
     case rns::A_F32:
-      return rns_launch_tile_f32(*a, *plan, s);
+      return wide ? rns_launch_tile_f32_wide(*a, *plan, s)
+                  : rns_launch_tile_f32(*a, *plan, s);
     case rns::A_BF16:
-      return rns_launch_tile_bf16(*a, *plan, s);
+      return wide ? rns_launch_tile_bf16_wide(*a, *plan, s)
+                  : rns_launch_tile_bf16(*a, *plan, s);
     case rns::A_SHARED:
+      return wide ? rns_launch_tile_raw_wide(*a, *plan, s)
+                  : rns_launch_tile_raw(*a, *plan, s);
     case rns::A_PLANES:
-      return rns_launch_tile_int8(amode, *a, *plan, s);
+      return wide ? rns_launch_tile_int8_wide(*a, *plan, s)
+                  : rns_launch_tile_int8(*a, *plan, s);
     default:
       return -1;
   }

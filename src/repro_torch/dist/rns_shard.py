@@ -51,12 +51,12 @@ import torch
 from repro_torch.core import multiword as mw
 from repro_torch.core.channel_plan import ChannelPlan, residue_dtype_for
 from repro_torch.core.conversion_plan import ConversionPlan
-from repro_torch.core.conversion_plan import forward as _forward_convert
 from repro_torch.core.quant import requant_const
 from repro_torch.core.rns import _modinv, basis_for_int8_matmul
 from repro_torch.core.rns_tensor import RNSShard, RNSTensor
-from repro_torch.kernels.ref import rns_fused_crt_partial_ref
-from repro_torch.kernels.rns_fused import (rns_fused_crt_partial,
+from repro_torch.kernels.ref import float_epilogue, rns_fused_crt_partial_ref
+from repro_torch.kernels.rns_fused import (resolve_epilogue,
+                                           rns_fused_crt_partial,
                                            rns_fused_matmul)
 
 from . import comms
@@ -151,7 +151,18 @@ def crt_finish(total: torch.Tensor, conv_g: ConversionPlan,
     return torch.where(is_neg, -neg, pos)
 
 
-def channel_partials(x, w: RNSTensor, nshards: int, *,
+def _basis_of(x, w, basis):
+    """The launch's basis: the encoded weight's, the activation's, the one
+    given, or `basis_for_int8_matmul(K)` for raw operands."""
+    if isinstance(w, RNSTensor):
+        return w.basis
+    if isinstance(x, RNSTensor):
+        return x.basis
+    return basis if basis is not None else basis_for_int8_matmul(
+        x.shape[-1])
+
+
+def channel_partials(x, w, nshards: int, *, basis=None,
                      scale_row: torch.Tensor | None = None,
                      gate: torch.Tensor | None = None,
                      plain: bool = False) -> list[torch.Tensor]:
@@ -160,38 +171,52 @@ def channel_partials(x, w: RNSTensor, nshards: int, *,
     planes, which sum to what the all-reduce computes.
 
     ``x`` is a float (M, K) block, quantized in the prologue by
-    ``scale_row``, or an `RNSTensor` of activation residues (optionally
-    gated by a raw int8 (M, K) ``gate``); ``w`` is the encoded weight.
+    ``scale_row``, a raw int8 (M, K) block, or an `RNSTensor` of activation
+    residues (optionally gated by a raw int8 (M, K) ``gate``); ``w`` is the
+    encoded weight or a raw (K, N) int8 weight (every slice converts it in
+    its own moduli; ``basis`` defaults to `basis_for_int8_matmul(K)`).
     ``plain=True`` runs each launch's plain version instead of
     `rns_fused_crt_partial`, to hold the kernel against it.
     """
     residue_in = isinstance(x, RNSTensor)
-    moduli = tuple(int(m) for m in w.basis.moduli)
-    srow = None if residue_in else scale_row.to(torch.float32).reshape(-1, 1)
+    moduli = tuple(int(m) for m in _basis_of(x, w, basis).moduli)
+    xr = x.residues if residue_in else x
+    quantize = not residue_in and xr.dtype != torch.int8
+    srow = scale_row.to(torch.float32).reshape(-1, 1) if quantize else None
     parts = []
     for i in range(nshards):
         lp, mods, sched, v, mc, sl = _slice_launch(
-            moduli, w.residues.shape[-2], not residue_in, nshards, i)
-        xs = x.residues[sl] if residue_in else x
+            moduli, xr.shape[-1], not residue_in, nshards, i)
+        xs = xr[sl] if residue_in else xr
+        ws = _channel_weight(w, sl)
         kw = dict(plan=lp, mods=mods, sched=sched, crt_v=v, crt_mc=mc,
                   scale_row=srow, gate=gate)
         parts.append(
-            rns_fused_crt_partial_ref(xs, w.residues[sl], **kw) if plain
-            else rns_fused_crt_partial(xs, w.residues[sl],
-                                       quantize=not residue_in, **kw))
+            rns_fused_crt_partial_ref(xs, ws, **kw) if plain
+            else rns_fused_crt_partial(xs, ws, quantize=quantize, **kw))
     return parts
 
 
-def channel_sliced_matmul(x, w: RNSTensor, nshards: int, *,
-                          scale_row: torch.Tensor, scale_col: torch.Tensor,
+def channel_sliced_matmul(x, w, nshards: int, *, basis=None,
+                          scale_row: torch.Tensor | None = None,
+                          scale_col: torch.Tensor | None = None,
+                          scale: torch.Tensor | None = None,
                           gate: torch.Tensor | None = None) -> torch.Tensor:
     """One fused linear over n channel slices in one process: the slices'
-    planes summed, `crt_finish`, then ``(y·s_row)·s_col``.  Bit-equal to
-    `kernels.rns_fused_matmul` on the full basis with the same operands."""
-    parts = channel_partials(x, w, nshards, scale_row=scale_row, gate=gate)
+    planes summed, `crt_finish`, then the float epilogue in the fused
+    kernel's order (``scale`` lowered as `rns_fused_matmul` lowers it).
+    Bit-equal to `kernels.rns_fused_matmul` on the full basis with the same
+    operands."""
+    basis = _basis_of(x, w, basis)
+    M = (x.residues if isinstance(x, RNSTensor) else x).shape[-2]
+    _, srow, scol, sc = resolve_epilogue(x, M, w.shape[-1],
+                                         scale_row=scale_row,
+                                         scale_col=scale_col, scale=scale)
+    parts = channel_partials(x, w, nshards, basis=basis, scale_row=scale_row,
+                             gate=gate)
     val = crt_finish(sum(parts[1:], parts[0]),
-                     ConversionPlan.for_basis(w.basis), len(w.basis.moduli))
-    return (val * scale_row.reshape(-1, 1)) * scale_col.reshape(1, -1)
+                     ConversionPlan.for_basis(basis), len(basis.moduli))
+    return float_epilogue(val, srow, scol, sc)
 
 
 # ------------------------------------------------------- the collectives --
@@ -208,39 +233,38 @@ class RankLaunch(NamedTuple):
     finish: Callable[[Any], Any]
 
 
-def _channel_weight(w, sl, moduli):
-    """This rank's (C/n, K, N) weight residues: a placed channel shard as
-    it is, the slice of a full encoded weight, or a raw (K, N) int8
-    weight forward-converted in the slice's moduli."""
+def _channel_weight(w, sl):
+    """This rank's weight operand: a placed channel shard's residues, the
+    channel slice of a full encoded weight, or a raw (K, N) int8 weight as
+    it is (the kernel converts it against the slice's moduli)."""
     if isinstance(w, RNSShard):
         return w.residues
     if isinstance(w, RNSTensor):
         return w.residues[sl]
-    if w.ndim == 3:
-        return w[sl]
-    return _forward_convert(w, moduli[sl], residue_dtype_for(moduli))
+    return w[sl] if w.ndim == 3 else w
 
 
-def _channel_launch(ctx, x, w, basis, *, srow, scol, gate):
+def _channel_launch(ctx, x, w, basis, *, srow, scol, sc, gate):
     moduli = tuple(int(m) for m in basis.moduli)
     residue_in = isinstance(x, RNSTensor)
-    K = (x.residues if residue_in else x).shape[-1]
+    xr = x.residues if residue_in else x
+    quantize = not residue_in and xr.dtype != torch.int8
     lp, mods, sched, v, mc, sl = _slice_launch(
-        moduli, K, not residue_in, ctx.nshards, ctx.rank)
-    xs = x.residues[sl] if residue_in else x
-    ws = _channel_weight(w, sl, moduli)
+        moduli, xr.shape[-1], not residue_in, ctx.nshards, ctx.rank)
+    xs = xr[sl] if residue_in else xr
+    ws = _channel_weight(w, sl)
 
     def kernel():
         return rns_fused_crt_partial(
             xs, ws, plan=lp, mods=mods, sched=sched, crt_v=v, crt_mc=mc,
-            quantize=not residue_in,
-            scale_row=None if residue_in else srow, gate=gate)
+            quantize=quantize, scale_row=srow if quantize else None,
+            gate=gate)
 
     def finish(part):
         total = comms.all_reduce(part, ctx.group)
-        # the kernel epilogue's pinned dequant order: (y·s_row)·s_col
+        # the kernel epilogue's pinned dequant order: ((y·s_row)·s_col)·s
         val = crt_finish(total, ConversionPlan.for_basis(basis), len(moduli))
-        return (val * srow) * scol
+        return float_epilogue(val, srow, scol, sc)
 
     return RankLaunch("channel", kernel, finish)
 
@@ -269,28 +293,48 @@ def _gather_columns(local: torch.Tensor, runs, N: int, group):
     return buf.view(torch.float32) if f32 else buf
 
 
-def _column_launch(ctx, x, w, basis, *, srow, scol, gate, emit):
-    N = scol.shape[-1]
+def _local_columns(t, runs, N: int):
+    """A scale's columns of this rank's runs: a 2-D view whose last axis is
+    N is sliced, anything else (a row scale, a scalar, None) passes."""
+    if t is None:
+        return None
+    t2 = t.reshape((1,) * (2 - t.ndim) + tuple(t.shape)) if t.ndim < 2 \
+        else t
+    if t2.shape[-1] != N:
+        return t
+    return torch.cat([t2[:, g:g + n] for g, _, n in runs], -1)
+
+
+def _column_launch(ctx, x, w, basis, *, N, quantize, scale_row, scale_col,
+                   scale, gate, emit):
     w_loc, runs = _column_runs(w, N, ctx)
     w_loc = w_loc.contiguous()
-    scol_loc = torch.cat([scol[:, g:g + n] for g, _, n in runs], -1)
+    scol = (None if scale_col is None else
+            scale_col.to(torch.float32).reshape(1, N))
     creq = None
     if emit == "residues":
         # the requantize constant of the FULL column scale: a slice-local
         # max would differ by rank
         K = (x.residues if isinstance(x, RNSTensor) else x).shape[-1]
         creq = requant_const(scol, K)
+    # the rank's launch lowers its own slice of the scale as the full
+    # launch would, so each column gets the same multiplies
+    sc_loc = None if scale is None else _local_columns(
+        torch.as_tensor(scale, dtype=torch.float32,
+                        device=w_loc.device), runs, N)
 
     def kernel():
-        return rns_fused_matmul(x, w_loc, basis, scale_row=srow,
-                                scale_col=scol_loc, gate=gate, emit=emit,
+        return rns_fused_matmul(x, w_loc, basis, quantize=quantize,
+                                scale_row=scale_row,
+                                scale_col=_local_columns(scol, runs, N),
+                                scale=sc_loc, gate=gate, emit=emit,
                                 requant_creq=creq)
 
     def finish(out):
         if emit == "residues":
             return RNSTensor(residues=_gather_columns(out.residues, runs, N,
                                                       ctx.group),
-                             scale=srow * creq, basis=basis)
+                             scale=out.scale, basis=basis)
         return _gather_columns(out, runs, N, ctx.group)
 
     return RankLaunch("column", kernel, finish)
@@ -325,21 +369,18 @@ def resolve_layout(layout: str, *, C: int, N: int, nlimbs: int, ndev: int,
     return lay
 
 
-def rank_launch(x, w, basis=None, *, scale_row: torch.Tensor,
-                scale_col: torch.Tensor, gate: torch.Tensor | None = None,
-                emit: str = "float", ctx=None,
+def rank_launch(x, w, basis=None, *, quantize: bool | None = None,
+                gate: torch.Tensor | None = None, emit: str = "float",
+                scale_row: torch.Tensor | None = None,
+                scale_col: torch.Tensor | None = None,
+                scale: torch.Tensor | None = None, ctx=None,
                 layout: str | None = None) -> RankLaunch:
     """This rank's part of `sharded_fused_matmul`'s launch, its arguments
     resolved as it resolves them, as a :class:`RankLaunch`: what the
     sharded engine runs, split so that the kernel and the collective can
     be timed apart.  ``ctx`` must be a context of more than one shard."""
     ctx = ctx if ctx is not None else current()
-    if isinstance(w, RNSTensor):
-        basis = w.basis
-    elif isinstance(x, RNSTensor):
-        basis = x.basis
-    elif basis is None:
-        basis = basis_for_int8_matmul(x.shape[-1])
+    basis = _basis_of(x, w, basis)
     moduli = tuple(int(m) for m in basis.moduli)
     xr = x.residues if isinstance(x, RNSTensor) else x
     M = xr.shape[-2]
@@ -357,41 +398,50 @@ def rank_launch(x, w, basis=None, *, scale_row: torch.Tensor,
             layout or ctx.layout, C=len(moduli), M=M, N=N,
             nlimbs=crt_tables(basis)[2], ndev=ctx.nshards, emit=emit,
             itemsize=residue_dtype_for(moduli).itemsize)
+    kw = dict(quantize=quantize, gate=gate, emit=emit, scale_row=scale_row,
+              scale_col=scale_col, scale=scale)
     if lay == "replicate":
         return RankLaunch("replicate", functools.partial(
-            rns_fused_matmul, x, w, basis, scale_row=scale_row,
-            scale_col=scale_col, gate=gate, emit=emit), lambda out: out)
-    srow = scale_row.to(torch.float32).reshape(M, 1)
-    scol = scale_col.to(torch.float32).reshape(1, N)
-    if lay == "channel":
-        return _channel_launch(ctx, x, w, basis, srow=srow, scol=scol,
-                               gate=gate)
-    return _column_launch(ctx, x, w, basis, srow=srow, scol=scol, gate=gate,
-                          emit=emit)
+            rns_fused_matmul, x, w, basis, **kw), lambda out: out)
+    if lay == "column":
+        return _column_launch(ctx, x, w, basis, N=N, **kw)
+    # the channel layout runs the epilogue after the collective; its
+    # operands are checked and lowered as the full launch checks them
+    _, srow, scol, sc = resolve_epilogue(x, M, N, quantize=quantize,
+                                         scale_row=scale_row,
+                                         scale_col=scale_col, scale=scale)
+    return _channel_launch(ctx, x, w, basis, srow=srow, scol=scol, sc=sc,
+                           gate=gate)
 
 
-def sharded_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
-                         scale_col: torch.Tensor,
+def sharded_fused_matmul(x, w, basis=None, *, ctx=None,
+                         layout: str | None = None,
+                         quantize: bool | None = None,
                          gate: torch.Tensor | None = None,
-                         emit: str = "float", ctx=None,
-                         layout: str | None = None):
+                         emit: str = "float",
+                         scale_row: torch.Tensor | None = None,
+                         scale_col: torch.Tensor | None = None,
+                         scale: torch.Tensor | None = None):
     """Distribution-aware twin of `kernels.rns_fused.rns_fused_matmul`:
     its arguments and its bits, run as ONE launch split over
     ``ctx.axis`` (default: the active `dist.context.current()`).
 
     ``layout`` (default: the context's) is resolved per launch by
     `resolve_layout`; a placed `RNSShard` weight runs in the layout it was
-    placed for.  With no context or a one-shard axis this IS
+    placed for.  Raw int8 x and the ``scale=`` forms run in both layouts:
+    a channel rank runs the raw-int8 `rns_fused_crt_partial` and applies
+    the scale after the collective in the kernel's order, a column rank
+    the raw-int8 `rns_fused_matmul` on its columns with a scale's N axis
+    sliced by them.  With no context or a one-shard axis this IS
     `rns_fused_matmul` (a shard then raises: it is not the whole weight).
     """
     ctx = ctx if ctx is not None else current()
+    kw = dict(quantize=quantize, gate=gate, emit=emit, scale_row=scale_row,
+              scale_col=scale_col, scale=scale)
     if ctx is None or ctx.nshards <= 1:
         if isinstance(w, RNSShard):
             raise ValueError("a placed weight shard runs only under the "
                              "DistContext it was placed for")
-        return rns_fused_matmul(x, w, basis, scale_row=scale_row,
-                                scale_col=scale_col, gate=gate, emit=emit)
-    launch = rank_launch(x, w, basis, scale_row=scale_row,
-                         scale_col=scale_col, gate=gate, emit=emit, ctx=ctx,
-                         layout=layout)
+        return rns_fused_matmul(x, w, basis, **kw)
+    launch = rank_launch(x, w, basis, ctx=ctx, layout=layout, **kw)
     return launch.finish(launch.kernel())

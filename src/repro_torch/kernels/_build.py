@@ -32,6 +32,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from repro_torch.core import multiword as mw
@@ -123,7 +125,7 @@ class TileArgs(ctypes.Structure):
     _fields_ = [("x", ctypes.c_void_p), ("srow", ctypes.c_void_p),
                 ("gate", ctypes.c_void_p), ("w", ctypes.c_void_p),
                 ("scol", ctypes.c_void_p), ("creq", ctypes.c_void_p),
-                ("out", ctypes.c_void_p),
+                ("scale", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("M", ctypes.c_int), ("K", ctypes.c_int),
                 ("N", ctypes.c_int), ("splits", ctypes.c_int),
                 ("k_per_split", ctypes.c_int), ("vec", ctypes.c_int),
@@ -215,17 +217,25 @@ def build() -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(SOURCES, objs)]
+
+    def compile_one(src, obj):
+        t0 = time.perf_counter()
+        done = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], capture_output=True, text=True)
+        return done, time.perf_counter() - t0
+
+    # one thread a source, each waiting on its own nvcc: all compile at
+    # once, and each file's wall time is its own
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        runs = list(pool.map(compile_one, SOURCES, objs))
     logs = []
     failed = []
-    for src, proc in zip(SOURCES, procs):
-        out, err = proc.communicate()
-        logs.append(f"== {src.name}\n{out}{err}")
-        if proc.returncode != 0:
-            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    for src, (done, secs) in zip(SOURCES, runs):
+        logs.append(f"== {src.name} ({secs:.1f} s)\n{done.stdout}"
+                    f"{done.stderr}")
+        if done.returncode != 0:
+            failed.append(f"{src.name} ({done.returncode}):\n"
+                          f"{done.stderr}")
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = so.with_suffix(f".{tag}.tmp")

@@ -36,9 +36,12 @@ import torch
 from . import _build
 from .ref import SPLIT_TILE, _positions, attention_ref
 
-__all__ = ["flash_attention", "flash_route", "split_count", "ROUTES"]
+__all__ = ["flash_attention", "flash_route", "split_count", "padded_head",
+           "ROUTES", "HEAD_SIZES"]
 
-HEAD_SIZES = (16, 32, 64, 128)       # D values compiled into the kernel
+# D values compiled into the kernel; any other D up to the last runs on
+# the next one with zero columns appended (`padded_head`)
+HEAD_SIZES = (16, 32, 64, 80, 96, 128, 256)
 ROUTES = ("split", "mma", "fma")     # csrc/flash_common.cuh: flash::Route
 SPLIT_MAX_ROWS = 16                  # query rows the split route takes
 MAX_SPLITS = 8                       # the portable cluster size
@@ -75,6 +78,18 @@ def _pin_route(route: str):
         _PINNED.pop()
 
 
+def padded_head(D: int) -> int:
+    """The compiled head size a call of head size D runs at: D itself, or
+    the next compiled size, whose extra columns are zeros in q, k and v (a
+    zero column adds an exact +0 to every score, and the output's extra
+    columns are dropped).  Raises above the largest."""
+    for size in HEAD_SIZES:
+        if D <= size:
+            return size
+    raise ValueError(f"head size {D} exceeds the kernel's largest, "
+                     f"{HEAD_SIZES[-1]}")
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """The kernels read rows by 16-byte copies: a view that starts off a
     16-byte boundary is copied first."""
@@ -94,8 +109,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``pad[b]`` keys of sequence b.  ``qpos``/``kpos`` ((S,) or (B, S) int,
     −1 = invalid row) switch to explicit positions and exclude ``pad``.
     Fully masked rows are 0.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel of `flash_route`; a meta tensor gets an empty
-    output of the plain version's shape and dtype (a dry run).
+    tensor launches the kernel of `flash_route` at the head size
+    `padded_head` gives (the scale stays 1/√D of the true D), and raises
+    for D above 256; a meta tensor gets an empty output of the plain
+    version's shape and dtype (a dry run).
     """
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
@@ -121,17 +138,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.device}")
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    if D not in HEAD_SIZES:
-        raise ValueError(f"head size {D} is not compiled into the kernel "
-                         f"(one of {HEAD_SIZES})")
+    Dk = padded_head(D)
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
     route = flash_route(Sq, q.dtype)
+    if Dk != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :D]
     args = _build.FlashArgs()
     args.route = ROUTES.index(route)
     args.splits = (split_count(B * H, Sk, _build.num_sms(q.device.index or 0))
@@ -147,19 +164,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         args.pad = pd.data_ptr()
     args.q, args.k, args.v, args.out = (q.data_ptr(), k.data_ptr(),
                                         v.data_ptr(), out.data_ptr())
-    args.B, args.H, args.Sq, args.Sk, args.D = B, H, Sq, Sk, D
+    args.B, args.H, args.Sq, args.Sk, args.D = B, H, Sq, Sk, Dk
     args.causal = int(causal)
     args.has_window, args.window = int(window is not None), int(window or 0)
     args.has_softcap = int(softcap is not None)
     args.softcap = float(softcap or 0.0)
-    args.scale = 1.0 / math.sqrt(D)
+    args.scale = 1.0 / math.sqrt(D)           # the true head size's
     args.bf16 = int(q.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.library().flash_attention_launch(ctypes.byref(args), stream)
     _build.check(rc, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
-    return out
+    return out if Dk == D else out[..., :D].contiguous()
 
 
 flash_attention.launches = 0

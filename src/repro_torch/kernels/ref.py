@@ -43,15 +43,20 @@ def _channel_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
 
 
-def _channel_products(x: torch.Tensor, w_res: torch.Tensor, moduli,
+def _channel_products(x: torch.Tensor, w: torch.Tensor, moduli,
                       scale_row: torch.Tensor | None,
                       gate: torch.Tensor | None):
     """The fused kernel's per-channel int32 accumulators, unfolded, one per
-    modulus: the quantized (M, K) float ``x`` or channel c of the (C, M, K)
-    residues ``x`` (times ``|gate|_m`` when gated), against ``w_res[c]``."""
+    modulus: the quantized (M, K) float ``x``, the raw signed (M, K) int8
+    ``x`` shared by every channel, or channel c of the (C, M, K) residues
+    ``x`` (times ``|gate|_m`` when gated), against channel c of ``w``: the
+    (C, K, N) residues, or the raw (K, N) int8 weight's residues in the
+    channel's modulus."""
+    w_res = w if w.ndim == 3 else rns_forward_ref(w, moduli)
     if x.ndim == 2:
-        q = torch.clamp(torch.round(x.to(torch.float32) / scale_row),
-                        -QMAX, QMAX)
+        q = (x.to(torch.int32) if x.dtype == torch.int8 else
+             torch.clamp(torch.round(x.to(torch.float32) / scale_row),
+                         -QMAX, QMAX))
     for c, m in enumerate(moduli):
         if x.ndim == 2:
             a = q
@@ -64,33 +69,47 @@ def _channel_products(x: torch.Tensor, w_res: torch.Tensor, moduli,
 
 
 def rns_fused_matmul_ref(x: torch.Tensor, w: torch.Tensor, basis, *,
-                         scale_row: torch.Tensor, scale_col: torch.Tensor,
+                         scale_row: torch.Tensor | None = None,
+                         scale_col: torch.Tensor | None = None,
+                         scale: torch.Tensor | None = None,
                          gate: torch.Tensor | None = None,
                          creq: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the fused kernel.
 
     ``x`` is (M, K) float (quantize prologue: round/clip by ``scale_row``,
+    signed fold plan), (M, K) raw signed int8 (shared by every channel,
     signed fold plan) or the (C, M, K) canonical int8 residues of an
     activation (residue-in: unsigned fold plan), whose channels are
     multiplied by ``|gate|_m`` when a raw int8 (M, K) ``gate`` is given.
     ``w`` is (C, K, N) canonical residues or (K, N) raw int8.  With
     ``creq`` (0-d) the epilogue requantizes in the domain and returns the
     (C, M, N) int8 residues of clip(round(y·s_col / creq), ±127); otherwise
-    it returns (M, N) float32 ``(y·s_row)·s_col``.
+    it returns (M, N) float32 ``((y·s_row)·s_col)·scale``, each factor
+    left out when it is None (the exact product when all are).
     """
     moduli = tuple(int(m) for m in basis.moduli)
     K = x.shape[-1]
     residue_in = x.ndim == 3
     plan = ChannelPlan.for_matmul(moduli, K, signed=not residue_in)
     conv = ConversionPlan.for_basis(basis)
-    w_res = w if w.ndim == 3 else rns_forward_ref(w, moduli)
     res = [plan.fold(acc, c) for c, acc in enumerate(
-        _channel_products(x, w_res, moduli, scale_row, gate))]
+        _channel_products(x, w, moduli, scale_row, gate))]
     val = conv.reverse_plain(torch.stack(res))
     if creq is not None:
         q = torch.clamp(torch.round((val * scale_col) / creq), -QMAX, QMAX)
         return rns_forward_ref(q.to(torch.int32), moduli, torch.int8)
-    return (val * scale_row) * scale_col
+    return float_epilogue(val, scale_row, scale_col, scale)
+
+
+def float_epilogue(val: torch.Tensor, scale_row=None, scale_col=None,
+                   scale=None) -> torch.Tensor:
+    """The fused kernel's float epilogue on the exact product ``val``:
+    ``((val·s_row)·s_col)·scale`` in that order, each factor left out when
+    it is None."""
+    for f in (scale_row, scale_col, scale):
+        if f is not None:
+            val = val * f
+    return val
 
 
 def rns_matmul_ref(a_res: torch.Tensor, b_res: torch.Tensor,
@@ -171,9 +190,11 @@ def rns_fused_crt_partial_ref(x: torch.Tensor, w: torch.Tensor, *,
     then the CRT partial sum Σ_j |r_j·v_j|_{m_j}·(M/m_j) as (L1, M, N)
     int32 15-bit limb planes, carried after every channel.
 
-    ``x`` is (M, K) float (quantized by ``scale_row`` (M, 1), signed fold)
-    or the (C_l, M, K) canonical int8 residues of the slice (unsigned fold,
-    times ``|gate|_m`` when gated); ``w`` the (C_l, K, N) residue slice.
+    ``x`` is (M, K) float (quantized by ``scale_row`` (M, 1), signed fold),
+    (M, K) raw signed int8 (signed fold) or the (C_l, M, K) canonical int8
+    residues of the slice (unsigned fold, times ``|gate|_m`` when gated);
+    ``w`` the (C_l, K, N) residue slice or the raw (K, N) int8 weight,
+    converted in the slice's moduli.
     ``plan`` gives the rung count, ``n_sub`` and signedness; ``mods``,
     ``sched`` (C_l, R, 2), ``crt_v`` (C_l,) and ``crt_mc`` (C_l, L1) are
     the slice's own tables.
@@ -247,12 +268,13 @@ def attention_mask(B: int, Sq: int, Sk: int, *, causal: bool = True,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
-                  softcap: float | None = None, pad=None, qpos=None,
-                  kpos=None) -> torch.Tensor:
+                  softcap: float | None = None, scale: float | None = None,
+                  pad=None, qpos=None, kpos=None) -> torch.Tensor:
     """Plain version of the flash kernel: (B, H, Sq, D), (B, H, Sk, D)² →
     (B, H, Sq, D) in q's dtype, port of `repro/kernels/ref.attention_ref`.
 
-    Scores ``q·k / √D``, ``tanh(s/c)·c`` under ``softcap``, masked scores
+    Scores ``q·k·scale`` (default 1/√D; a call padded to a larger head
+    size keeps the true D's), ``tanh(s/c)·c`` under ``softcap``, masked scores
     set to −1e30, softmax, fully masked rows zero.  The products run in
     float32 whatever the input type, as the kernel (and the JAX package's
     Pallas kernel) computes them; the JAX reference multiplies bf16 inputs
@@ -263,7 +285,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = attention_mask(B, Sq, Sk, causal=causal, window=window, pad=pad,
                           qpos=qpos, kpos=kpos, device=q.device)[:, None]
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32)) * (1.0 / math.sqrt(D))
+                     k.to(torch.float32)) * (
+                         1.0 / math.sqrt(D) if scale is None else scale)
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
     s = torch.where(mask, s, NEG_INF)

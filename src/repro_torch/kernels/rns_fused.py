@@ -1,16 +1,18 @@
 """The fused RNS linear kernel wrapper: port of
 `repro/kernels/rns_fused.py::rns_fused_matmul`.
 
-One launch does Stage ②–⑤.  The A operand is either float activations,
-which the kernel rounds/clips by the row scale itself (the quantize form of
-``rns_dense``), or an activation :class:`RNSTensor` whose (C, M, K)
-canonical residues are used as they are (the residue-in form of the
-residue-resident chain), optionally multiplied per channel by ``|gate|_m``
-of a raw int8 gate.  Then C per-channel int8 products into int32, the fold
-ladder (signed for the quantize form, unsigned for canonical residues), MRC
-digits, 15-bit limb Horner, the signed fix and the float32 recombination.
-The epilogue writes ``(y·s_row)·s_col`` (``emit="float"``) or requantizes
-in the domain, clip(round(y·s_col / c), ±127) with c =
+One launch does Stage ②–⑤.  The A operand is float activations, which
+the kernel rounds/clips by the row scale itself (the quantize form of
+``rns_dense``), raw signed int8 activations streamed to every channel as
+they are (the exact-int8 form of ``rns_int_matmul``), or an activation
+:class:`RNSTensor` whose (C, M, K) canonical residues are used as they are
+(the residue-in form of the residue-resident chain), optionally multiplied
+per channel by ``|gate|_m`` of a raw int8 gate.  Then C per-channel int8
+products into int32, the fold ladder (signed for the quantize and raw
+forms, unsigned for canonical residues), MRC digits, 15-bit limb Horner,
+the signed fix and the float32 recombination.  The epilogue writes
+``((y·s_row)·s_col)·scale``, each factor optional (``emit="float"``), or
+requantizes in the domain, clip(round(y·s_col / c), ±127) with c =
 `quant.requant_const`, and writes the C residue planes of the result
 (``emit="residues"``).  The CUDA source is `csrc/rns_common.cuh`; its
 header says what bounds the kernel on an H100 and how the design answers
@@ -156,13 +158,15 @@ def launch_variant(name: str, amode: int, emit: int, gated: bool,
 
 def run_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out, M: int,
              K: int, N: int, tm: int, splits: int, vec: bool, avec: bool,
-             srow=None, scol=None, gate=None, creq=None) -> int:
+             srow=None, scol=None, scale=None, gate=None,
+             creq=None) -> int:
     """One launch of the tile kernel at an explicit (tile height, K
     splits) on the current stream; returns the library's code.  Counts
     nothing: `launch_tile` counts, the tuner's sweep does not."""
     args = _build.TileArgs()
     for field, t in (("x", x), ("w", w), ("out", out), ("srow", srow),
-                     ("scol", scol), ("gate", gate), ("creq", creq)):
+                     ("scol", scol), ("scale", scale), ("gate", gate),
+                     ("creq", creq)):
         if t is not None:
             setattr(args, field, t.data_ptr())
     args.M, args.K, args.N, args.splits = M, K, N, splits
@@ -180,7 +184,7 @@ def run_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out, M: int,
 
 def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
                 M: int, K: int, N: int, C: int, srow=None, scol=None,
-                gate=None, creq=None, name: str) -> None:
+                scale=None, gate=None, creq=None, name: str) -> None:
     """One launch of the tile kernel on contiguous CUDA tensors, at the
     (tile height, K splits) the tuner resolves for its shape
     (`tune.choose`: the table's row, a sweep on a miss, the static rule
@@ -210,29 +214,39 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
                          f"aligned rows, not C={C}, N={N}, K={K}")
     rc = run_tile(amode, emit, st, x=x, w=w, out=out, M=M, K=K, N=N, tm=tm,
                   splits=splits, vec=vec, avec=avec, srow=srow, scol=scol,
-                  gate=gate, creq=creq)
+                  scale=scale, gate=gate, creq=creq)
     _build.check(rc, name)
     tile_launches[tm] += 1
 
 
 @_build.kernel_region("rns_fused_matmul")
-def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
-                     scale_col: torch.Tensor, gate: torch.Tensor | None = None,
-                     emit: str = "float",
+def rns_fused_matmul(x, w, basis=None, *, quantize: bool | None = None,
+                     gate: torch.Tensor | None = None, emit: str = "float",
+                     scale_row: torch.Tensor | None = None,
+                     scale_col: torch.Tensor | None = None,
+                     scale: torch.Tensor | None = None,
                      requant_creq: torch.Tensor | None = None):
     """One-launch Stage ②–⑤ pipeline: (M, K) × weight → (M, N).
 
-    ``x`` holds the float32/bfloat16 activations (quantized in the kernel by
-    ``scale_row`` (M, 1)), or is an activation :class:`RNSTensor` with
-    (C, M, K) canonical residues in the weight's basis (residue-in; its
-    ``scale_row`` is passed explicitly, the reference's
-    ``x.scale·gate_scale`` when gated).  ``gate`` (M, K) raw int8 multiplies
-    a residue-in operand per channel.  ``w`` is an encoded
-    :class:`RNSTensor`, its raw (C, K, N) residue stack (then ``basis`` is
-    required), or a raw (K, N) int8 weight converted per tile.
-    ``scale_col`` is (1, N).
+    ``x`` is one of three prologues.  (M, K) float32/bfloat16 activations
+    are quantized in the kernel by ``scale_row`` (M, 1).  (M, K) raw
+    signed int8 activations are streamed to every channel as they are (the
+    broadcast operand; the fold plan's bound is K·128·(m−1)).  An
+    activation :class:`RNSTensor` brings (C, M, K) canonical residues in
+    the weight's basis (residue-in; ``scale_row`` defaults to its scale,
+    the reference's ``x.scale·gate_scale`` when gated), and ``gate`` (M,
+    K) raw int8 multiplies it per channel.  ``quantize`` is the reference's
+    keyword: None lets x's dtype decide, and a value that contradicts the
+    dtype raises.  ``w`` is an encoded :class:`RNSTensor`, its raw (C, K,
+    N) residue stack (then ``basis`` is required), or a raw (K, N) int8
+    weight converted per tile.
 
-    ``emit="float"`` returns (M, N) float32 ``(y·s_row)·s_col``;
+    ``emit="float"`` returns (M, N) float32: the exact product times
+    ``scale_row`` (M, 1), then ``scale_col`` (1, N), each optional, or
+    times a generic ``scale`` broadcast against (M, N), lowered as the
+    reference lowers it (a scalar, (N,) or (1, N) scale rides as the column
+    factor, an (M, 1) one as the row factor, any other streams as an (M,
+    N) operand); with no scale the output is the exact integer product.
     ``emit="residues"`` returns the activation :class:`RNSTensor` of the
     in-domain requantized product, scale ``s_row·requant_const(s_col, K)``;
     ``requant_creq`` (0-d) overrides that constant (a column slice of a
@@ -243,10 +257,15 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
     """
     if emit not in ("float", "residues"):
         raise ValueError(f"emit must be 'float' or 'residues', got {emit!r}")
+    emit_res = emit == "residues"
+    xin = x
     if isinstance(w, RNSTensor):
         if w.residues.ndim != 3:
             raise ValueError("rns_fused_matmul needs an unbatched (C, K, N) "
                              f"encoded weight, got {tuple(w.residues.shape)}")
+        if w.bound > 128:
+            raise ValueError(f"encoded weight bound {w.bound} exceeds the "
+                             "int8 operand range the basis is sized for")
         if basis is not None and tuple(basis.moduli) != w.moduli:
             raise ValueError(f"basis {basis.moduli} does not match encoded "
                              f"weight channels {w.moduli}")
@@ -257,6 +276,9 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
             raise ValueError("rns_fused_matmul needs an unbatched (C, M, K) "
                              "activation RNSTensor, got "
                              f"{tuple(x.residues.shape)}")
+        if x.bound > 128:
+            raise ValueError(f"activation bound {x.bound} exceeds the int8 "
+                             "operand range the basis is sized for")
         if basis is not None and tuple(basis.moduli) != x.moduli:
             raise ValueError(f"basis {basis.moduli} does not match activation"
                              f" channels {x.moduli}")
@@ -266,13 +288,14 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
                              f"{x.dtype}")
     elif x.ndim != 2:
         raise ValueError(f"need x (M, K), got {tuple(x.shape)}")
-    elif x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    elif x.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"x must be float32, bfloat16 or int8, got "
+                         f"{x.dtype}")
     if gate is not None:
         if not residue_in:
             raise ValueError("gate= fuses into the residue-in prologue; "
-                             "float activations gate before quantize")
-        if emit == "residues":
+                             "float/int8 activations gate before quantize")
+        if emit_res:
             raise ValueError("gate= with emit='residues' is unsupported: the "
                              "requantize bound is sized for K·127², not the "
                              "gated K·127³ product")
@@ -298,15 +321,20 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
                              f"{plan.k}")
     if residue_in and w.ndim != 3:
         raise ValueError("a residue-in launch needs encoded weights")
-    srow = scale_row.to(torch.float32).reshape(M, 1)
-    scol = scale_col.to(torch.float32).reshape(1, N)
+    quant, srow, scol, sc = resolve_epilogue(
+        xin, M, N, quantize=quantize, emit_res=emit_res, scale_row=scale_row,
+        scale_col=scale_col, scale=scale, requant_creq=requant_creq)
     creq = None
-    if emit == "residues":
+    if emit_res:
         creq = (requant_const(scol, K) if requant_creq is None else
                 requant_creq.to(torch.float32).reshape(()))
+    # the row factor is read by the quantize prologue and by a float
+    # epilogue; an in-domain epilogue of int8 operands does not read it
+    ksrow = srow if (quant or not emit_res) else None
     if x.device.type == "cpu":
-        out = rns_fused_matmul_ref(x, w, basis, scale_row=srow,
-                                   scale_col=scol, gate=gate, creq=creq)
+        out = rns_fused_matmul_ref(x, w, basis, scale_row=ksrow,
+                                   scale_col=scol, scale=sc, gate=gate,
+                                   creq=creq)
     elif x.device.type == "meta":
         out = (torch.empty((plan.k, M, N), dtype=torch.int8, device="meta")
                if creq is not None else
@@ -315,15 +343,110 @@ def rns_fused_matmul(x, w, basis=None, *, scale_row: torch.Tensor,
         raise ValueError(f"rns_fused_matmul runs on cuda or cpu, not "
                          f"{x.device}")
     else:
-        out = _launch(x, w, srow, scol, gate, creq, plan.k, st, residue_in)
+        out = _launch(x, w, ksrow, scol, sc, gate, creq, plan.k, st,
+                      residue_in)
     if creq is not None:
         return RNSTensor(residues=out, scale=srow * creq, basis=basis)
     return out
 
 
-def _launch(x, w, srow, scol, gate, creq, C, st, residue_in):
+def resolve_epilogue(x, M: int, N: int, *, quantize: bool | None = None,
+                     emit_res: bool = False, scale_row=None, scale_col=None,
+                     scale=None, requant_creq=None):
+    """The prologue's form and the epilogue's factors of one (M, K) × (K,
+    N) launch on ``x`` (float, raw int8 or an activation `RNSTensor`),
+    resolved as `rns_fused_matmul` resolves them: ``quantize`` checked
+    against x (float x quantizes, the other two do not), a residue-in
+    launch's ``scale_row`` defaulted to its carried scale, the reference's
+    checks (`check_scales`), the row and column factors as float32 (M, 1)
+    and (1, N), and ``scale`` lowered by `lower_scale`.  Returns (quant,
+    srow, scol, scale); a sharded launch resolves its operands here too, so
+    that every rank lowers them as the whole launch does."""
+    residue_in = isinstance(x, RNSTensor)
+    if residue_in:
+        if quantize:
+            raise ValueError("quantize=True is the float-activation "
+                             "prologue; a residue-in RNSTensor is already "
+                             "quantized")
+        if scale_row is None:
+            scale_row = x.scale
+        quant = False
+    else:
+        quant = x.dtype != torch.int8
+        if quantize is not None and bool(quantize) != quant:
+            raise ValueError(f"quantize={quantize} contradicts x's dtype "
+                             f"{x.dtype}: float activations quantize, int8 "
+                             "ones are the raw operand")
+    check_scales(quant, residue_in, emit_res, scale_row, scale_col, scale,
+                 requant_creq)
+    srow = (None if scale_row is None else
+            scale_row.to(torch.float32).reshape(M, 1))
+    scol = (None if scale_col is None else
+            scale_col.to(torch.float32).reshape(1, N))
+    dev = (x.residues if residue_in else x).device
+    return (quant, *lower_scale(scale, M, N, srow, scol, dev))
+
+
+def check_scales(quant: bool, residue_in: bool, emit_res: bool, scale_row,
+                 scale_col, scale, requant_creq=None) -> None:
+    """The reference's checks of the epilogue's scale arguments (a
+    residue-in launch's ``scale_row`` already defaulted to its carried
+    scale)."""
+    if quant and scale_row is None:
+        raise ValueError("quantize=True needs the per-row quant scale_row")
+    if scale_row is not None and not (quant or residue_in or emit_res):
+        raise ValueError("scale_row is the quantize-mode row scale; int8 "
+                         "inputs fuse dequant via scale= instead")
+    if scale is not None and (scale_row is not None or scale_col is not None):
+        raise ValueError("pass either scale or scale_row/scale_col, not both")
+    if emit_res:
+        if scale_col is None:
+            raise ValueError("emit='residues' needs scale_col: the in-domain "
+                             "requantize constant is max(scale_col)·K·127")
+        if scale_row is None:
+            raise ValueError("emit='residues' needs scale_row (or a carried "
+                             "activation scale) to form the output scale")
+        if scale is not None:
+            raise ValueError("emit='residues' uses scale_row/scale_col; "
+                             "generic scale= has no in-domain meaning")
+    if requant_creq is not None and not emit_res:
+        raise ValueError("requant_creq= overrides the in-domain requantize "
+                         "constant and only means something with "
+                         "emit='residues'")
+
+
+def lower_scale(scale, M: int, N: int, srow, scol, device):
+    """(row, column, full) factors of the float epilogue with a generic
+    ``scale`` lowered as the reference lowers it: a scalar, (N,) or (1, N)
+    scale becomes the (1, N) column factor, an (M, 1) one the (M, 1) row
+    factor, any other (M, N) operand; raises for a scale that does not
+    broadcast against the output."""
+    if scale is None:
+        return srow, scol, None
+    s = torch.as_tensor(scale, dtype=torch.float32, device=device)
+    if s.ndim > 2 or any(a not in (1, b) for a, b in zip(
+            s.shape[::-1], (N, M))):
+        raise ValueError(f"scale {tuple(s.shape)} does not broadcast against "
+                         f"the ({M}, {N}) output")
+    s2 = s.reshape((1,) * (2 - s.ndim) + tuple(s.shape)) if s.ndim < 2 else s
+    if s2.shape[0] == 1:
+        return srow, s2.expand(1, N), None
+    if s2.shape[1] == 1:
+        return s2.expand(M, 1), scol, None
+    return srow, scol, s2
+
+
+def _amode(x, residue_in: bool) -> int:
+    """The tile kernel's A mode of an operand: residue planes, the raw int8
+    block shared by every channel, or float activations to quantize."""
+    if residue_in:
+        return A_PLANES
+    return {torch.int8: A_SHARED, torch.bfloat16: A_BF16}.get(x.dtype, A_F32)
+
+
+def _launch(x, w, srow, scol, sc, gate, creq, C, st, residue_in):
     for name, t in (("w", w), ("scale_row", srow), ("scale_col", scol),
-                    ("gate", gate)):
+                    ("scale", sc), ("gate", gate)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
     M, K = x.shape[-2:]
@@ -336,21 +459,29 @@ def _launch(x, w, srow, scol, gate, creq, C, st, residue_in):
         out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    amode = (A_PLANES if residue_in
-             else A_BF16 if x.dtype == torch.bfloat16 else A_F32)
+    amode = _amode(x, residue_in)
+    if creq is None and amode != A_SHARED and scol is None:
+        # only the raw int8 epilogue's factors are optional in the kernel;
+        # the others multiply by both, and a column factor of ones is exact
+        scol = torch.ones((1, N), dtype=torch.float32, device=x.device)
     launch_tile(amode, EMIT_RESIDUES if creq is not None else EMIT_FLOAT, st,
                 x=x, w=w, out=out, M=M, K=K, N=N, C=C,
-                srow=srow.contiguous(), scol=scol.contiguous(), gate=gate,
+                srow=srow.contiguous() if srow is not None else None,
+                scol=scol.contiguous() if scol is not None else None,
+                scale=sc.contiguous() if sc is not None else None, gate=gate,
                 creq=creq.reshape(1) if creq is not None else None,
                 name="rns_fused_matmul")
     rns_fused_matmul.launches += 1
     if residue_in:
         rns_fused_matmul.residue_in_launches += 1
+    elif amode == A_SHARED:
+        rns_fused_matmul.raw_launches += 1
     return out
 
 
 rns_fused_matmul.launches = 0              # every launch
 rns_fused_matmul.residue_in_launches = 0   # of which residue-in
+rns_fused_matmul.raw_launches = 0          # of which raw int8
 
 
 def _table(t) -> tuple:
@@ -403,13 +534,14 @@ def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
     epilogue does not read a conversion plan.
 
     ``x`` is (M, K) float32/bfloat16 with ``quantize=True`` and
-    ``scale_row`` (M, 1), or the (C_l, M, K) int8 canonical residue slice,
-    optionally gated by a raw int8 (M, K) ``gate``.  ``w`` is the
-    (C_l, K, N) int8 residue slice.  Raw signed int8 activations and live
-    (K, N) weights, which no configuration reaches, raise
-    ``NotImplementedError``.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel; a meta tensor gets an empty output of the
-    plain version's shape and dtype (a dry run).
+    ``scale_row`` (M, 1), (M, K) raw signed int8 with ``quantize=False``
+    (shared by every channel of the slice), or the (C_l, M, K) int8
+    canonical residue slice, optionally gated by a raw int8 (M, K)
+    ``gate``.  ``w`` is the (C_l, K, N) int8 residue slice, or the raw
+    (K, N) int8 weight, converted per tile against the slice's own moduli
+    (not with residue-in x, as `rns_fused_matmul`).  A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel; a meta tensor gets an
+    empty output of the plain version's shape and dtype (a dry run).
     """
     residue_in = x.ndim == 3
     if residue_in:
@@ -421,20 +553,25 @@ def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
                              "slices are already quantized")
         if x.dtype != torch.int8:
             raise ValueError(f"residue slice must be int8, got {x.dtype}")
-    elif not quantize:
-        raise NotImplementedError("raw int8 activations (quantize=False on "
-                                  "an (M, K) block) are not ported")
-    elif x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"need float32/bfloat16 x (M, K), got {x.dtype} "
+    elif x.ndim != 2:
+        raise ValueError(f"need x (M, K) or (C_l, M, K), got "
                          f"{tuple(x.shape)}")
-    if w.ndim != 3:
-        raise NotImplementedError("live (K, N) weights are not ported; "
-                                  "encode the weight slice")
-    if w.shape[0] != plan.k:
-        raise ValueError(f"weight slice has {w.shape[0]} channels, local "
-                         f"plan has {plan.k}")
+    elif quantize and x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"quantize=True needs float32/bfloat16 x, got "
+                         f"{x.dtype}")
+    elif not quantize and x.dtype != torch.int8:
+        raise ValueError(f"quantize=False needs raw int8 x, got {x.dtype}")
+    if w.ndim == 3:
+        if w.shape[0] != plan.k:
+            raise ValueError(f"weight slice has {w.shape[0]} channels, local "
+                             f"plan has {plan.k}")
+    elif w.ndim != 2:
+        raise ValueError(f"need w (K, N) or (C_l, K, N), got "
+                         f"{tuple(w.shape)}")
+    elif residue_in:
+        raise ValueError("a residue-in launch needs encoded weights")
     if w.dtype != torch.int8:
-        raise ValueError(f"weight residues must be int8, got {w.dtype}")
+        raise ValueError(f"weights must be int8, got {w.dtype}")
     if quantize and scale_row is None:
         raise ValueError("quantize=True needs the per-row quant scale_row")
     M, K = x.shape[-2:]
@@ -473,15 +610,17 @@ def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
                       device=x.device)
     if M == 0 or N == 0:
         return out
-    amode = (A_PLANES if residue_in
-             else A_BF16 if x.dtype == torch.bfloat16 else A_F32)
+    amode = _amode(x, residue_in)
     launch_tile(amode, EMIT_CRT_LIMBS, st, x=x.contiguous(),
                 w=w.contiguous(), out=out, M=M, K=K, N=N, C=plan.k,
                 srow=srow.contiguous() if srow is not None else None,
                 gate=gate.contiguous() if gate is not None else None,
                 name="rns_fused_crt_partial")
     rns_fused_crt_partial.launches += 1
+    if amode == A_SHARED:
+        rns_fused_crt_partial.raw_launches += 1
     return out
 
 
-rns_fused_crt_partial.launches = 0
+rns_fused_crt_partial.launches = 0         # every launch
+rns_fused_crt_partial.raw_launches = 0     # of which raw int8

@@ -129,12 +129,11 @@ def smem_footprint(tm: int, C: int, *, amode: int = rf.A_PLANES,
     32-row tile's static operand stages; 0 for an instance not compiled."""
     ap = C if amode == rf.A_PLANES else 1
     # the instances `launch_tile` (csrc/rns_common.cuh) compiles: live
-    # weights with float activations only, slices of 1-2 channels encoded
-    # and without the shared operand, the 32-row tile up to _MMA_MAXC
+    # weights with every A mode but the residue planes, the 32-row tile up
+    # to _MMA_MAXC
     if not 1 <= C <= (rf._MMA_MAXC if tm == rf.TM_MMA else _MAXC) \
             or tm not in (rf.TM, rf.TM_MMA) \
-            or (not encoded and amode not in (rf.A_F32, rf.A_BF16)) \
-            or (C <= 2 and (not encoded or amode == rf.A_SHARED)):
+            or (not encoded and amode == rf.A_PLANES):
         return 0
     if tm == rf.TM_MMA:
         return ap * rf.TM_MMA * _TK + C * rf._TN * _TK

@@ -326,17 +326,23 @@ def _scores(qg, kg, scale, softcap):
 
 
 def attention(q, k, v, qpos, kpos, *, window: int = FULL_WINDOW,
-              softcap=None, block_kv: int = 1024):
+              softcap=None, block_kv: int = 1024, kv_valid_from: int = 0):
     """GQA attention over absolute positions.
 
     q (B, Sq, Hq, D); k, v (B, Sk, Hk, D), query head h reads kv head
     h // (Hq/Hk).  qpos (Sq,) or (B, Sq), kpos (Sk,) or (B, Sk) int
     positions; a key at a negative position (−1 marks pad and unwritten
     ring slots) is invalid, and so is one ``window`` or more positions
-    behind the query.  ``softcap`` caps the scores.  Short keys (or one
-    query) take the direct branch; longer prefills the blocked online
-    softmax, in float32 like the reference's.
+    behind the query, and so is a key below position ``kv_valid_from``
+    (>= 0).  ``softcap`` caps the scores.  Short keys (or one query) take
+    the direct branch; longer prefills the blocked online softmax, in
+    float32 like the reference's.
     """
+    if kv_valid_from < 0:
+        raise ValueError(f"kv_valid_from must be >= 0 (negative positions "
+                         f"mark invalid keys), got {kv_valid_from}")
+    if kv_valid_from:
+        kpos = torch.where(kpos >= kv_valid_from, kpos, -1)
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk

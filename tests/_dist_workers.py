@@ -232,6 +232,52 @@ def dist_task(rank, n, mesh, operands, cases, params_path, wire_arch,
             "wire": wire_task(rank, n, mesh, wire_arch, params_path)}
 
 
+def int8_operands(n, seed=1, M=8, N=40):
+    """Raw int8 x (M, K), w (K, N) and the scale forms of the
+    `rns_int_matmul` cases of an n-rank group: K = 64 (C = 4) for 2 ranks,
+    K = 128 (C = 5) for 5, so that the channel layout splits C evenly; N
+    splits over 2 and 5."""
+    K = {2: 64, 5: 128}[n]
+    rng = np.random.default_rng(seed + n)
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    scales = {"none": None,
+              "n": rng.uniform(0.01, 1.0, (N,)).astype(np.float32),
+              "m1": rng.uniform(0.01, 1.0, (M, 1)).astype(np.float32),
+              "mn": rng.uniform(0.01, 1.0, (M, N)).astype(np.float32)}
+    return x, w, scales
+
+
+def int8_outputs(x, w, scales, mesh=None):
+    """{(layout, weight, scale): output} of `rns_int_matmul` on its fused
+    route, under a context of each layout on ``mesh`` (None: no context,
+    the unsharded launch), with the layout each launch resolved to."""
+    from repro_torch.core import rns_tensor as rt
+    from repro_torch.core.rns_linear import rns_int_matmul
+    from repro_torch.dist import context
+    from repro_torch.dist.rns_shard import rank_launch
+
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    weights = {"live": wt, "encoded": rt.RNSTensor.from_int8(wt)}
+    out = {}
+    for lay in LAYOUTS:
+        ctx = None if mesh is None else context.DistContext(mesh=mesh,
+                                                            layout=lay)
+        with context.use(ctx):
+            for wname, wq in weights.items():
+                for sname, s in scales.items():
+                    sc = None if s is None else torch.from_numpy(s)
+                    out[(lay, wname, sname)] = rns_int_matmul(xt, wq,
+                                                              scale=sc)
+        if ctx is not None:
+            out[(lay, "resolved")] = rank_launch(xt, wt, ctx=ctx).layout
+    return out
+
+
+def int8_task(rank, n, mesh, x, w, scales):
+    return int8_outputs(x, w, scales, mesh)
+
+
 def compression_task(rank, n, mesh, grads_path):
     """`compressed_mean_all_reduce` of this rank's gradients (entry
     ``rank`` of the saved per-rank lists)."""

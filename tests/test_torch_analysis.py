@@ -196,8 +196,11 @@ def test_admissibility_flags_bad_launches_and_wide_modulus():
     assert "compiled for C <= 7" in _messages(rep)
     rep = tan.check_launch(512, 200, 70, 5, (rf.TM_MMA, 1))
     assert "multiples of 4" in _messages(rep)
-    rep = tan.check_launch(8, 576, 576, 1, (rf.TM, 1), dtype="int8")
+    # the one form compiled without a live-weight instance: residue planes
+    rep = tan.check_launch(8, 576, 576, 1, (rf.TM, 1), x_channels=True,
+                           encoded=False)
     assert "no 16-row instance" in _messages(rep)
+    assert tan.check_launch(8, 576, 576, 1, (rf.TM, 1), dtype="int8").ok
     assert tan.check_launch(8, 576, 1536, 5, (rf.TM, 6),
                             dtype="bfloat16").ok
     assert tan.check_launch(512, 1536, 576, 7, (rf.TM_MMA, 1),

@@ -175,6 +175,9 @@ def test_crt_finish_matches_reference():
 
 
 def test_crt_partial_rejects():
+    """The checks of the slice launch; its raw int8 x and live (K, N)
+    weight forms, once refused, are held bit for bit against the JAX
+    entry."""
     basis = basis_for_int8_matmul(64)
     plan = local_plan(ChannelPlan.for_matmul(basis.moduli, 64, signed=True),
                       2)
@@ -183,11 +186,27 @@ def test_crt_partial_rejects():
                   crt_v=v[:2], crt_mc=mc[:2])
     w = torch.zeros(2, 64, 8, dtype=torch.int8)
     x = torch.zeros(4, 64)
-    with pytest.raises(NotImplementedError, match="raw int8"):
-        rns_fused_crt_partial(x.to(torch.int8), w, **tables)
-    with pytest.raises(NotImplementedError, match="live"):
-        rns_fused_crt_partial(x, w[0], quantize=True,
-                              scale_row=torch.ones(4, 1), **tables)
+    rng = np.random.default_rng(11)
+    xi = rng.integers(-128, 128, (4, 64)).astype(np.int8)
+    wi = rng.integers(-128, 128, (64, 8)).astype(np.int8)
+    xf = rng.standard_normal((4, 64)).astype(np.float32)
+    srow = np.full((4, 1), 0.02, np.float32)
+    jplan = jshard.local_plan(JPlan.for_matmul(basis.moduli, 64,
+                                               signed=True), 2)
+    jtables = dict(plan=jplan, conv=JConv.build(jplan.moduli),
+                   mods=plan.mods, sched=plan.sched, crt_v=v[:2],
+                   crt_mc=mc[:2])
+    w_res = np.stack([np.mod(wi.astype(np.int64), m)
+                      for m in basis.moduli[:2]]).astype(np.int8)
+    for xa, ws, kw in ((xi, w_res, {}), (xi, wi, {}),
+                       (xf, wi, dict(quantize=True, scale_row=srow))):
+        got = rns_fused_crt_partial(
+            _t(xa), _t(ws), **{**tables, **kw,
+                               **({"scale_row": _t(srow)} if kw else {})})
+        want = j_crt(jnp.asarray(xa), jnp.asarray(ws), **jtables, **{
+            k: jnp.asarray(a) if k == "scale_row" else a
+            for k, a in kw.items()})
+        assert np.array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="scale_row"):
         rns_fused_crt_partial(x, w, quantize=True, **tables)
     with pytest.raises(ValueError, match="channels"):

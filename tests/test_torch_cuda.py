@@ -101,6 +101,167 @@ def test_fused_matches_plain(dev, M, K, N, encoded, dtype):
     assert torch.equal(got, want)
 
 
+INT8_SCALES = ("none", "scalar", "n", "m1", "mn")
+
+
+def _int8_scale(kind, M, N, g, dev):
+    def u(*shape):
+        return torch.rand(shape, generator=g, device=dev) + 0.01
+    return {"none": None, "scalar": u(), "n": u(N), "m1": u(M, 1),
+            "mn": u(M, N)}[kind]
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 1536, 576),
+                                   (1, 576, 192), (13, 200, 70),
+                                   (512, 576, 192)] + TILE_MMA)
+@pytest.mark.parametrize("encoded", [True, False])
+@pytest.mark.parametrize("scale", INT8_SCALES)
+def test_fused_raw_int8_matches_plain(dev, M, K, N, encoded, scale):
+    """The raw-int8 prologue (A_SHARED with the float epilogue), unscaled
+    or with each lowered scale form: bit-equal to the plain version and to
+    the float64 product of the int8 operands times the scale."""
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    x[0, :] = -128
+    w[:, 0] = -128
+    s = _int8_scale(scale, M, N, g, dev)
+    basis = basis_for_int8_matmul(K)
+    arg = trt.RNSTensor.from_int8(w) if encoded else w
+    before = rns_fused_matmul.raw_launches
+    with _rows(M, K, N):
+        got = rns_fused_matmul(x, arg, basis, scale=s)
+    want = ref.rns_fused_matmul_ref(x, arg.residues if encoded else w, basis,
+                                    scale=s if scale == "mn" else None,
+                                    scale_row=s if scale == "m1" else None,
+                                    scale_col=None if scale in (
+                                        "none", "m1", "mn") else
+                                    s.reshape(1, -1).expand(1, N))
+    exact = (x.double() @ w.double()).float()
+    torch.cuda.synchronize()
+    assert rns_fused_matmul.raw_launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, exact if s is None else exact * s)
+
+
+@pytest.mark.parametrize("form", ["bf16", "f32", "residue_in"])
+@pytest.mark.parametrize("M", [8, 512])
+def test_fused_without_column_scale_matches_plain(dev, form, M):
+    """A quantize or residue-in launch given no column scale: only the raw
+    int8 instances treat a factor as optional, so these multiply by a
+    column factor of ones, which is exact: bit-equal to the plain version,
+    which leaves the factor out."""
+    K, N = 576, 192
+    g = torch.Generator(device=dev).manual_seed(M)
+    basis = basis_for_int8_matmul(K)
+    w = trt.encode(torch.randn(K, N, generator=g, device=dev) / K ** 0.5,
+                   basis)
+    x = torch.randn(M, K, generator=g, device=dev)
+    if form == "residue_in":
+        xa = trt.encode_activation(x, basis)
+        got = rns_fused_matmul(xa, w)
+        want = ref.rns_fused_matmul_ref(xa.residues, w.residues, basis,
+                                        scale_row=xa.scale)
+    else:
+        xq = x.to(torch.bfloat16 if form == "bf16" else torch.float32)
+        sx = quant_scale(xq)
+        got = rns_fused_matmul(xq, w, scale_row=sx)
+        want = ref.rns_fused_matmul_ref(xq, w.residues, basis, scale_row=sx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("encoded", [True, False])
+@pytest.mark.parametrize("M,K,N", [(8, 576, 1536), (512, 1536, 576),
+                                   (13, 64, 70)] + TILE_MMA[:2])
+def test_crt_raw_int8_and_live_match_plain(dev, M, K, N, encoded):
+    """The raw-int8 slice launch (A_SHARED, CRT limbs) with encoded or
+    live (K, N) weights: every slice bit-equal to its plain version, the
+    summed planes through crt_finish bit-equal to the raw-int8 fused
+    launch, for every n that divides C; the live quantize form too."""
+    g = torch.Generator(device=dev).manual_seed(M * K + N)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    basis = basis_for_int8_matmul(K)
+    arg = trt.RNSTensor.from_int8(w) if encoded else w
+    full = rns_fused_matmul(x, arg, basis)
+    C = len(basis.moduli)
+    for n in [n for n in range(1, C + 1) if C % n == 0]:
+        before = rns_fused_crt_partial.launches
+        with _rows(M, K, N):
+            parts = channel_partials(x, arg, n, basis=basis)
+        torch.cuda.synchronize()
+        assert rns_fused_crt_partial.launches == before + n
+        for part, want in zip(parts, channel_partials(x, arg, n, basis=basis,
+                                                      plain=True)):
+            assert torch.equal(part, want)
+        with _rows(M, K, N):
+            got = channel_sliced_matmul(x, arg, n, basis=basis)
+        assert torch.equal(got, full)
+    if not encoded:
+        xf = torch.randn(M, K, generator=g, device=dev)
+        sx = quant_scale(xf)
+        for n in (1, C):
+            got = channel_sliced_matmul(xf, w, n, basis=basis, scale_row=sx,
+                                        scale_col=torch.ones(1, N,
+                                                             device=dev))
+            assert torch.equal(got, rns_fused_matmul(
+                xf, w, basis, scale_row=sx,
+                scale_col=torch.ones(1, N, device=dev)))
+
+
+@pytest.mark.parametrize("broadcast", [True, False])
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+@pytest.mark.parametrize("encoded", [True, False])
+def test_int_matmul_routes_on_the_card(dev, broadcast, backend, encoded):
+    """`rns_int_matmul`'s three routes launch their kernels (fused: one
+    raw-int8 `rns_fused_matmul`; staged: forward + matmul + reverse;
+    per-channel: two forwards, one when encoded, + matmul + reverse) and
+    give the exact product times the scale."""
+    from repro_torch.core.rns_linear import rns_int_matmul
+
+    M, K, N = 8, 576, 192
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(M, N, generator=g, device=dev)
+    wq = trt.RNSTensor.from_int8(w) if encoded else w
+    fns = (rns_fused_matmul, rns_forward, rns_matmul, rns_reverse)
+    before = [f.launches for f in fns]
+    got = rns_int_matmul(x, wq, broadcast=broadcast, backend=backend,
+                         scale=s)
+    torch.cuda.synchronize()
+    counts = [f.launches - b for f, b in zip(fns, before)]
+    if broadcast and backend == "auto":
+        assert counts == [1, 0, 0, 0]
+    elif broadcast:
+        assert counts == [0, 0 if encoded else 1, 1, 1]
+    else:
+        assert counts == [0, 1 if encoded else 2, 1, 1]
+    assert torch.equal(got, (x.double() @ w.double()).float() * s)
+
+
+def test_wide_basis_refuses_a_kernel_launch(dev):
+    """The basis with 1024 (``int8_only=False``) is for the plain path: on
+    the card the fused and the staged launches raise."""
+    from repro_torch.core.rns import basis_for_accumulation
+    from repro_torch.core.rns_linear import rns_int_matmul
+
+    wide = basis_for_accumulation(64 * 128 * 128, int8_only=False)
+    x = torch.zeros((4, 64), dtype=torch.int8, device=dev)
+    w = torch.zeros((64, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        rns_fused_matmul(x, w, wide)
+    with pytest.raises(ValueError, match="int8"):
+        rns_int_matmul(x, w, wide, broadcast=False, backend="pallas")
+
+
 def test_forward_matches_plain(dev):
     x8 = torch.arange(-128, 128, dtype=torch.int8, device=dev).repeat(999)
     x32 = torch.randint(-2**31, 2**31 - 1, (77777,), dtype=torch.int32,
@@ -588,13 +749,14 @@ FLASH_CASES = [
     (2, 2, 48, 130, 64, True, 40, None, None, True),
     (3, 9, 257, 257, 64, True, None, None, (0, 17, 256), False),
 ]
-# Every route at every head size: Sq 1, 4, 16 take the split route (its
-# 1-, 4- and 16-row instances), Sq 17 the mma (bf16) or fma (float32)
-# route; lane 1's pad leaves the last tile alone, so most cluster ranks
-# have no key, and lane 2 is all padding.
+# Every route at every head size, compiled (16-256) or padded to the next
+# compiled one (8, 48): Sq 1, 4, 16 take the split route (its 1-, 4- and
+# 16-row instances), Sq 17 the mma (bf16) or fma (float32) route; lane 1's
+# pad leaves the last tile alone, so most cluster ranks have no key, and
+# lane 2 is all padding.
 FLASH_CASES += [(3, 2, Sq, Sk, D, True, None, None, (0, Sk - 10, Sk), False)
-                for D in (16, 32, 64, 128) for Sq in (1, 4, 16, 17)
-                for Sk in (128, 2048, 4096)]
+                for D in (8, 16, 32, 48, 64, 80, 96, 128, 256)
+                for Sq in (1, 4, 16, 17) for Sk in (128, 2048, 4096)]
 FLASH_CASES += [
     # decode with a window (and a softcap); the pad covers whole splits
     (2, 3, 1, 2048, 64, True, 300, None, (0, 1000), False),
@@ -658,8 +820,40 @@ def test_flash_matches_plain(dev, case, dtype):
     assert (got[dead[:, None].expand(-1, H, -1)] == 0).all()
 
 
+# the zoo's head sizes on their models' masks: gemma2-2b (256, window
+# 4096, softcap 50), h2o-danube (80, window 4096), phi-3-vision (96), the
+# yi-34b smoke twin (8, padded to 16)
+FLASH_ZOO_CASES = [
+    (2, 4, 1, 5000, 256, True, 4096, 50.0, (0, 900), False),
+    (2, 4, 300, 300, 256, True, 128, 50.0, (0, 37), False),
+    (2, 4, 12, 700, 256, True, None, None, (0, 5), False),
+    (2, 4, 1, 5000, 80, True, 4096, None, (0, 900), False),
+    (2, 4, 300, 300, 80, True, 128, None, (0, 37), False),
+    (2, 4, 7, 500, 96, True, None, None, None, True),
+    (2, 4, 300, 300, 96, True, None, None, (0, 37), False),
+    (2, 4, 1, 300, 8, True, None, None, (0, 50), False),
+    (2, 4, 300, 300, 8, True, None, None, (0, 37), False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_ZOO_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_zoo_head_sizes(dev, case, dtype):
+    test_flash_matches_plain(dev, case, dtype)
+
+
+def test_flash_refuses_only_above_256(dev):
+    q = torch.zeros(1, 1, 4, 264, device=dev)
+    with pytest.raises(ValueError, match="256"):
+        flash_attention(q, q, q)
+    for D in (1, 8, 200, 256):
+        q = torch.randn(1, 2, 4, D, device=dev)
+        _flash_close(flash_attention(q, q, q), ref.attention_ref(q, q, q),
+                     torch.float32)
+
+
 @pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 5, 6)]
-                         + [FLASH_CASES[-3]])
+                         + [FLASH_CASES[-3]] + FLASH_ZOO_CASES[1::3])
 def test_flash_fma_route_pinned_bf16(dev, case):
     """bf16 prefill pinned to the CUDA-core route (the "before" that
     chip_smoke.py times in turns with the mma route) stays within the

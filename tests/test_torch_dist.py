@@ -149,6 +149,38 @@ def test_sharded_launch_bit_equal(work, n, layout, form):
         assert _bytes(got[(layout, form)]) == port, rank
 
 
+@pytest.fixture(scope="module")
+def int8_work(tmp_path_factory):
+    """`rns_int_matmul`'s fused route (raw int8 x) on a 2-rank and a
+    5-rank group: {n: (operands, [each rank's outputs])}."""
+    tmp = tmp_path_factory.mktemp("dist_int8")
+    out = {}
+    for n in (2, 5):
+        ops = W.int8_operands(n)
+        out[n] = (ops, W.spawn_group(W.int8_task, n, tmp / f"group{n}",
+                                     *ops))
+    return out
+
+
+@pytest.mark.parametrize("n", (2, 5))
+def test_sharded_int_matmul_bit_equal(int8_work, n):
+    """Raw int8 with each scale form (none, (N,), (M, 1), (M, N)), live and
+    encoded weights, in both layouts (each launch resolved to the layout
+    asked for): every rank bit-equal to the unsharded launch, which is the
+    int64 product times the scale."""
+    (x, w, scales), ranks = int8_work[n]
+    want = W.int8_outputs(x, w, scales)
+    exact = (x.astype(np.int64) @ w.astype(np.int64)).astype(np.float32)
+    for (lay, wname, sname), got in want.items():
+        s = scales[sname]
+        assert _bytes(got) == (exact if s is None else exact * s).tobytes()
+    for rank, outs in enumerate(ranks):
+        for lay in W.LAYOUTS:
+            assert outs[(lay, "resolved")] == lay, (rank, lay)
+        for key, got in want.items():
+            assert _bytes(outs[key]) == _bytes(got), (rank, key)
+
+
 @pytest.mark.parametrize("n", GROUPS)
 @pytest.mark.parametrize("arch,layout", ENGINE_CASES)
 def test_sharded_engine_bit_equal(work, n, arch, layout):

@@ -146,3 +146,44 @@ def test_rejects():
     before = flash_attention.launches
     flash_attention(q, q, q)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("D", [8, 80])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_padding_arithmetic(D, dtype):
+    """What the CUDA wrapper does for a head size it does not compile: q,
+    k and v padded with zero columns to `padded_head(D)`, the scores scaled
+    by 1/√D of the true D (`attention_ref(scale=)`), the extra output
+    columns dropped.  Equal to the reference's `attention_ref` at D, within
+    its tolerance, and the dropped columns exactly 0."""
+    from repro_torch.kernels.flash_attention import HEAD_SIZES, padded_head
+
+    Dk = padded_head(D)
+    assert Dk == {8: 16, 80: 80}[D] and Dk in HEAD_SIZES
+    (jq, jk, jv), (q, k, v) = _qkv(2, 3, 24, 40, D, dtype, D)
+    pad = torch.tensor([0, 9], dtype=torch.int32)
+    want = jref.attention_ref(jq, jk, jv, window=16, softcap=30.0,
+                              pad=jnp.asarray(pad))
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 16)) for t in (q, k, v))
+    full = ref.attention_ref(qp, kp, vp, window=16, softcap=30.0, pad=pad,
+                             scale=1.0 / np.sqrt(D))
+    assert torch.all(full[..., D:] == 0)
+    _close(full[..., :D], want, dtype)
+    _close(flash_attention(q, k, v, window=16, softcap=30.0, pad=pad), want,
+           dtype)
+    # the reference's own scale= argument, at the padded width
+    _close(full[..., :D], jref.attention_ref(
+        *(jnp.pad(a, ((0, 0),) * 3 + ((0, 16),)) for a in (jq, jk, jv)),
+        window=16, softcap=30.0, scale=1.0 / np.sqrt(D),
+        pad=jnp.asarray(pad))[..., :D], dtype)
+
+
+def test_head_sizes():
+    from repro_torch.kernels.flash_attention import HEAD_SIZES, padded_head
+
+    assert [padded_head(d) for d in (1, 8, 16, 17, 48, 64, 72, 80, 90, 96,
+                                     100, 128, 200, 256)] == \
+        [16, 16, 16, 32, 64, 64, 80, 80, 96, 96, 128, 128, 256, 256]
+    assert HEAD_SIZES[-1] == 256
+    with pytest.raises(ValueError, match="256"):
+        padded_head(257)

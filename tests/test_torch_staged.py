@@ -207,9 +207,14 @@ def test_staged_ops_validate_operands():
         rns_modmul(b, b[:, :, :4], mods)
     with pytest.raises(ValueError, match="channels"):
         rns_reverse(b[:2], TConv.for_basis(trns.basis_for_int8_matmul(64)))
-    with pytest.raises(NotImplementedError, match="per-channel"):
-        tlin.rns_dense(torch.zeros(2, 64), torch.zeros(64, 8), "pallas",
-                       broadcast=False)
+    # the per-channel datapath, once refused, runs: bit-equal to the
+    # reference's on its jnp backend
+    x, w = _dense_operands(2, 64, 8, 1)
+    got = tlin.rns_dense(torch.from_numpy(x), torch.from_numpy(w), "pallas",
+                         broadcast=False)
+    want = jax.jit(lambda a, b: jlin.rns_dense(a, b, "jnp",
+                                               broadcast=False))(x, w)
+    assert got.numpy().tobytes() == np.asarray(want).tobytes()
     with pytest.raises(ValueError, match="backend"):
         tlin.rns_dense(torch.zeros(2, 64), torch.zeros(64, 8), "jnp")
 
