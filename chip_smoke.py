@@ -148,8 +148,14 @@ Phases, each of which must pass:
      with the script, beside the kernel build and the device-timed kernel
      rows, and ended before the serve phase, whose times are the host's)
      over every registered config ×
-     `SHAPES` (a `dryrun:` count line), and the train step's meta memory
-     estimate within 25% of its `max_memory_allocated` plus arguments.
+     `SHAPES` (a `dryrun:` count line), the mesh dry run beside it
+     (`launch.dryrun --both-meshes` for `rns-smollm-135m-pallas` and
+     `-fused`: DTensor programs on meta over a fake 256- and 512-rank
+     group; a `dryrun-mesh:` line with the counts, 12 ok and 4 skip
+     required, the parameter counts and MODEL_FLOPS held equal to
+     `experiments/dryrun.jsonl`, and the collective bytes beside GSPMD's),
+     and the train step's meta memory estimate within 25% of its
+     `max_memory_allocated` plus arguments.
   14. dist   — sharded serving (`repro_torch.dist`) on `torch.distributed`:
      ranks are spawned processes on the one card in a ``gloo`` group over
      a `FileStore`, each joined with its own deadline; any rank's failure
@@ -181,19 +187,21 @@ Phases, each of which must pass:
      launch.
 Phase 2 also holds `flash_attention` (|err| <= 2^-7*|want| + 1e-3 in
 bf16, one output ulp; 2e-5 in float32; fully masked rows exactly 0) on
-the route each shape takes (`split`, `mma` or `fma`, named on its row;
-bf16 prefill also pinned to `fma`, held alike and timed in turns with
-`mma`; a `flash:` line sums up decode, prefill and `fold`),
+the route each shape takes (`split`, `mma`, `fma` or `wide`, named on
+its row; bf16 prefill also pinned to `fma`, held alike and timed in turns
+with `mma`; a `flash:` line sums up decode, prefill and `fold`),
 `fold` and `rns_fused_crt_partial` (bit for bit; every crt shape composed
 for n = 1 and n = C) against their plain versions; the flash rows include
-the zoo's other head sizes (256, 80, 96, and 8 padded to 16; a
-`flash heads:` line).  Lines: per-shape
-kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
+the zoo's other head sizes (256, 80, 96, and 8 padded to 16) and D = 512
+on the wide route, whose rows name the backend
+`scaled_dot_product_attention` picked (a `flash heads:` line).  Lines:
+per-shape kernel rows, the `edge:` and `convert:` lines, a `kernels:` summary, the
 `decode:` and `prefill:` sums, the `tune:` lines, a `verify:` line, one
 `serve:` line per model, one `sched:` line per scheduled model, a
 `chain:` line, an `entry:` line, the `int8:` lines, the `twit:` lines, one `check:`
 line per smoke config, the `families:` lines, the `train:` lines, the
-`residency:`, `costs:`, `roofline:` and `dryrun:` lines, the `dist:`
+`residency:`, `costs:`, `roofline:`, `dryrun:` and `dryrun-mesh:` lines,
+the `dist:`
 lines, the nvidia-smi line, the kernels JSON line and, last, the device JSON line.  ``--record
 PATH`` also writes every row, the serve numbers and the traces as JSON.
 Exits non-zero without a CUDA device or without the port's sources beside
@@ -219,6 +227,8 @@ COLD_L2_BYTES = 120 << 20          # > 2x the 50 MB L2: weights read cold
 # the raw-int8 tile instances: 16-row by channel count, then 32-row
 RAW_TILE_SOURCES = ("rns_tile_raw.cu", "rns_tile_raw_wide.cu",
                     "rns_tile_mma_raw.cu")
+# rounds of the serve phase's decode timing, host and scan in turns
+DECODE_ROUNDS = 2
 ARCH = "rns-smollm-135m-fused"
 RESIDENT = "rns-smollm-135m-resident"
 STAGED = "rns-smollm-135m-pallas"
@@ -468,7 +478,7 @@ def _flash_instances(kernels):
     import re
 
     names = {"split": "flash_split_kernel", "mma": "flash_mma_kernel",
-             "fma": "flash_fma_kernel"}
+             "fma": "flash_fma_kernel", "wide": "flash_wide_kernel"}
     out = {}
     for route, fn in names.items():
         out[route] = []
@@ -482,7 +492,9 @@ def _flash_instances(kernels):
             regs = int(k["ptxas"].split()[1]) if "ptxas" in k else -1
             spill = re.search(r"(\d+) bytes spill stores",
                               k.get("spill", ""))
-            out[route].append(("D" + "/".join(args), regs,
+            label = "/".join(args)
+            out[route].append((("D" if args[0].isdigit() else "") + label,
+                               regs,
                                int(spill.group(1)) if spill else -1))
     return out
 
@@ -649,6 +661,27 @@ def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
     print(f"  {kernel} {label} {verdict} ms={ms:.4f} {htext}call={call:.4f} "
           f"plain={plain_ms:.3f} library={libs} bound={b:.4f}")
     return ok
+
+
+def _sdpa_backend(call) -> str:
+    """The backend `scaled_dot_product_attention` picked for ``call``, by
+    the names of the kernels one profiled call ran: flash, efficient
+    (cutlass fmha), cudnn, or math (plain matmuls and softmax)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = " ".join(e.key.lower() for e in prof.key_averages())
+    except RuntimeError as e:             # the name only; the row stands
+        return f"not measured (profiler: {e})"
+    for key, name in (("flash", "flash"), ("fmha", "efficient"),
+                      ("efficient", "efficient"), ("cudnn", "cudnn")):
+        if key in names:
+            return name
+    return "math" if names else "unknown (no kernels profiled)"
 
 
 def _within(got, want, tol):
@@ -1026,6 +1059,10 @@ FLASH_HEADS = [
     ("decode-2048 D96", 8, 32, 1, 2048, 96, True, None, None, "pad"),
     ("prefill-pad D8", 8, 8, 2048, 2048, 8, True, None, None, "pad"),
     ("decode-2048 D8", 8, 8, 1, 2048, 8, True, None, None, "pad"),
+    # above 256: the wide route (no config has such a head; the
+    # reference's kernel takes any D)
+    ("prefill-pad D512", 8, 8, 2048, 2048, 512, True, None, None, "pad"),
+    ("decode-2048 D512", 8, 8, 1, 2048, 512, True, None, None, "pad"),
 ]
 FLASH_CASES += FLASH_HEADS
 
@@ -1087,7 +1124,7 @@ def phase_entries(layer_shapes, chain, lanes, dev):
     launches = read_launches()
     routes = dict(flash_attention.route_launches)
     # each call went through the route its shape names
-    ok = routes == {r: sum(flash_route(q.shape[2], q.dtype) == r
+    ok = routes == {r: sum(flash_route(q.shape[2], q.dtype, q.shape[3]) == r
                            for q, _, _, _ in flash)
                     for r in routes}
 
@@ -1405,7 +1442,7 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
             dead = (~mask.any(-1))[:, None].expand(-1, H, -1)
             zeros = bool((got[dead] == 0).all())
             tname = str(dtype).split(".")[1]
-            route = flash_route(Sq, dtype)
+            route = flash_route(Sq, dtype, D)
             want = ref.attention_ref(q, k, v, **kw)
             # bytes the function must move: q read and the output written
             # once, and the K and V rows of the keys some row of the lane
@@ -1436,6 +1473,11 @@ def phase_kernels_slice3(layer_shapes, chain, decode_m, prefill_m, dev):
                       else peaks().F32_FLOPS),
                 tol=FLASH_TOL[tname], leaf=label, dtype=tname, route=route,
                 B=B, H=H, Sq=Sq, Sk=Sk, D=D, dead_rows_zero=zeros)
+            if route == "wide" and lib is not None:
+                rows[-1]["sdpa_backend"] = _sdpa_backend(
+                    lambda lib=lib: lib[0](0))
+                print(f"    sdpa picked the {rows[-1]['sdpa_backend']} "
+                      "backend")
             if route == "mma":
                 with _pin_route("fma"):
                     before = flash_attention(q, k, v, **kw)
@@ -1807,8 +1849,9 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
                                      "from its batched tokens")
 
     # timing: prefill = generate(1 token), at the launcher's tile heights
-    # and with every tile launch pinned to 16 rows, in turns; decode = the
-    # rest, per step, host and scan in turns
+    # and with every tile launch pinned to 16 rows, in turns (4 rounds);
+    # decode = the rest, per step, host and scan in turns (2 rounds, A B
+    # B A: a host generate of the staged model takes ~10 s)
     def once(n, engine="host"):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1824,7 +1867,7 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
                 _pinned(lambda: once(1)[0], pin) if pin else once(1)[0])
     pre_s, pre16_s = (statistics.median(pre[h]) for h in (TM_MMA, TM))
     full = {"host": [], "scan": []}
-    for r in range(4):
+    for r in range(DECODE_ROUNDS):
         for engine in (("host", "scan") if r % 2 == 0 else ("scan", "host")):
             t, res = once(new_tokens, engine)
             if res != out:
@@ -3387,33 +3430,47 @@ def _analytic(cfg, shape):
     return analytic_cost(cfg, shape, n_pods=1, data=1, model=1)
 
 
+MESH_ARCHS = ("rns-smollm-135m-pallas", "rns-smollm-135m-fused")
+MESH_JOBS = 2                          # worker processes of the mesh cells
+
+
 def _dryrun_start():
-    """Start the dry run over every registered config × SHAPES in worker
-    processes, in a session of its own; its output goes to
-    ``build/chip_smoke/dryrun.jsonl`` (+ ".log").  Its meta ops cost host
-    time only: it runs beside the kernel build and the device-timed kernel
-    rows, `_dryrun_wait` ends it before the first host-timed phase, and an
-    exit of this script stops it (`_dryrun_stop`)."""
+    """Start the dry runs in worker processes, each in a session of its
+    own: every registered config × SHAPES on one card (``build/chip_smoke/
+    dryrun.jsonl``), and the reference's two archs (`MESH_ARCHS`) × SHAPES
+    on the 16×16 and 2×16×16 meshes as DTensor programs over a fake
+    process group (``dryrun_mesh.jsonl``; each + ".log").  Their meta ops
+    cost host time only: they run beside the kernel build and the
+    device-timed kernel rows, `_dryrun_wait` ends them before the first
+    host-timed phase, and an exit of this script stops them
+    (`_dryrun_stop`)."""
     import atexit
 
-    path = os.path.join(ROOT, "build", "chip_smoke", "dryrun.jsonl")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    if os.path.exists(path):
-        os.remove(path)
-    jobs = max(1, min(8, (os.cpu_count() or 2) - 2))
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    jobs = max(1, min(8, (os.cpu_count() or 2) - 2) - MESH_JOBS)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    with open(path + ".log", "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--jobs", str(jobs), "--out", path], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
-    atexit.register(_dryrun_stop, proc)
-    return {"proc": proc, "jobs": jobs, "path": path,
-            "t0": time.perf_counter()}
+    dry = {"t0": time.perf_counter()}
+    for key, args, n in (
+            ("one", ["--all"], jobs),
+            ("mesh", ["--arch", ",".join(MESH_ARCHS), "--both-meshes"],
+             MESH_JOBS)):
+        path = os.path.join(out, "dryrun.jsonl" if key == "one"
+                            else "dryrun_mesh.jsonl")
+        if os.path.exists(path):
+            os.remove(path)
+        with open(path + ".log", "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--jobs", str(n), "--out", path], env=env, stdout=log,
+                stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
+        atexit.register(_dryrun_stop, proc)
+        dry[key] = {"proc": proc, "jobs": n, "path": path}
+    return dry
 
 
 def _dryrun_stop(proc):
-    """Kill the dry run and its workers (its whole session) if it runs."""
+    """Kill a dry run and its workers (its whole session) if it runs."""
     import signal
 
     if proc.poll() is None:
@@ -3422,13 +3479,18 @@ def _dryrun_stop(proc):
 
 
 def _dryrun_wait(dry):
-    """Wait for the dry run (at most 900 s; then it is killed): its exit
-    code and wall seconds go into ``dry``."""
-    try:
-        dry["rc"] = dry["proc"].wait(timeout=900)
-    finally:
-        _dryrun_stop(dry["proc"])
-    dry["seconds"] = time.perf_counter() - dry["t0"]
+    """Wait for both dry runs (at most 900 s from their start; then they
+    are killed): each one's exit code and wall seconds go into ``dry``."""
+    for key in ("one", "mesh"):
+        run = dry[key]
+        left = max(1.0, 900 - (time.perf_counter() - dry["t0"]))
+        try:
+            run["rc"] = run["proc"].wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            run["rc"] = "killed after 900 s"
+        finally:
+            _dryrun_stop(run["proc"])
+        run["seconds"] = time.perf_counter() - dry["t0"]
 
 
 def _served_residency(arch, dev, lanes, smi):
@@ -3594,7 +3656,7 @@ def phase_analysis(dev, smi, serves, train, lanes, dry):
     from repro_torch.configs.base import ShapeConfig, get_config
 
     t0 = time.perf_counter()
-    path, jobs, rc = dry["path"], dry["jobs"], dry["rc"]
+    path, jobs, rc = dry["one"]["path"], dry["one"]["jobs"], dry["one"]["rc"]
     served = {arch: _served_residency(arch, dev, lanes, smi)
               for arch in (ARCH, RESIDENT, STAGED)}
     tr = _train_residency(dev)
@@ -3658,16 +3720,69 @@ def phase_analysis(dev, smi, serves, train, lanes, dry):
           f"on meta, {jobs} worker processes): ok {counts['ok']}, skip "
           f"{counts['skip']}, error {counts['error']}, fits one 80 GB card "
           f"{counts['fits']}" + (f" | errors: {errors}" if errors else "")
-          + f" | {dry['seconds']:.1f} s from its start (beside the build "
+          + f" | {dry['one']['seconds']:.1f} s from its start (beside the build "
           f"and the kernel rows), the phase's card work {card_s:.1f} s")
     if len(recs) != cells or counts["ok"] + counts["skip"] + \
             counts["error"] != cells:
         raise AssertionError(f"the dry run wrote {len(recs)} records for "
                              f"{cells} cells")
+    mesh = _dryrun_mesh(dry["mesh"])
     torch.cuda.synchronize()
     return {"served": served, "train": tr, "roofline": roof,
-            "dryrun": counts, "dryrun_errors": errors,
+            "dryrun": counts, "dryrun_errors": errors, "dryrun_mesh": mesh,
             "seconds": time.perf_counter() - t0}
+
+
+def _dryrun_mesh(run):
+    """The `dryrun-mesh:` line: the mesh cells' counts and seconds, each
+    ``ok`` cell's parameter counts and MODEL_FLOPS held equal to the
+    reference's committed cells (`experiments/dryrun.jsonl`, 16×16) and
+    its collective bytes beside GSPMD's; fails unless every cell is ``ok``
+    or ``skip`` as the reference's are (12 ok, 4 skip)."""
+    from repro_torch.configs.base import SHAPES
+
+    if run["rc"] != 0:
+        with open(run["path"] + ".log") as fh:
+            raise AssertionError(f"the mesh dry run exited {run['rc']}: "
+                                 f"{fh.read()[-2000:]}")
+    with open(run["path"]) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    with open(os.path.join(ROOT, "experiments", "dryrun.jsonl")) as fh:
+        gspmd = {(r["arch"], r["shape"]): r for r in map(json.loads, fh)
+                 if r.get("mesh") == "16x16"}
+    counts = {k: sum(r["status"] == k for r in recs)
+              for k in ("ok", "skip", "error")}
+    errors = [f"{r['arch']} x {r['shape']} x {r['mesh']}: {r.get('op')}"
+              for r in recs if r["status"] == "error"]
+    same, wire = True, []
+    for r in recs:
+        ref_rec = gspmd.get((r["arch"], r["shape"]))
+        if r["status"] != "ok" or ref_rec is None:
+            continue
+        same &= all(r[k] == ref_rec[k] for k in ("n_params", "n_active",
+                                                  "model_flops"))
+        if r["mesh"] == "16x16":
+            ours = sum(v for k, v in r["collectives"].items()
+                       if not k.endswith("_output_bytes"))
+            theirs = sum(v for k, v in ref_rec["collectives"].items()
+                         if not k.endswith("_output_bytes"))
+            wire.append(f"{r['arch'].rsplit('-', 1)[-1]} {r['shape']} "
+                        f"{ours / 1e9:.4g} GB vs GSPMD {theirs / 1e9:.4g}")
+    cells = len(MESH_ARCHS) * len(SHAPES) * 2
+    print(f"dryrun-mesh: {len(recs)} cells ({', '.join(MESH_ARCHS)} x "
+          f"SHAPES x 16x16, 2x16x16; DTensor on meta over a fake process "
+          f"group, {run['jobs']} worker processes): ok {counts['ok']}, skip "
+          f"{counts['skip']}, error {counts['error']}"
+          + (f" | errors: {errors}" if errors else "")
+          + f" | n_params, n_active, model_flops == experiments/dryrun.jsonl:"
+          f" {same} | wire per device at 16x16: " + "; ".join(wire)
+          + f" | {run['seconds']:.1f} s from its start, cells "
+          f"{sum(r.get('seconds', 0.0) for r in recs):.1f} s in all")
+    if (len(recs), counts["ok"], counts["skip"]) != (cells, 12, 4) \
+            or not same:
+        raise AssertionError(f"mesh dry run: {counts}, {len(recs)} records "
+                             f"for {cells} cells, reference counts {same}")
+    return dict(counts, seconds=run["seconds"], errors=errors)
 
 # ------------------------------------------------------------- phase dist --
 SHARDED = "rns-smollm-135m-sharded"
@@ -4441,7 +4556,8 @@ def main() -> int:
     print("flash heads: " + " | ".join(
         f"{r['leaf']} {r['dtype']} ({r['route']}) {1e3 * r['ms']:.1f} us"
         + ("" if r["library_ms"] is None
-           else f", sdpa {1e3 * r['library_ms']:.1f} us")
+           else f", sdpa {1e3 * r['library_ms']:.1f} us"
+           + (f" ({r['sdpa_backend']})" if "sdpa_backend" in r else ""))
         + f", bound {1e3 * r['bound_ms']:.2f} us ({r['bound_by']})"
         for r in rows3 if r["kernel"] == "flash_attention"
         and r["leaf"] in heads) + f" | on {dev_info['smi']}")

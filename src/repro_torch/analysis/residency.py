@@ -25,6 +25,16 @@ float flops outside the regions by `torch.utils.flop_counter`'s formulas,
 each kernel call's operations from its shapes (`kernel_ops`), and the peak
 of live bytes of the storages the call makes, tracked by storage.
 
+With ``dtensor=True`` (the mesh dry run) the mode steps aside for every op
+on a DTensor (it returns NotImplemented, so DTensor dispatches the op and
+its local ops reach the mode at local shapes: the counts are per device),
+and leaves out the ops DTensor's sharding propagation runs at global
+shapes to learn an output's shape (`_hook_propagation`).  The functional
+collectives DTensor issues, those of a redistribution inside an op too,
+are recorded in ``TraceSummary.wire`` as (op, output bytes, group size),
+the group size read from the process group (`launch/roofline.
+collective_bytes` prices them).
+
 `expected_launches` and its helpers give the kernel calls a config's
 dispatch implies for a generate, a decode step, a prefill and a train
 step of the dense stack (the smollm family).
@@ -32,6 +42,7 @@ step of the dense stack (the smollm family).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 from collections import Counter
 from typing import Dict, Iterable, Optional, Union
@@ -47,7 +58,7 @@ from .findings import Report
 __all__ = [
     "TraceSummary", "TraceMode", "RegionMode", "summarize_fn", "check_resident",
     "check_kernel_count", "check_no_callbacks", "check_reduced_wire",
-    "kernel_ops", "COLLECTIVES",
+    "kernel_ops", "COLLECTIVES", "FUNCTIONAL",
     "expected_launches", "expected_step", "expected_prefill",
     "expected_train_step", "kernel_calls", "tensors", "MODULAR_OPS",
     "SYNC_OPS", "TO_HOST", "WRAPPERS", "COUNTED", "decomposed",
@@ -88,6 +99,17 @@ COLLECTIVES = {
 }
 
 
+# the functional collectives (DTensor's) recorded in `TraceSummary.wire`:
+# op -> the reference's HLO name (`launch/roofline.collective_bytes`)
+FUNCTIONAL = {
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_": "all-reduce",
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_out": "all-gather",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+}
+
 _NAMES: Dict = {}                 # op overload -> "aten.<name>"
 _COMPOSITE: Dict = {}             # op overload -> has a decomposition
 
@@ -106,6 +128,47 @@ def decomposed(mode, func, args, kwargs):
         return NotImplemented
     with mode:
         return func.decompose(*args, **kwargs)
+
+
+class _Propagating(threading.local):
+    depth = 0
+
+
+_prop = _Propagating()
+_hooked: list = []
+
+
+def _hook_propagation() -> None:
+    """Mark the ops DTensor's sharding propagation runs to learn an
+    output's global shape (its ``_propagate_tensor_meta_non_cached``,
+    cached per op schema, so they appear on an op's first call only):
+    while it runs, ``_prop.depth`` is non-zero.  Installed once a
+    process."""
+    if _hooked:
+        return
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    name = next(n for n in ("_propagate_tensor_meta_non_cached",
+                            "_propagate_tensor_meta")
+                if hasattr(ShardingPropagator, n))
+    inner = getattr(ShardingPropagator, name)
+
+    def marked(self, *args, **kwargs):
+        _prop.depth += 1
+        try:
+            return inner(self, *args, **kwargs)
+        finally:
+            _prop.depth -= 1
+
+    setattr(ShardingPropagator, name, marked)
+    _hooked.append(name)
+
+
+def _group_size(args) -> int:
+    """The size of the process group a functional collective names (its
+    last string argument)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = [a for a in args if isinstance(a, str)][-1]
+    return _resolve_process_group(name).size()
 
 
 def tensors(obj):
@@ -139,6 +202,9 @@ class TraceSummary:
     # one entry a collective outside the regions: (name, ((shape, dtype
     # name), ...)) of the operands this process contributes
     collectives: list = dataclasses.field(default_factory=list)
+    # one entry a functional collective: (the reference's HLO op name,
+    # output bytes, group size)
+    wire: list = dataclasses.field(default_factory=list)
 
     def count_outside(self, names: Iterable[str]) -> int:
         return sum(self.outside.get(n, 0) for n in names)
@@ -233,8 +299,14 @@ class TraceMode(RegionMode):
     """Records the aten ops of the calls made inside it (see the module
     docstring); ``flops`` and ``memory`` turn on the dry run's counts."""
 
-    def __init__(self, *, flops: bool = False, memory: bool = False):
+    def __init__(self, *, flops: bool = False, memory: bool = False,
+                 dtensor: bool = False):
         super().__init__()
+        self._dtensor = None
+        if dtensor:
+            _hook_propagation()
+            from torch.distributed.tensor import DTensor
+            self._dtensor = DTensor
         self.summary = TraceSummary(Counter(), Counter(), Counter(),
                                     Counter(), Counter(), Counter())
         self._flops, self._memory = flops, memory
@@ -272,6 +344,17 @@ class TraceMode(RegionMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._dtensor is not None:
+            if any(issubclass(t, self._dtensor) for t in types):
+                return NotImplemented
+            if _prop.depth:                     # a global-shape shadow op
+                return func(*args, **kwargs)
+            if func is torch.ops.aten.equal.default and any(
+                    t.device.type == "meta" for t in tensors(args)):
+                # DTensor's own bookkeeping (a MaskPartial's buffer checks
+                # that a re-materialized mask is the one it holds); the
+                # step's ops never compare whole tensors on meta
+                return True
         out = decomposed(self, func, args, kwargs)
         if out is not NotImplemented:
             return out
@@ -294,6 +377,10 @@ class TraceMode(RegionMode):
             s.failed_op = s.failed_op or name
             raise
         outs = list(tensors(out))
+        if name in FUNCTIONAL and not inside:
+            s.wire.append((FUNCTIONAL[name],
+                           sum(t.numel() * t.element_size() for t in outs),
+                           _group_size(args)))
         if not inside:
             if any(t.device.type == "cpu" for t in outs) and any(
                     t.device.type == "cuda" for t in tensors((args, kwargs))):

@@ -44,7 +44,7 @@ from .conversion_plan import ConversionPlan, forward
 from .linear_spec import BACKENDS
 from .quant import QMAX, quant_scale, quantize_int8, requant_const
 from .rns import RNSBasis, basis_for_int8_matmul
-from .rns_tensor import RNSShard, RNSTensor
+from .rns_tensor import RNSShard, RNSTensor, encode
 
 __all__ = ["rns_dense", "rns_int_matmul", "rns_chain_linear",
            "reconstruct_mrc"]
@@ -67,6 +67,27 @@ def _fused_matmul(x, w, basis=None, **kw):
         return sharded_fused_matmul(x, w, basis, **kw)
     from repro_torch.kernels.rns_fused import rns_fused_matmul
     return rns_fused_matmul(x, w, basis, **kw)
+
+
+def rows_as(y, x):
+    """A mesh run's (M, N) linear output (or (M, K) input gradient) with
+    its rows sharded as the (M, K) input's and its columns as they came
+    (else whole), so that the view back to (..., N) splits the rows as the
+    input's were.  DTensor
+    may leave the rows sharded over a second mesh dim (a row factor
+    reduce-scattered there), which a view to (B, S, N) cannot undo
+    evenly.  A plain tensor passes through."""
+    pl = getattr(y, "placements", None)
+    if pl is None:
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+
+    def shard(p, d):
+        return isinstance(p, Shard) and p.dim == d
+
+    new = [Shard(0) if shard(a, 0) else b if shard(b, 1) else Replicate()
+           for a, b in zip(x.placements, pl)]
+    return y if new == list(pl) else y.redistribute(y.device_mesh, new)
 
 
 def reconstruct_mrc(residues: torch.Tensor, basis: RNSBasis, *,
@@ -168,7 +189,7 @@ class _DenseSTE(torch.autograd.Function):
         gy32 = gy.to(torch.float32)
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = (gy32 @ w.to(torch.float32).T).to(x.dtype)
+            gx = rows_as((gy32 @ w.to(torch.float32).T).to(x.dtype), x)
         if ctx.needs_input_grad[1]:
             gw = (x.to(torch.float32).T @ gy32).to(w.dtype)
         return gx, gw, None, None
@@ -222,7 +243,9 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *,
     """One launch of a residue-resident linear chain.
 
     ``x`` is an activation :class:`RNSTensor` ((C, M, K) residues and the
-    (M, 1) row scale), ``w`` a weight RNSTensor in the same basis.
+    (M, 1) row scale), ``w`` a weight RNSTensor in the same basis, or a
+    raw float (K, N) weight encoded in it per call (`rns_tensor.encode`,
+    the same bits as encoding it once).
     ``gate`` is a raw int8
     (M, K) factor applied per channel as |q_x·q_g|_m, its row scale
     ``gate_scale`` multiplying the row scale as ``x.scale·gate_scale``.
@@ -244,7 +267,9 @@ def rns_chain_linear(x: RNSTensor, w: RNSTensor, *,
     if gate_scale is not None and gate is None:
         raise ValueError("gate_scale= without gate=")
     basis, wt = x.basis, w
-    if not isinstance(wt, RNSTensor) or wt.moduli != x.moduli:
+    if not isinstance(wt, RNSTensor):
+        wt = encode(wt, basis)           # a raw float weight, per call
+    if wt.moduli != x.moduli:
         raise ValueError("rns_chain_linear needs a weight RNSTensor in the "
                          f"chain basis {x.moduli}; encode the chain's "
                          "weights with group_basis / basis_for_chain")

@@ -12,7 +12,7 @@
 // block and attends to the padding when the query and key paddings
 // differ; this kernel masks by the true Sk).
 //
-// Three routes, each one launch, picked by the wrapper
+// Four routes, each one launch, picked by the wrapper
 // (`kernels/flash_attention.py::flash_route`):
 //   SPLIT (flash_split.cu): Sq <= 16, float32 or bf16 -- decode and short
 //     query blocks.  Reading K and V bounds it; the keys of a (b, h) are
@@ -22,6 +22,8 @@
 //   FMA (this file): Sq > 16, float32 -- the CUDA-core kernel below, kept
 //     because TF32 tensor cores cannot meet the float32 tolerance; also
 //     the pinned "before" that chip_smoke.py times bf16 prefill on.
+//   WIDE (flash_wide.cu): D > 256, any Sq, both types -- D in chunks of
+//     128 columns, float32 FMAs, one output chunk a block.
 //
 // FMA layout: one block of 4 warps per (b*h, tile of 4*ROWS query rows).
 // Each warp owns ROWS query rows; a tile of 32 keys and values sits in
@@ -239,9 +241,10 @@ int launch_fma(const FlashArgs& a, cudaStream_t s) {
 extern "C" {
 
 // One launch on a->route; returns 0, a cudaError_t, or -1 for a head size
-// not compiled in (D must be 16, 32, 64, 80, 96, 128 or 256; the wrapper
-// pads any other D up to 256 with zero columns) or a route that does not
-// take the call (MMA: bf16 only; SPLIT: Sq <= 16).
+// not compiled in (D must be 16, 32, 64, 80, 96, 128 or 256 on the first
+// three routes, a multiple of 128 above 256 on WIDE; the wrapper pads any
+// other D with zero columns) or a route that does not take the call (MMA:
+// bf16 only; SPLIT: Sq <= 16).
 int flash_attention_launch(const FlashArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->route) {
@@ -249,6 +252,8 @@ int flash_attention_launch(const FlashArgs* a, void* stream) {
       return flash_launch_split(*a, s);
     case MMA:
       return flash_launch_mma(*a, s);
+    case WIDE:
+      return flash_launch_wide(*a, s);
     case FMA:
       switch (a->D) {
         case 16: return launch_fma<16>(*a, s);

@@ -1,5 +1,5 @@
-// Shared parts of the three routes of flash attention (flash_attention.cu,
-// flash_split.cu, flash_mma.cu): the launch operands, the conversions and
+// Shared parts of the four routes of flash attention (flash_attention.cu,
+// flash_split.cu, flash_mma.cu, flash_wide.cu): the launch operands, the conversions and
 // warp reductions, and each route's launcher.  The semantics are those of
 // `kernels/ref.attention_ref`; flash_attention.cu's header gives them.
 #pragma once
@@ -31,12 +31,14 @@ enum Route : int {
   SPLIT = 0,  // Sq <= 16, both types: keys split over a thread-block cluster
   MMA = 1,    // Sq > 16, bf16: mma.sync tensor cores
   FMA = 2,    // Sq > 16, float32: float32 FMAs on the CUDA cores
+  WIDE = 3,   // D > 256, any Sq, both types: D in chunks of WIDE_CHUNK
 };
 
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_SPLITS = 8;     // the portable cluster size
 constexpr int SPLIT_TILE = 64;    // keys: the unit the key split shares out
 constexpr int SPLIT_MAX_ROWS = 16;
+constexpr int WIDE_CHUNK = 128;   // route WIDE: D is a multiple of it
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -85,3 +87,4 @@ __device__ __forceinline__ bool attends(int qp, int kp, int pad,
 // size, type or query count the route does not take.
 int flash_launch_split(const FlashArgs& a, cudaStream_t stream);
 int flash_launch_mma(const FlashArgs& a, cudaStream_t stream);
+int flash_launch_wide(const FlashArgs& a, cudaStream_t stream);

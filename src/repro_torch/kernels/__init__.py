@@ -17,14 +17,17 @@ in `ref.py`:
   fold                  — standalone Stage ④: (C, S) int32 values below a
                           bound → canonical residues
   flash_attention       — blocked online-softmax attention (causal,
-                          window, softcap, pad or explicit positions)
+                          window, softcap, pad or explicit positions),
+                          any head size (above 256 on its wide route)
   tune                  — persisted (tile height, K split) autotuner of
                           the tile kernel behind the first three
 
 Each wrapper runs its plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting its launches in ``<wrapper>.launches``), returns
 an empty output of the plain version's shape and dtype for meta tensors (a
-dry run), and is a kernel region (`_build.kernel_region`) of the trace
+dry run), runs on the local shards of DTensor arguments by its entry's
+sharding rule (`dtensor_rules`, the mesh dry run and the sharded train
+step), and is a kernel region (`_build.kernel_region`) of the trace
 passes of `repro_torch.analysis`.
 """
 from . import ref, tune  # noqa: F401

@@ -21,7 +21,9 @@ fills a `Plan` from a fold plan and a conversion plan.
 `repro_torch.analysis`: an observer (`add_observer`) hears each outermost
 wrapper call begin and end, and `region_depth` tells a dispatch mode
 whether an op runs inside one (the plain version's ops on the CPU; on the
-card the ctypes launch is invisible to dispatch).
+card the ctypes launch is invisible to dispatch).  A wrapper given a
+DTensor runs on its local shards by the entry's rule
+(`kernels/dtensor_rules.py`).
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from repro_torch.core import multiword as mw
+
+from . import dtensor_rules
 
 __all__ = ["build", "library", "check", "plan_struct", "set_moduli", "Plan",
            "TileArgs", "FlashArgs", "BUILD_DIR", "SOURCES", "graph_kernels",
@@ -88,6 +92,8 @@ def kernel_region(name: str):
         @functools.wraps(fn)
         def region(*args, **kwargs):
             depth = _region.depth
+            if not depth and dtensor_rules.has_dtensor(args, kwargs):
+                return dtensor_rules.run(name, region, args, kwargs)
             _region.depth = depth + 1
             try:
                 if depth or not _observers:

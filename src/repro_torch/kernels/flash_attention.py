@@ -8,7 +8,7 @@ softcap, a per-sequence left ``pad``, or explicit ``qpos``/``kpos``
 positions with −1 marking an invalid row.  The plain version is
 `ref.attention_ref`.
 
-Each call is one launch of one of three CUDA kernels (`flash_route`):
+Each call is one launch of one of four CUDA kernels (`flash_route`):
 
 - ``split`` (`csrc/flash_split.cu`), Sq ≤ 16 in either type: decode.
   The keys of each (b, h) are split over a thread-block cluster of
@@ -18,6 +18,9 @@ Each call is one launch of one of three CUDA kernels (`flash_route`):
   tensor cores (``mma.sync`` m16n8k16), 64 query rows a block.
 - ``fma`` (`csrc/flash_attention.cu`), Sq > 16 in float32: float32 FMAs on
   the CUDA cores, which the float32 tolerance needs.
+- ``wide`` (`csrc/flash_wide.cu`), D above 256, any Sq, either type: D
+  padded to a multiple of ``WIDE_CHUNK`` (128) columns, the scores summed
+  over the chunks and P·V computed per output chunk, float32 FMAs.
 
 Each source's header says what bounds its route on an H100 and how the
 design answers it.
@@ -37,22 +40,27 @@ from . import _build
 from .ref import SPLIT_TILE, _positions, attention_ref
 
 __all__ = ["flash_attention", "flash_route", "split_count", "padded_head",
-           "ROUTES", "HEAD_SIZES"]
+           "ROUTES", "HEAD_SIZES", "WIDE_CHUNK"]
 
-# D values compiled into the kernel; any other D up to the last runs on
-# the next one with zero columns appended (`padded_head`)
+# D values compiled into the first three routes; any other D up to the
+# last runs on the next one with zero columns appended, and any D above it
+# on the wide route at the next multiple of WIDE_CHUNK (`padded_head`)
 HEAD_SIZES = (16, 32, 64, 80, 96, 128, 256)
-ROUTES = ("split", "mma", "fma")     # csrc/flash_common.cuh: flash::Route
+WIDE_CHUNK = 128                     # csrc/flash_common.cuh: WIDE_CHUNK
+# csrc/flash_common.cuh: flash::Route
+ROUTES = ("split", "mma", "fma", "wide")
 SPLIT_MAX_ROWS = 16                  # query rows the split route takes
 MAX_SPLITS = 8                       # the portable cluster size
 _PINNED: list[str] = []
 
 
-def flash_route(Sq: int, dtype: torch.dtype) -> str:
-    """The kernel a call with Sq query rows of ``dtype`` launches (or the
-    route pinned by `_pin_route`)."""
+def flash_route(Sq: int, dtype: torch.dtype, D: int = 0) -> str:
+    """The kernel a call with Sq query rows of ``dtype`` at head size D
+    launches (or the route pinned by `_pin_route`)."""
     if _PINNED:
         return _PINNED[-1]
+    if D > HEAD_SIZES[-1]:
+        return "wide"
     if Sq <= SPLIT_MAX_ROWS:
         return "split"
     return "mma" if dtype == torch.bfloat16 else "fma"
@@ -79,15 +87,17 @@ def _pin_route(route: str):
 
 
 def padded_head(D: int) -> int:
-    """The compiled head size a call of head size D runs at: D itself, or
-    the next compiled size, whose extra columns are zeros in q, k and v (a
-    zero column adds an exact +0 to every score, and the output's extra
-    columns are dropped).  Raises above the largest."""
+    """The head size a call of head size D runs at: D itself, or the next
+    compiled size (above 256: the next multiple of `WIDE_CHUNK`, the wide
+    route's), whose extra columns are zeros in q, k and v (a zero column
+    adds an exact +0 to every score, and the output's extra columns are
+    dropped)."""
+    if D < 1:
+        raise ValueError(f"head size must be positive, got {D}")
     for size in HEAD_SIZES:
         if D <= size:
             return size
-    raise ValueError(f"head size {D} exceeds the kernel's largest, "
-                     f"{HEAD_SIZES[-1]}")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -110,9 +120,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     −1 = invalid row) switch to explicit positions and exclude ``pad``.
     Fully masked rows are 0.  A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel of `flash_route` at the head size
-    `padded_head` gives (the scale stays 1/√D of the true D), and raises
-    for D above 256; a meta tensor gets an empty output of the plain
-    version's shape and dtype (a dry run).
+    `padded_head` gives (the scale stays 1/√D of the true D; any D, the
+    wide route above 256); a meta tensor gets an empty output of the plain
+    version's shape and dtype (a dry run).  On DTensor arguments it runs
+    on the local shards (`dtensor_rules`): q's batch and head shardings
+    kept on q, k, v (and ``pad`` / 2-D positions), the sequences and D
+    gathered.
     """
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
@@ -142,7 +155,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
-    route = flash_route(Sq, q.dtype)
+    route = flash_route(Sq, q.dtype, D)
     if Dk != D:
         q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
     q, k, v = _aligned(q), _aligned(k), _aligned(v)

@@ -44,7 +44,8 @@ def fold(x: torch.Tensor, moduli: Sequence[int], bound: int) -> torch.Tensor:
     """Canonicalize (C, S) int32 values in [0, ``bound``) into [0, m_c) per
     channel.  A CPU tensor runs the plain version; a CUDA tensor launches
     the kernel; a meta tensor gets an empty output of the plain version's
-    shape and dtype (a dry run)."""
+    shape and dtype (a dry run).  On DTensor arguments it runs on the
+    local shards (`dtensor_rules`): the channels gathered, S as it is."""
     mods = tuple(int(m) for m in moduli)
     bound = int(bound)
     if x.ndim != 2 or x.shape[0] != len(mods):

@@ -4,7 +4,8 @@ port's wrappers.
 Each takes ``moduli`` as any sequence of integers (numpy ints, a tuple, a
 basis' moduli) and hands the wrapper a tuple of Python ints; `rns_reverse`
 takes the moduli and builds their conversion plan, as the reference's
-does.  The reference's ``interpret`` switch has no counterpart: a wrapper
+does; `flash_attention` takes the window as any integer and the softcap as
+any real, as its static arguments.  The reference's ``interpret`` switch has no counterpart: a wrapper
 runs its plain version on CPU tensors and its kernel on CUDA tensors.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ from repro_torch.core.conversion_plan import ConversionPlan
 from repro_torch.core.rns import RNSBasis
 
 from . import ref
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention as _flash_attention
 from .fold import fold as _fold
 from .rns_convert import rns_forward as _rns_forward
 from .rns_convert import rns_reverse as _rns_reverse
@@ -48,3 +49,10 @@ def rns_modmul(a_res, b_res, moduli, **kw):
 
 def fold(x, moduli, bound, **kw):
     return _fold(x, _ints(moduli), int(bound), **kw)
+
+
+def flash_attention(q, k, v, *, window=None, softcap=None, **kw):
+    return _flash_attention(q, k, v,
+                            window=None if window is None else int(window),
+                            softcap=None if softcap is None
+                            else float(softcap), **kw)

@@ -173,7 +173,8 @@ def rns_forward(x: torch.Tensor, moduli: Sequence[int], *,
     """(…,) int8/int32 → (C, …) canonical residues in ``dtype`` (int8 or
     int32).  A CPU tensor runs the plain version; a CUDA tensor launches
     the kernel; a meta tensor gets an empty output of the plain version's
-    shape and dtype (a dry run)."""
+    shape and dtype (a dry run).  On DTensor arguments it runs on the
+    local shards (`dtensor_rules`): x's shardings, one dim further right."""
     mods = tuple(int(m) for m in moduli)
     if x.dtype not in (torch.int8, torch.int32):
         raise ValueError(f"rns_forward takes int8 or int32, got {x.dtype}")
@@ -230,7 +231,10 @@ def rns_reverse(residues: torch.Tensor, plan: ConversionPlan, *,
     """(C, …) canonical residues → (…) float32 signed values, times
     ``scale`` (broadcast against the output) when given.  A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel; a meta tensor gets
-    an empty output of the plain version's shape and dtype (a dry run)."""
+    an empty output of the plain version's shape and dtype (a dry run).
+    On DTensor arguments it runs on the local shards (`dtensor_rules`):
+    the channels gathered, every other dim as it is, ``scale`` sharded
+    where it spans the output dim."""
     if residues.ndim < 1 or residues.shape[0] != plan.k:
         raise ValueError(f"residues {tuple(residues.shape)} need {plan.k} "
                          "channels on axis 0")

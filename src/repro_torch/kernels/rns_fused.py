@@ -253,7 +253,11 @@ def rns_fused_matmul(x, w, basis=None, *, quantize: bool | None = None,
     sharded launch requantizes by its full column scale's).
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel;
     a meta tensor gets an empty output of the plain version's shape and
-    dtype (a dry run).
+    dtype (a dry run).  On DTensor arguments (a mesh run) it runs on
+    the local shards (`dtensor_rules`): x's rows and the weight's columns
+    stay sharded, K and the channels are gathered, and an
+    ``emit="residues"`` exit gathers the columns too (its requantize
+    constant is the largest column scale).
     """
     if emit not in ("float", "residues"):
         raise ValueError(f"emit must be 'float' or 'residues', got {emit!r}")
@@ -541,7 +545,10 @@ def rns_fused_crt_partial(x, w, *, plan: ChannelPlan, mods, sched, crt_v,
     (K, N) int8 weight, converted per tile against the slice's own moduli
     (not with residue-in x, as `rns_fused_matmul`).  A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel; a meta tensor gets an
-    empty output of the plain version's shape and dtype (a dry run).
+    empty output of the plain version's shape and dtype (a dry run).  On
+    DTensor arguments it runs on the local shards (`dtensor_rules`): x's
+    rows and the weight's columns stay sharded, K and the slice's
+    channels are gathered.
     """
     residue_in = x.ndim == 3
     if residue_in:

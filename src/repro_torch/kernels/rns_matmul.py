@@ -40,7 +40,9 @@ def rns_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
     signed=signed_a)``; its signedness must match ``signed_a``.  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel; a
     meta tensor gets an empty output of the plain version's shape and dtype
-    (a dry run)."""
+    (a dry run).  On DTensor arguments it runs on the local shards
+    (`dtensor_rules`): the rows of ``a_res`` and the columns of ``b_res``
+    stay sharded, K and the channels are gathered."""
     mods = tuple(int(m) for m in moduli)
     if a_res.ndim != 3 or b_res.ndim != 3:
         raise ValueError(f"need (C, M, K) and (C, K, N) residues, got "

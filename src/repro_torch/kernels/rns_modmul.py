@@ -61,7 +61,9 @@ def rns_modmul(a_res: torch.Tensor, b_res: torch.Tensor,
     products in ``out_dtype`` (int32, or int8 when every modulus is at most
     128).  A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel; a meta tensor gets an empty output of the plain version's shape
-    and dtype (a dry run)."""
+    and dtype (a dry run).  On DTensor arguments it runs on the local
+    shards (`dtensor_rules`): the channels gathered, every other dim as
+    ``a_res`` has it."""
     mods = tuple(int(m) for m in moduli)
     if a_res.shape != b_res.shape or a_res.shape[0] != len(mods):
         raise ValueError(f"need two (C={len(mods)}, ...) operands of one "

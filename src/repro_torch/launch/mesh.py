@@ -12,18 +12,24 @@ here starts one, and importing this module touches no device.
 Axis roles, the reference's: ``pod`` — the slowest dimension, data
 parallel; ``data`` — data parallel / FSDP; ``model`` — tensor parallel,
 the axis sharded launches split.  The production shapes are the
-reference's TPU v5e pods (16×16, or 2×16×16 across two pods), used by the
-mesh dry run.
+reference's TPU v5e pods (16×16, or 2×16×16 across two pods).
+
+:func:`fake_production_mesh` is the mesh dry run's (`launch/dryrun.py`): it
+initialises torch's ``fake`` process group (every rank's collectives
+return at once, without data; tensors on the meta device never move), of
+256 or 512 ranks with this process as rank 0, yields the production mesh
+over it, and destroys the group on exit, an error included.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
 __all__ = ["Mesh", "make_production_mesh", "make_host_mesh", "dp_axes",
-           "DP_AXES", "MODEL_AXIS"]
+           "fake_production_mesh", "DP_AXES", "MODEL_AXIS"]
 
 MODEL_AXIS = "model"
 DP_AXES = ("pod", "data")
@@ -56,7 +62,8 @@ class Mesh:
         return f"Mesh({self.shape})"
 
 
-def _build(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
+def _build(shape: Tuple[int, ...], axes: Tuple[str, ...],
+           device_type: str = "cpu") -> Mesh:
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -70,7 +77,7 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
                          f"{world}")
     # the mesh follows the group's backend; a "cpu" mesh never asks for a
     # CUDA backend of its own (gloo moves CUDA operands itself)
-    dm = DeviceMesh("cpu", torch.arange(world).reshape(shape),
+    dm = DeviceMesh(device_type, torch.arange(world).reshape(shape),
                     mesh_dim_names=axes)
     return Mesh(dict(zip(axes, shape)), dm)
 
@@ -84,10 +91,40 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return _build(shape, axes)
 
 
-def make_host_mesh(model: int = 1) -> Mesh:
+@contextlib.contextmanager
+def fake_production_mesh(*, multi_pod: bool = False,
+                         split: Optional[Tuple[int, int]] = None
+                         ) -> Iterator[Mesh]:
+    """The production mesh over a ``fake`` process group of 256 ranks (512
+    with ``multi_pod``) initialised here, this process rank 0; the group
+    is destroyed on exit.  ``split`` = (data, model) refactors the same
+    pod(s) logically, e.g. (64, 4), as the reference's ``--mesh-split``.
+    Raises if a process group is already initialised."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; the "
+                           "fake mesh needs its own")
+    dd, mm = split or (16, 16)
+    shape = (2,) * multi_pod + (int(dd), int(mm))
+    axes = ("pod",) * multi_pod + ("data", "model")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield (make_production_mesh(multi_pod=multi_pod) if split is None
+               else _build(shape, axes))
+    finally:
+        dist.destroy_process_group()
+
+
+def make_host_mesh(model: int = 1, device_type: str = "cpu") -> Mesh:
     """("data", "model") = (world // model, model) over every process of
     the initialised group; raises when ``model`` does not divide the
-    world size."""
+    world size.  ``device_type`` is the `DeviceMesh`'s: "cpu" (the
+    default; the sharded engine's gloo collectives move CUDA operands
+    themselves), or "cuda" for DTensors on the card (the sharded train
+    step on an NCCL group, one card a rank)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -97,7 +134,7 @@ def make_host_mesh(model: int = 1) -> Mesh:
     if n % model:
         raise ValueError(f"model={model} does not divide the {n} "
                          "available processes")
-    return _build((n // model, model), ("data", "model"))
+    return _build((n // model, model), ("data", "model"), device_type)
 
 
 def dp_axes(mesh) -> tuple:

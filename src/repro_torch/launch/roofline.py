@@ -3,22 +3,38 @@
 
     compute    = flops/device ÷ 989 TFLOP/s  + int8 ops/device ÷ 1,979 TOP/s
     memory     = HBM bytes/device ÷ 3.35 TB/s
-    collective = interconnect bytes/device ÷ 450 GB/s (NVLink, one way)
+    collective = interconnect bytes/device ÷ 450 GB/s (NVLink, one way) on
+                 one card's cell; ÷ 50 GB/s (one 400 Gb/s InfiniBand NDR
+                 port a GPU, one way) on the 16×16 and 2×16×16 meshes,
+                 whose 16-wide axes each leave an 8-GPU NVLink domain
 
 The terms come from the loop-correct analytic model (`launch/costs.py`,
 ``record["analytic"]``), else from the step's trace (``record["cost"]``:
 the float flops of its aten ops outside the kernels and the kernels'
 operations, `analysis/residency.py`).  MODEL_FLOPS is 6·N·D (train),
 2·N·D (prefill) or 2·N_active·B (decode); MODEL_FLOPS over the counted
-flops exposes remat recompute and padding or dispatch waste.  The
-reference parses collective bytes from compiled HLO text
-(``collective_bytes``); that waits for the distributed port.
+flops exposes remat recompute and padding or dispatch waste.
+
+`collective_bytes` prices the collectives a mesh cell's trace recorded
+(`analysis.residency.TraceSummary.wire`: op, output bytes, group size) by
+the reference's ring model, which the reference applies to the compiled
+HLO text's collectives:
+
+    all-reduce      2·(n−1)/n · bytes        (reduce-scatter + all-gather)
+    all-gather        (n−1)/n · bytes(output)
+    reduce-scatter    (n−1)   · bytes(output)   (= (n−1)/n · input)
+    all-to-all        (n−1)/n · bytes
+    collective-permute        1 · bytes
+
+There is no ``loop_trip``: the reference's HLO holds a scanned layer's
+body once and multiplies its collectives by the trip count, while the
+eager trace runs every layer and records each collective it issues.
 """
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List
 
 # NVIDIA H100 SXM5 data sheet, dense rates (no sparsity) at the 700 W
 # limit; a card set to a lower power limit runs below them.
@@ -28,10 +44,14 @@ F32_FLOPS = 67e12            # float32 outside the tensor cores, FLOP/s
 HBM_BW = 3.35e12             # HBM3, bytes/s
 HBM_BYTES = 80e9             # device memory, bytes
 NVLINK_BW = 450e9            # NVLink 4: 900 GB/s both ways, bytes/s one way
+# NVIDIA ConnectX-7 / Quantum-2 data sheet: one 400 Gb/s InfiniBand NDR
+# port a GPU (the DGX H100 layout), bytes/s one way; every 16-wide mesh
+# axis spans two 8-GPU NVLink domains, so its ring runs at this rate
+IB_BW = 50e9
 
 __all__ = ["PEAK_FLOPS", "PEAK_INT8_OPS", "F32_FLOPS", "HBM_BW", "HBM_BYTES",
-           "NVLINK_BW", "Roofline", "analyze", "model_flops_for",
-           "format_table", "load_records"]
+           "NVLINK_BW", "IB_BW", "Roofline", "analyze", "model_flops_for",
+           "collective_bytes", "link_bw", "format_table", "load_records"]
 
 
 @dataclass
@@ -65,23 +85,58 @@ class Roofline:
         return ideal / self.bound_s if self.bound_s else 0.0
 
 
+def collective_bytes(collectives) -> Dict[str, float]:
+    """Per-device wire bytes by op under the ring model, and each op's
+    output bytes as ``<op>_output_bytes``, the reference's keys;
+    ``collectives`` is ((op, output bytes, group size), ...) with the
+    reference's HLO op names."""
+    out: Dict[str, float] = {}
+    raw: Dict[str, float] = {}
+    for op, b, n in collectives:
+        n = max(1, int(n))
+        if op == "all-reduce":
+            wire = 2.0 * (n - 1) / n * b
+        elif op == "all-gather":
+            wire = (n - 1) / n * b
+        elif op == "reduce-scatter":
+            wire = float(n - 1) * b
+        elif op == "all-to-all":
+            wire = (n - 1) / n * b
+        elif op == "collective-permute":
+            wire = float(b)
+        else:
+            raise ValueError(f"unknown collective {op!r}")
+        out[op] = out.get(op, 0.0) + wire
+        raw[op + "_output_bytes"] = raw.get(op + "_output_bytes", 0.0) + b
+    out.update(raw)
+    return out
+
+
+def link_bw(record: dict) -> float:
+    """The interconnect rate that prices a record's collective term: NVLink
+    on one card's cell, the per-GPU InfiniBand port on a mesh."""
+    return NVLINK_BW if record.get("n_devices", 1) == 1 else IB_BW
+
+
 def analyze(record: dict) -> Roofline:
     """Roofline terms for one dry-run record: the analytic model's when the
-    record has one, else the trace's (flops and kernel operations only; a
-    meta trace moves no bytes)."""
+    record has one, else the trace's (flops, kernel operations and the
+    traced collectives; a meta trace moves no HBM bytes)."""
     chips = record["n_devices"]
     an = record.get("analytic")
     if an:
         flops_s = (an["flops"] / PEAK_FLOPS
                    + an.get("flops_int8", 0.0) / PEAK_INT8_OPS)
         mem_s = an["hbm_bytes"] / HBM_BW
-        coll_s = an["ici_bytes"] / NVLINK_BW
+        coll_s = an["ici_bytes"] / link_bw(record)
         flops_per_dev = an["flops"] + an.get("flops_int8", 0.0)
     else:
         cost = record.get("cost", {})
         flops_s = (cost.get("flops", 0.0) / PEAK_FLOPS
                    + cost.get("int8_ops", 0.0) / PEAK_INT8_OPS)
-        mem_s = coll_s = 0.0
+        mem_s = 0.0
+        coll_s = sum(v for k, v in record.get("collectives", {}).items()
+                     if not k.endswith("_output_bytes")) / link_bw(record)
         flops_per_dev = cost.get("flops", 0.0) + cost.get("int8_ops", 0.0)
     return Roofline(compute_s=flops_s, memory_s=mem_s, collective_s=coll_s,
                     model_flops=record.get("model_flops", 0.0),

@@ -29,6 +29,9 @@ when it divides.
 
 `shardings` turns a spec tree into :class:`Placement`s: for each leaf, the
 function that cuts this process's slice of a whole tensor.
+`to_placements` turns one spec into DTensor placements on the mesh's
+`DeviceMesh`, and `distribute` a tree into DTensors (the mesh dry run and
+the sharded train step).
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from repro_torch.core.rns_tensor import RNSTensor
 from .mesh import MODEL_AXIS, dp_axes
 
 __all__ = ["P", "Placement", "param_specs", "batch_specs", "cache_specs",
-           "logits_spec", "shardings", "mode_for"]
+           "logits_spec", "shardings", "mode_for", "to_placements",
+           "distribute"]
 
 
 class P(tuple):
@@ -341,3 +345,49 @@ def shardings(mesh, spec_tree) -> Any:
         return Placement(s, sizes, coords)
 
     return _map(place, spec_tree)
+
+
+def to_placements(mesh, spec) -> list:
+    """DTensor placements of a spec, one a mesh dim: ``Shard(d)`` on every
+    mesh axis that ``spec[d]`` names (each axis of a tuple such as
+    ("pod", "data"), major first), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.axis_names)
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(spec):
+        if axes is None:
+            continue
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+def distribute(mesh, tree, spec_tree):
+    """``tree`` (params, optimizer state, a batch or a cache) as DTensors
+    on ``mesh`` by ``spec_tree`` (as `param_specs` and the others return
+    it; an `RNSTensor` leaf takes an `RNSTensor` of specs).  Each leaf is
+    the whole tensor, the same on every rank (`torch.distributed.tensor.
+    distribute_tensor` keeps rank 0's); meta tensors give meta shards."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dm = mesh.device_mesh
+    if dm is None:
+        raise ValueError("a shape-only mesh has no DeviceMesh to place on")
+
+    def place(t, spec):
+        if isinstance(t, RNSTensor):
+            return dataclasses.replace(
+                t, residues=place(t.residues, spec.residues),
+                scale=None if t.scale is None else place(t.scale,
+                                                         spec.scale))
+        return distribute_tensor(t, dm, to_placements(mesh, spec))
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)) and not isinstance(t, P):
+            return type(t)(walk(v, sp) for v, sp in zip(t, spec))
+        return place(t, spec)
+
+    return walk(tree, spec_tree)

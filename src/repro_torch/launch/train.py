@@ -1,7 +1,9 @@
-"""Training CLI, port of `repro/launch/train.py`: one card, no mesh.
+"""Training CLI, port of `repro/launch/train.py`.
 
     python -m repro_torch.launch.train --arch rns-smollm-135m-fused \\
         --steps 30 --batch 8 --seq 256 --workdir build/train/run1
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch rns-smollm-135m-fused --smoke --device cpu --workdir W
 
 Random parameters from ``--seed`` (`models.transformer.make_params`), the
 config's optimizer on the cosine schedule, the stateless data pipeline and
@@ -12,12 +14,22 @@ temporary directory (``TMPDIR``), named on stderr, so it resumes nothing;
 a run resumes only from a ``--workdir`` given again.  Prints the
 reference's JSON summary.  Training runs on the
 card unless ``--device cpu`` is given, and raises without one.
+
+Started by ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) or with a
+process group already initialised, every process joins the group (gloo on
+the CPU, NCCL on the card, one card a local rank) and trains on
+`launch.mesh.make_host_mesh()`, all data parallel as in the reference:
+`build` places the parameters, the optimizer state and every batch as
+DTensors by `launch.sharding`'s rules, the train step runs as a DTensor
+program, and the loop's ``shard_fn`` places a restored checkpoint the
+same way.  Rank 0 prints the summary.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import tempfile
 
@@ -25,13 +37,16 @@ import torch
 
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data.pipeline import batch_for_step
+from repro_torch.launch.sharding import (batch_specs, distribute,
+                                         param_specs)
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.runtime import TrainLoop
+from repro_torch.train.tree import tree_map
 from repro_torch.train.trainstep import make_train_step
 
 __all__ = ["main", "parser", "build", "summary", "train_device",
-           "make_batch_fn"]
+           "make_batch_fn", "mesh_step", "join_group"]
 
 
 def train_device(device=None) -> torch.device:
@@ -87,10 +102,33 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args):
+def mesh_step(step_fn):
+    """A train step run as a DTensor program: tensors the step makes
+    (schedules, masks, positions) are taken as replicated, and the new
+    parameters and optimizer state keep the placements they came in
+    (the reference's ``out_shardings``), so every step runs one layout."""
+    def pin(new, old):
+        return (new.redistribute(old.device_mesh, old.placements)
+                if tuple(new.placements) != tuple(old.placements) else new)
+
+    def step(params, opt_state, batch, i):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            new_p, new_s, metrics = step_fn(params, opt_state, batch, i)
+        return (tree_map(pin, new_p, params), tree_map(pin, new_s, opt_state),
+                metrics)
+    return step
+
+
+def build(args, mesh=None):
     """(config, `TrainLoop`) of parsed arguments: the loop resumes from
     ``<workdir>/ckpt`` when it holds a checkpoint.  Without a workdir,
-    ``args.workdir`` is set to a new directory."""
+    ``args.workdir`` is set to a new directory.  With a ``mesh``
+    (`launch.mesh.Mesh` over an initialised group) the parameters, the
+    optimizer state and each batch are DTensors placed by the rules
+    (`sharding.param_specs` / `batch_specs`), and a restored checkpoint
+    is placed the same way (``shard_fn``)."""
     dev = train_device(args.device)
     if args.workdir is None:
         args.workdir = tempfile.mkdtemp(prefix="repro-train-")
@@ -106,13 +144,43 @@ def build(args):
     params = T.make_params(cfg, gen, device=dev)
     opt = make_optimizer(cfg, total_steps=args.steps, base_lr=args.lr,
                          warmup=args.warmup)
-    loop = TrainLoop(train_step=make_train_step(cfg, opt,
-                                                n_micro=args.n_micro),
-                     batch_fn=make_batch_fn(cfg, args.seed, args.batch,
-                                            args.seq, dev),
-                     params=params, opt_state=opt.init(params),
-                     workdir=args.workdir, ckpt_every=args.ckpt_every)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, n_micro=args.n_micro)
+    batch_fn = make_batch_fn(cfg, args.seed, args.batch, args.seq, dev)
+    shard_fn = None
+    if mesh is not None:
+        def shard_fn(tree):
+            return distribute(mesh, tree, param_specs(mesh, cfg, tree))
+
+        def mesh_batch(step, plain=batch_fn):
+            b = plain(step)
+            return distribute(mesh, b, batch_specs(mesh, cfg, b))
+
+        params, opt_state = shard_fn(params), shard_fn(opt_state)
+        step_fn, batch_fn = mesh_step(step_fn), mesh_batch
+    loop = TrainLoop(train_step=step_fn, batch_fn=batch_fn, params=params,
+                     opt_state=opt_state, workdir=args.workdir,
+                     ckpt_every=args.ckpt_every, shard_fn=shard_fn)
     return cfg, loop
+
+
+def join_group(device) -> bool:
+    """Join the process group ``torchrun`` describes (``WORLD_SIZE`` > 1),
+    unless one is initialised already: gloo for the CPU, NCCL for the
+    card (this process's card its ``LOCAL_RANK``).  True when the run is
+    one of several processes."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
 
 
 def summary(cfg, args, res) -> dict:
@@ -126,10 +194,25 @@ def summary(cfg, args, res) -> dict:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    cfg, loop = build(args)
-    print(f"workdir: {args.workdir}", file=sys.stderr)
+    mesh = None
+    if join_group(train_device(args.device)):
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(
+            device_type=train_device(args.device).type)
+        if args.workdir is None:          # one directory for every rank
+            box = [tempfile.mkdtemp(prefix="repro-train-")
+                   if dist.get_rank() == 0 else None]
+            dist.broadcast_object_list(box, src=0)
+            args.workdir = box[0]
+    cfg, loop = build(args, mesh)
+    first = mesh is None or mesh.device_mesh.get_rank() == 0
+    if first:
+        print(f"workdir: {args.workdir}", file=sys.stderr)
     res = loop.run(args.steps)
-    print(json.dumps(summary(cfg, args, res), indent=2))
+    if first:
+        print(json.dumps(summary(cfg, args, res), indent=2))
     return res
 
 

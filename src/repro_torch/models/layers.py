@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.core.linear_spec import LinearSpec
 from repro_torch.core.quant import quantize_int8
-from repro_torch.core.rns_linear import rns_chain_linear, rns_dense
+from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+from repro_torch.core.rns_linear import rns_chain_linear, rns_dense, rows_as
 from repro_torch.core.rns_tensor import (RNSTensor, cat_columns,
                                          encode_activation)
 
@@ -38,7 +39,8 @@ __all__ = ["linear", "linear_qkv", "mlp_chain", "rms_norm", "rope",
            "apply_rope", "sinusoidal", "attention", "update_cache_full",
            "update_cache_ring", "silu", "gelu", "act_fn", "paged_write",
            "paged_gather", "paged_kpos", "Leaf", "dense_leaf",
-           "materialize", "matmul", "matmul_exact", "embed_rows"]
+           "materialize", "matmul", "matmul_exact", "embed_rows",
+           "split_dim", "lookup"]
 
 NEG_INF = -1e30
 FULL_WINDOW = 1 << 30       # the window of a full causal layer
@@ -99,13 +101,19 @@ class _EmbedRows(torch.autograd.Function):
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
         ctx.rows, ctx.dtype = table.shape[0], table.dtype
-        return table[ids]
+        return lookup(table, ids)
 
     @staticmethod
     def backward(ctx, g):
         ids, = ctx.saved_tensors
         flat = ids.reshape(-1)
         g64 = g.reshape(flat.numel(), -1).to(torch.float64)
+        if hasattr(g, "placements"):
+            # a mesh run (DTensor): one one-hot product, the ids' shards
+            # summed by DTensor's reduction into the table's placement
+            vocab = torch.arange(ctx.rows, device=g.device)
+            onehot = (flat[:, None] == vocab[None, :]).to(torch.float64)
+            return (onehot.T @ g64).to(ctx.dtype), None
         if g.device.type == "meta":
             # a dry run has no ids to read: take the most distinct ids the
             # batch can hold, so the shapes bound the work
@@ -122,6 +130,54 @@ class _EmbedRows(torch.autograd.Function):
             onehot = (inv[None, :] == cols[:, None]).to(torch.float64)
             out[uniq[s:s + step]] = (onehot @ g64).to(ctx.dtype)
         return out, None
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  A mesh run's (DTensor) table is looked up on its
+    local shard, as GSPMD partitions a gather: a table sharded on the
+    vocab over a mesh dim gives each rank the rows of the ids it holds
+    (zeros elsewhere), summed over that dim (an all-reduce of the (..., d)
+    rows) where indexing would gather the whole table; one sharded on d
+    keeps that sharding; the ids keep their batch sharding."""
+    pl = getattr(table, "placements", None)
+    if pl is None:
+        return table[ids]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+
+    def on(p, d):
+        return isinstance(p, Shard) and p.dim == d
+
+    vocab = [i for i, p in enumerate(pl) if on(p, 0)]
+    if len(vocab) > 1 or (vocab and table.shape[0] % mesh.size(vocab[0])):
+        return table[ids]
+    v = vocab[0] if vocab else None
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    ipl = [p if isinstance(p, Shard) and i != v else Replicate()
+           for i, p in enumerate(ids.placements)]
+    tpl = [p if i == v or (on(p, 1) and not isinstance(ipl[i], Shard))
+           else Replicate() for i, p in enumerate(pl)]
+    ids, table = ids.redistribute(mesh, ipl), table.redistribute(mesh, tpl)
+    local, li = table.to_local(), ids.to_local()
+    if v is None:
+        out = local[li]
+    else:
+        rows = local.shape[0]
+        start = mesh.get_local_rank(v) * rows
+        hit = ((li >= start) & (li < start + rows))[..., None]
+        out = torch.where(hit, local[(li - start).clamp(0, rows - 1)],
+                          torch.zeros((), dtype=local.dtype,
+                                      device=li.device))
+    place = [Partial() if i == v else q if isinstance(q, Shard) else
+             Shard(out.ndim - 1) if on(tpl[i], 1) else Replicate()
+             for i, q in enumerate(ipl)]
+    out = DTensor.from_local(out, mesh, place, run_check=False)
+    if v is None:
+        return out
+    return out.redistribute(mesh, [Replicate() if i == v else p
+                                   for i, p in enumerate(place)])
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -144,8 +200,9 @@ def linear(x: torch.Tensor, w, spec="bf16", exact: bool = False
     if not spec.is_rns:
         return matmul(x, w, exact)
     shp = x.shape
-    y = rns_dense(x.reshape(-1, shp[-1]), w, spec.backend,
-                  broadcast=spec.broadcast)
+    x2 = x.reshape(-1, shp[-1])
+    y = rows_as(rns_dense(x2, w, spec.backend, broadcast=spec.broadcast),
+                x2)
     return y.reshape(*shp[:-1], y.shape[-1])
 
 
@@ -169,13 +226,19 @@ def matmul_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _chain_basis_of(*ws):
-    """The shared basis of a chain's weights, which must all be
-    :class:`RNSTensor`s encoded in one basis."""
-    if not all(isinstance(w, RNSTensor) for w in ws):
+    """The shared basis of a chain's encoded weights, or None when every
+    weight is a raw float one (each then encoded per call, in the chain's
+    default basis, as the reference does); mixed forms raise."""
+    enc = [w for w in ws if isinstance(w, RNSTensor)]
+    if not enc:
+        return None
+    if len(enc) != len(ws):
         raise ValueError("a residue-resident chain needs all its weights "
-                         "encoded (encode_params with group_basis)")
-    b = ws[0].basis
-    for w in ws[1:]:
+                         "encoded (encode_params with group_basis) or none "
+                         "— mixed raw and RNSTensor weights cannot share "
+                         "the chain basis")
+    b = enc[0].basis
+    for w in enc[1:]:
         if w.moduli != tuple(b.moduli):
             raise ValueError(f"chain weights encoded in different bases "
                              f"({b.moduli} vs {w.moduli}); encode them with "
@@ -190,12 +253,13 @@ def mlp_chain(x: torch.Tensor, w_gate, w_up, w_down, spec, act):
     the down launch multiplies the re-quantized gate in per channel and
     takes the chain's one MRC exit.  The gate branch leaves the domain at its
     own boundary (the nonlinearity is not residue-safe).  Weights are
-    RNSTensors in the chain basis (`basis_for_chain(d_ff)`)."""
+    RNSTensors in the chain basis (`basis_for_chain(d_ff)`), or raw floats
+    encoded in it per call (the same bits)."""
     spec = LinearSpec.parse(spec)
     shp = x.shape
     xf = x.reshape(-1, shp[-1]).to(torch.float32)
     F = w_down.shape[-2]
-    basis = _chain_basis_of(w_gate, w_up, w_down)
+    basis = _chain_basis_of(w_gate, w_up, w_down) or basis_for_chain(F)
     if basis.M <= 2 * F * 127 ** 3:
         raise ValueError(
             f"basis {tuple(basis.moduli)} (M={basis.M}) cannot hold the "
@@ -215,17 +279,41 @@ def linear_qkv(x: torch.Tensor, ws, spec):
     concatenated along the output axis and run as ONE residue-in launch
     after one activation encode.  Bit-identical to three separate linears:
     per-column weight quantization and the per-column epilogue do not mix
-    columns.  ``ws`` is (wq, wk, wv), RNSTensors in one basis; returns
-    (q, k, v) with x's leading dims."""
+    columns.  ``ws`` is (wq, wk, wv), RNSTensors in one basis or raw
+    floats (concatenated and encoded per call in
+    `basis_for_int8_matmul(K)`); returns (q, k, v) with x's leading
+    dims."""
     spec = LinearSpec.parse(spec)
     shp = x.shape
     xf = x.reshape(-1, shp[-1]).to(torch.float32)
     basis = _chain_basis_of(*ws)
-    w_cat = cat_columns(ws)
+    if basis is None:
+        basis = basis_for_int8_matmul(shp[-1])
+        w_cat = torch.cat(list(ws), -1)
+    else:
+        w_cat = cat_columns(ws)
     xa = encode_activation(xf, basis)
     y = rns_chain_linear(xa, w_cat, backend=spec.backend)
     y = y.reshape(*shp[:-1], y.shape[-1]).to(x.dtype)
     return tuple(torch.split(y, [w.shape[-1] for w in ws], dim=-1))
+
+
+def split_dim(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x`` with ``dim`` split into ``sizes`` (a reshape: heads out of
+    H·dh, or GQA groups out of H).  A DTensor (a mesh run) sharded along
+    ``dim`` over a mesh dim that does not divide ``sizes[0]`` is gathered
+    along that mesh dim first: DTensor refuses a view that splits a head
+    across shards, where GSPMD moves the data itself."""
+    dim = dim % x.ndim
+    pl = getattr(x, "placements", None)
+    if pl is not None:
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = x.device_mesh
+        new = [Replicate() if isinstance(p, Shard) and p.dim == dim
+               and sizes[0] % mesh.size(i) else p for i, p in enumerate(pl)]
+        if new != list(pl):
+            x = x.redistribute(mesh, new)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -325,6 +413,45 @@ def _scores(qg, kg, scale, softcap):
     return s
 
 
+def _attention_on_shards(q, k, v, qpos, kpos, **kw):
+    """A mesh run's (DTensor) attention on each rank's own block, as GSPMD
+    partitions a batched attention: the batch and the heads keep their
+    sharding (a KV head sharding that does not divide the KV heads gathers
+    the query heads too), the sequences and D are gathered, and each rank
+    attends its (batch, head) block with the plain ops, exactly.  None
+    when a key sequence is sharded (a decode cache): DTensor's own ops run
+    it, without gathering the cache."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def shard(t, d):
+        return {i for i, p in enumerate(getattr(t, "placements", ()))
+                if isinstance(p, Shard) and p.dim == d}
+
+    if shard(k, 1) or shard(v, 1):
+        return None
+    mesh = q.device_mesh
+    batch = shard(q, 0)
+    heads = {i for i in shard(q, 2)
+             if k.shape[2] % mesh.size(i) == 0}
+    place = [Shard(0) if i in batch else Shard(2) if i in heads
+             else Replicate() for i in range(mesh.ndim)]
+    rows = [Shard(0) if i in batch else Replicate()
+            for i in range(mesh.ndim)]
+
+    def local(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+
+    def pos(t):
+        return local(t, rows if t.ndim == 2 else [Replicate()] * mesh.ndim)
+
+    out = attention(local(q, place), local(k, place), local(v, place),
+                    pos(qpos), pos(kpos), **kw)
+    return DTensor.from_local(out, mesh, place, run_check=False)
+
+
 def attention(q, k, v, qpos, kpos, *, window: int = FULL_WINDOW,
               softcap=None, block_kv: int = 1024, kv_valid_from: int = 0):
     """GQA attention over absolute positions.
@@ -343,13 +470,18 @@ def attention(q, k, v, qpos, kpos, *, window: int = FULL_WINDOW,
                          f"mark invalid keys), got {kv_valid_from}")
     if kv_valid_from:
         kpos = torch.where(kpos >= kv_valid_from, kpos, -1)
+    if hasattr(q, "placements"):
+        out = _attention_on_shards(q, k, v, qpos, kpos, window=window,
+                                   softcap=softcap, block_kv=block_kv)
+        if out is not None:
+            return out
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
     scale = float(np.float32(1.0 / np.sqrt(D)))
     qpos = qpos[None] if qpos.ndim == 1 else qpos
     kpos = kpos[None] if kpos.ndim == 1 else kpos
-    qg = q.reshape(B, Sq, Hk, G, D).permute(0, 2, 3, 1, 4)   # (B,Hk,G,Sq,D)
+    qg = split_dim(q, 2, (Hk, G)).permute(0, 2, 3, 1, 4)     # (B,Hk,G,Sq,D)
     kg = k.permute(0, 2, 1, 3)[:, :, None]                   # (B,Hk,1,Sk,D)
     vg = v.permute(0, 2, 1, 3)[:, :, None]
 
@@ -401,6 +533,14 @@ def update_cache_full(cache_k, cache_v, k, v, pos):
     if pos + S > cache_k.shape[1]:
         raise ValueError(f"cache of {cache_k.shape[1]} slots cannot hold "
                          f"positions {pos}..{pos + S - 1}")
+    if S == 1 and hasattr(cache_k, "placements"):
+        # a mesh run (DTensor): the slot axis may be sharded, and a slice
+        # write would gather the whole cache; select the slot instead
+        hit = (torch.arange(cache_k.shape[1], device=cache_k.device)
+               == pos)[None, :, None, None]
+        cache_k.copy_(torch.where(hit, k.to(cache_k.dtype), cache_k))
+        cache_v.copy_(torch.where(hit, v.to(cache_v.dtype), cache_v))
+        return cache_k, cache_v
     cache_k[:, pos:pos + S] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v.to(cache_v.dtype)
     return cache_k, cache_v

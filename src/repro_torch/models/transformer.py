@@ -36,10 +36,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from .layers import (FULL_WINDOW, Leaf, act_fn, apply_rope, attention,
-                     dense_leaf, embed_rows, linear, linear_qkv, materialize,
-                     mlp_chain, paged_gather, paged_kpos, paged_write,
-                     rms_norm, rope, sinusoidal, update_cache_full,
-                     update_cache_ring)
+                     dense_leaf, embed_rows, linear, linear_qkv, lookup,
+                     materialize, mlp_chain, paged_gather, paged_kpos, paged_write,
+                     rms_norm, rope, sinusoidal, split_dim,
+                     update_cache_full, update_cache_ring)
 from .moe import moe_apply, moe_param_spec
 from .ssm import (_ssd, init_ssm_cache, ssm_apply, ssm_decode_step,
                   ssm_param_spec)
@@ -189,9 +189,9 @@ def _project(p, h, cfg: ModelConfig, qpos, exact=False):
     H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = rms_norm(h, p["norm_mix"], cfg.norm_eps)
     q, k, v = _qkv(p, x, cfg.linear_spec, exact)
-    q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, Hk, dh)
-    v = v.reshape(B, S, Hk, dh)
+    q = split_dim(q, -1, (H, dh))
+    k = split_dim(k, -1, (Hk, dh))
+    v = split_dim(v, -1, (Hk, dh))
     if cfg.qk_norm:
         q = rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps)
@@ -665,7 +665,7 @@ def decode_step(cfg: ModelConfig, params, cache, batch, pos,
     if cfg.frontend == "embeddings":
         h = batch["embeds"].to(_dtype(cfg))
     else:
-        h = params["embed"][batch["tokens"]]
+        h = lookup(params["embed"], batch["tokens"])
     if block_tables is not None:
         pos = torch.as_tensor(pos, device=h.device).expand(h.shape[0])
         positions = pos if positions is None else positions

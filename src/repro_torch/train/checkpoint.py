@@ -18,7 +18,13 @@ takes the structure from ``like``, in both packages.
               leaves a partial ``step-<N>``;
   * async   — ``blocking=False`` copies the leaves to host memory at once
               and writes them in a daemon thread (`wait_for_pending`);
-  * bounded — ``keep_last`` keeps the newest checkpoints.
+  * bounded — ``keep_last`` keeps the newest checkpoints;
+  * meshes  — a tree of DTensors (a mesh run) is gathered leaf by leaf
+              (``full_tensor``, a collective every rank of the mesh joins)
+              and written once, by rank 0, blocking, as whole tensors: the same
+              files a one-process run writes.  `restore` always returns
+              whole tensors; a mesh run places them again (`train.runtime.
+              TrainLoop`'s ``shard_fn``).
 """
 from __future__ import annotations
 
@@ -38,7 +44,13 @@ __all__ = ["save", "restore", "latest_step", "wait_for_pending"]
 _PENDING: List[threading.Thread] = []
 
 
+def _is_dtensor(x) -> bool:
+    return hasattr(x, "full_tensor")
+
+
 def _host(x: torch.Tensor) -> np.ndarray:
+    if _is_dtensor(x):
+        x = x.full_tensor()                # every rank joins the gather
     x = x.detach().to("cpu", copy=True)   # a snapshot, not a view
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -52,9 +64,23 @@ def _dtype_name(x: torch.Tensor) -> str:
 def save(ckpt_dir: str, step: int, tree: Any, keep_last: int = 3,
          blocking: bool = True) -> str:
     """Save a tree of tensors as checkpoint ``step``; returns its final
-    directory."""
+    directory.  Every rank of a mesh run calls it; rank 0 writes."""
     flat = leaves(tree)
     host = [_host(x) for x in flat]        # the snapshot, taken now
+    if any(_is_dtensor(x) for x in flat):
+        # a mesh run: rank 0 writes while the others wait, so the step is
+        # on disk for every rank when the call returns
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, host, flat, keep_last)
+        dist.barrier()
+        return os.path.join(ckpt_dir, f"step-{step}")
+    return _write(ckpt_dir, step, host, flat, keep_last, blocking)
+
+
+def _write(ckpt_dir, step, host, flat, keep_last, blocking=True) -> str:
+    """Write the snapshot ``host`` of the leaves ``flat`` as checkpoint
+    ``step`` (in a daemon thread unless ``blocking``)."""
     manifest = {"step": int(step), "treedef": None, "n_leaves": len(host),
                 "dtypes": [_dtype_name(x) for x in flat],
                 "shapes": [list(x.shape) for x in flat]}
@@ -123,8 +149,9 @@ def _load(path: str, dtype_name: str) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, int]:
-    """Checkpoint ``step`` in the structure of ``like``, each leaf in its
-    ``like`` leaf's dtype and on its device (shapes checked); returns
+    """Checkpoint ``step`` in the structure of ``like``, each leaf a whole
+    tensor in its ``like`` leaf's dtype and on its device (shapes checked;
+    a DTensor leaf's global shape, its local shard's device); returns
     (tree, step)."""
     path = os.path.join(ckpt_dir, f"step-{step}")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -139,5 +166,6 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, int]:
         if tuple(x.shape) != tuple(r.shape):
             raise ValueError(f"leaf {i}: checkpoint shape "
                              f"{tuple(x.shape)}, tree {tuple(r.shape)}")
-        out.append(x.to(device=r.device, dtype=r.dtype))
+        dev = r.to_local().device if _is_dtensor(r) else r.device
+        out.append(x.to(device=dev, dtype=r.dtype))
     return unflatten(like, out), manifest["step"]

@@ -17,23 +17,35 @@ import os
 import signal
 import statistics
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 from . import checkpoint as ckpt
 
 __all__ = ["TrainLoop"]
 
 
+def _scalar(x) -> float:
+    """A 0-d loss as a float: a mesh run's DTensor loss reduced first."""
+    if hasattr(x, "full_tensor"):
+        x = x.full_tensor()
+    return float(x)
+
+
 class TrainLoop:
     """``train_step(params, opt_state, batch, step) → (params, opt_state,
     metrics)`` over ``batch_fn(step)``, from the newest checkpoint under
-    ``<workdir>/ckpt`` if there is one (restored onto ``params``' and
-    ``opt_state``'s devices and dtypes; the reference's ``shard_fn``
-    re-sharding has no counterpart on one card)."""
+    ``<workdir>/ckpt`` if there is one (restored as whole tensors onto
+    ``params``' and ``opt_state``'s devices and dtypes, then passed
+    through ``shard_fn``, default the identity: a mesh run places them
+    again as DTensors, `launch.train.build`).  A mesh run's every rank
+    runs the loop; its checkpoints are written once (`train.checkpoint`)
+    and restore in a one-process run, and the other way round."""
 
     def __init__(self, *, train_step, batch_fn, params, opt_state,
                  workdir: str, ckpt_every: int = 100, keep_last: int = 3,
-                 straggler_factor: float = 3.0, log_every: int = 10):
+                 straggler_factor: float = 3.0,
+                 shard_fn: Optional[Callable[[Any], Any]] = None,
+                 log_every: int = 10):
         self.train_step = train_step
         self.batch_fn = batch_fn
         self.workdir = workdir
@@ -42,6 +54,7 @@ class TrainLoop:
         self.keep_last = keep_last
         self.straggler_factor = straggler_factor
         self.log_every = log_every
+        self.shard_fn = shard_fn or (lambda x: x)
         self.metrics_path = os.path.join(workdir, "metrics.jsonl")
         self.straggler_events = 0
         self._terminate = False
@@ -53,6 +66,8 @@ class TrainLoop:
         if last is not None:
             (params, opt_state), _ = ckpt.restore(
                 self.ckpt_dir, last, (params, opt_state))
+            params = self.shard_fn(params)
+            opt_state = self.shard_fn(opt_state)
             self.start_step = last + 1
         self.params, self.opt_state = params, opt_state
 
@@ -83,7 +98,7 @@ class TrainLoop:
                     batch = self.batch_fn(step)
                     self.params, self.opt_state, metrics = self.train_step(
                         self.params, self.opt_state, batch, step)
-                    loss = float(metrics["loss"])
+                    loss = _scalar(metrics["loss"])
                     dt = time.perf_counter() - t0
                     losses.append(loss)
 

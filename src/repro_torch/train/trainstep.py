@@ -40,11 +40,22 @@ def loss_fn(cfg: ModelConfig, params, batch):
     ({"tokens" or "embeds", "labels"})."""
     logits, aux = T.forward(_train_cfg(cfg), params, batch)   # (B, S, V)
     lse = torch.logsumexp(logits, dim=-1)                     # (B, S)
-    ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    ll = _label_logits(logits, batch["labels"].long())
     ce = torch.mean(lse - ll)
     z = torch.mean(lse * lse)
     loss = ce + AUX_WEIGHT * aux + Z_WEIGHT * z
     return loss, {"ce": ce, "aux": aux, "zloss": z}
+
+
+def _label_logits(logits, labels):
+    """(B, S) logits of the labels.  A mesh run's vocab-sharded DTensor
+    logits take a masked sum over the vocab (one term nonzero, so the same
+    value): DTensor's masked partial for ``gather`` fails to reduce a
+    (B, S) result."""
+    if not hasattr(logits, "placements"):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(labels[..., None] == vocab, logits, 0.0).sum(-1)
 
 
 def _value_and_grad(cfg: ModelConfig, params, batch):

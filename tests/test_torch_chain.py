@@ -309,6 +309,45 @@ def test_linear_qkv_equals_three_linears(backend):
         assert _bits(g) == _bits(TL.linear(x, w, spec))
 
 
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_raw_weight_chains_match_encoded_and_reference(backend):
+    """Raw float weights in `mlp_chain` and `linear_qkv` (the reference's
+    form, which the mesh dry run hands them): encoded per call in the
+    chain's default basis, bit-equal to the weights encoded once, and
+    within 1e-6 relative of the reference's jitted raw-weight chain (XLA's
+    excess precision moves its float32 epilogue by an ulp; the model is
+    bit-equal only without it, see the whole-model test below); mixed
+    forms raise."""
+    d, F = 32, 64
+    x, ws = _mlp_weights(d, F, 7)
+    spec = LinearSpec(mode="rns_int8", backend=backend, encode_weights=True,
+                      domain="residue")
+    tx, tws = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    raw = TL.mlp_chain(tx, *tws, spec, TL.silu)
+    tb = trns.basis_for_chain(F)
+    enc = TL.mlp_chain(tx, *[trt.encode(w, tb) for w in tws], spec, TL.silu)
+    assert _bits(raw) == _bits(enc)
+    jspec = dataclasses.replace(jax_smoke_config(NAME).linear_spec,
+                                backend="jnp")
+    want = jax.jit(lambda a, *w: JL.mlp_chain(a, *w, jspec, jax.nn.silu))(
+        jnp.asarray(x), *[jnp.asarray(w) for w in ws])
+    np.testing.assert_allclose(raw.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=0)
+    qkv = [w[:, :n] for w, n in zip((ws[0], ws[1], ws[1]), (32, 16, 16))]
+    tq = [torch.from_numpy(np.ascontiguousarray(w)) for w in qkv]
+    got = TL.linear_qkv(tx, tq, spec)
+    basis = trns.basis_for_int8_matmul(d)
+    once = TL.linear_qkv(tx, [trt.encode(w, basis) for w in tq], spec)
+    jgot = jax.jit(lambda a, *w: JL.linear_qkv(a, w, jspec))(
+        jnp.asarray(x), *[jnp.asarray(w) for w in qkv])
+    for g, o, j in zip(got, once, jgot):
+        assert _bits(g) == _bits(o)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-6,
+                                   atol=0)
+    with pytest.raises(ValueError, match="or none"):
+        TL.linear_qkv(tx, [tq[0], trt.encode(tq[1], basis), tq[2]], spec)
+
+
 def test_mlp_chain_single_forward_conversion(monkeypatch):
     """The fused chain performs exactly one standalone forward conversion
     (the activation encode) and no standalone MRC reverse."""

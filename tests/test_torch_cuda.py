@@ -804,7 +804,7 @@ def _flash_close(got, want, dtype):
 def test_flash_matches_plain(dev, case, dtype):
     B, H, Sq, Sk, D = case[:5]
     q, k, v, kw = _flash_case(dev, case, dtype)
-    route = flash_route(Sq, dtype)
+    route = flash_route(Sq, dtype, D)
     before = flash_attention.launches
     routes = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, **kw)
@@ -843,13 +843,37 @@ def test_flash_zoo_head_sizes(dev, case, dtype):
 
 
 def test_flash_refuses_only_above_256(dev):
-    q = torch.zeros(1, 1, 4, 264, device=dev)
-    with pytest.raises(ValueError, match="256"):
-        flash_attention(q, q, q)
-    for D in (1, 8, 200, 256):
+    """No head size is refused any more: above 256 the wide route runs
+    (D = 264 padded to 384), at and below it the compiled routes."""
+    before = flash_attention.route_launches["wide"]
+    for D in (1, 8, 200, 256, 264):
         q = torch.randn(1, 2, 4, D, device=dev)
         _flash_close(flash_attention(q, q, q), ref.attention_ref(q, q, q),
                      torch.float32)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["wide"] == before + 1
+
+
+# the wide route (D > 256, padded to a multiple of 128): decode, short
+# query blocks and prefill, every mask, D on and off the chunk
+FLASH_WIDE_CASES = [
+    (2, 3, Sq, Sk, D, True, None, None, (0, Sk - 10), False)
+    for D in (320, 384, 512) for Sq, Sk in ((1, 2048), (16, 300),
+                                            (17, 300), (100, 130))]
+FLASH_WIDE_CASES += [
+    (2, 2, 1, 2048, 512, True, 700, 30.0, (5, 1500), False),
+    (2, 2, 300, 300, 512, True, 128, 50.0, (0, 37), False),
+    (2, 2, 48, 130, 512, True, 40, None, None, True),
+    (1, 2, 70, 70, 1000, False, None, None, None, False),
+    (3, 2, 17, 128, 512, True, None, None, (0, 118, 128), False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_WIDE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_matches_plain(dev, case, dtype):
+    assert flash_route(case[2], dtype, case[4]) == "wide"
+    test_flash_matches_plain(dev, case, dtype)
 
 
 @pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 5, 6)]

@@ -185,5 +185,60 @@ def test_head_sizes():
                                      100, 128, 200, 256)] == \
         [16, 16, 16, 32, 64, 64, 80, 80, 96, 96, 128, 128, 256, 256]
     assert HEAD_SIZES[-1] == 256
-    with pytest.raises(ValueError, match="256"):
-        padded_head(257)
+    # above 256 the wide route: the next multiple of its 128-column chunk
+    assert [padded_head(d) for d in (257, 320, 384, 512, 513)] == \
+        [384, 384, 384, 512, 640]
+    with pytest.raises(ValueError, match="positive"):
+        padded_head(0)
+
+
+# (B, H, Sq, Sk, D, window, softcap, dtype): head sizes above 256, which
+# the CUDA wrapper sends to its wide route (padded to a multiple of 128)
+WIDE_CASES = [
+    (1, 2, 40, 40, 320, None, None, "float32"),
+    (1, 2, 40, 40, 320, 16, 30.0, "bfloat16"),
+    (2, 1, 1, 64, 512, None, None, "float32"),
+    (1, 2, 32, 64, 512, 24, 50.0, "float32"),
+    (1, 1, 40, 40, 512, 16, None, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,win,cap,dtype", WIDE_CASES)
+def test_wide_heads_match_reference_and_pallas(B, H, Sq, Sk, D, win, cap,
+                                               dtype):
+    """The plain version at D = 320 and 512 (the wide route's) against the
+    reference's `attention_ref` and its Pallas kernel in interpret mode,
+    within the JAX package's tolerances (2e-5 float32, 5e-2 bfloat16); and
+    the wide route's padding arithmetic (zero columns to `padded_head(D)`,
+    the true D's scale) equal to it within the same."""
+    from repro_torch.kernels.flash_attention import padded_head
+
+    (jq, jk, jv), (q, k, v) = _qkv(B, H, Sq, Sk, D, dtype, D + Sq)
+    kw = dict(causal=True, window=win, softcap=cap)
+    got = flash_attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, jref.attention_ref(jq, jk, jv, **kw), dtype)
+    _close(got, jflash(jq, jk, jv, block_q=32, block_k=32, **kw), dtype)
+    Dk = padded_head(D)
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
+    full = ref.attention_ref(qp, kp, vp, scale=1.0 / np.sqrt(D), **kw)
+    assert torch.all(full[..., D:] == 0)
+    _close(full[..., :D], jref.attention_ref(jq, jk, jv, **kw), dtype)
+
+
+@pytest.mark.parametrize("D", [257, 320, 512, 1000])
+@pytest.mark.parametrize("Sq", [1, 16, 17, 2048])
+def test_wide_route_above_256(D, Sq):
+    """Every call above D = 256 takes the wide route, whatever its query
+    count and type; nothing at or below 256 does."""
+    from repro_torch.kernels.flash_attention import (ROUTES, WIDE_CHUNK,
+                                                     flash_route,
+                                                     padded_head)
+
+    assert ROUTES[-1] == "wide" and WIDE_CHUNK == 128
+    for dtype in (torch.float32, torch.bfloat16):
+        assert flash_route(Sq, dtype, D) == "wide"
+        assert flash_route(Sq, dtype, 256) != "wide"
+        assert flash_route(Sq, dtype) == flash_route(Sq, dtype, 64)
+    Dk = padded_head(D)
+    assert Dk % WIDE_CHUNK == 0 and D <= Dk < D + WIDE_CHUNK

@@ -1,6 +1,7 @@
 """The rest of the port's core surface and the smollm configs against the
 JAX reference on the CPU: the exported names of `repro_torch.core` and
-`repro_torch.serve`; `RNSBasis`'s conversions and oracles,
+`repro_torch.serve` and `repro_torch.kernels.ops` (the kernel entries,
+`flash_attention` among them); `RNSBasis`'s conversions and oracles,
 `paper_n5_basis`, `tau_basis` and `dequantize` on seeded inputs;
 `reconstruct_mrc` bit-equal to the reference's on its jnp backend; the
 fields of `smollm-135m`, `rns-smollm-135m` and `rns-smollm-135m-encoded`;
@@ -29,7 +30,7 @@ from repro_torch.core import rns_linear as TL
 NEW_CONFIGS = ["smollm-135m", "rns-smollm-135m", "rns-smollm-135m-encoded"]
 
 
-@pytest.mark.parametrize("module", ["core", "serve"])
+@pytest.mark.parametrize("module", ["core", "serve", "kernels.ops"])
 def test_exported_names_equal_reference(module):
     ref = importlib.import_module(f"repro.{module}")
     mine = importlib.import_module(f"repro_torch.{module}")
@@ -42,6 +43,21 @@ def _bases():
     return [(TR.paper_n5_basis(), JR.paper_n5_basis())] + [
         (TR.tau_basis(n), JR.tau_basis(n)) for n in (5, 8, 22)] + [
         (TR.basis_for_chain(1536), JR.basis_for_chain(1536))]
+
+
+def test_ops_flash_attention_entry():
+    """The reference's last kernel entry: `ops.flash_attention` takes the
+    window and softcap as any integer and real (numpy scalars too) and
+    gives the wrapper's result."""
+    from repro_torch.kernels import flash_attention, ops
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 9, 16))
+                                .astype(np.float32)) for _ in range(3))
+    got = ops.flash_attention(q, k, v, window=np.int64(4),
+                              softcap=np.float32(20.0))
+    assert torch.equal(got, flash_attention(q, k, v, window=4,
+                                            softcap=20.0))
 
 
 @pytest.mark.parametrize("i", range(5))
