@@ -13,11 +13,13 @@ Phases, each of which must pass:
      memory), the plain version's time, a one-call PyTorch yardstick and
      the least time the card could take (bytes over HBM rate or int8 ops
      over the int8 peak, whichever is larger).  Past 16 rows the tile
-     kernel runs at both heights, the 32-row tensor-core tile it picks
-     and pinned to the 16-row `__dp4a` tile, each held bit for bit and
-     the two timed in turns (a row's own time is the launch as the tuner
-     resolves it); `prefill:` lines sum each served path's
-     launches of one layer at M = 512 for both, `decode:` lines each
+     kernel runs pinned at each height, the 32-row `mma.sync` tile and
+     the 16-row `__dp4a` tile, and for a raw int8 A operand (the staged
+     path's broadcast `rns_matmul`) first the 64-row `wgmma` + TMA tile,
+     each held bit for bit and the heights timed in turns (a row's own
+     time is the launch as the tuner resolves it); `prefill:` lines sum
+     each served path's launches of one layer at M = 512 for each
+     height, `decode:` lines each
      path's launches of one layer at M = 8 (the 16-row tile, K split over
      thread-block clusters).  The conversion kernels (`rns_forward`,
      `rns_reverse`) are timed over operand copies that outgrow the L2; an
@@ -78,7 +80,8 @@ Phases, each of which must pass:
      raw-int8 `rns_fused_crt_partial` (encoded and live) as one-channel
      slices composed through `crt_finish`; the new forms timed (`int8:`
      lines: one layer at decode and prefill beside `torch._int_mm` and
-     bf16 `torch.matmul`);
+     bf16 `torch.matmul`; at prefill the 64-row `wgmma` tile and the
+     32-row `mma.sync` tile pinned, in turns, each held bit for bit);
   7. tune    — before serve: the tile kernel's autotuner
      (`kernels/tune.py`, reading and writing a copy of the committed H100
      table under build/) on the three full models: every decode shape an
@@ -226,7 +229,10 @@ FLASH_TOL = {"bfloat16": (2.0**-7, 1e-3), "float32": (0.0, 2e-5)}
 COLD_L2_BYTES = 120 << 20          # > 2x the 50 MB L2: weights read cold
 # the raw-int8 tile instances: 16-row by channel count, then 32-row
 RAW_TILE_SOURCES = ("rns_tile_raw.cu", "rns_tile_raw_wide.cu",
-                    "rns_tile_mma_raw.cu")
+                    "rns_tile_mma_raw.cu", "rns_tile_wg_raw.cu",
+                    "rns_tile_wg_raw_live.cu")
+# the 64-row wgmma + TMA instances of the raw int8 A mode (rns_tile_wg.cuh)
+WG_TILE_SOURCES = ("rns_tile_wg_raw.cu", "rns_tile_wg_raw_live.cu")
 # rounds of the serve phase's decode timing, host and scan in turns
 DECODE_ROUNDS = 2
 ARCH = "rns-smollm-135m-fused"
@@ -325,23 +331,32 @@ def _pinned(fn, rows):
         return fn()
 
 
-def device_ms_heights(fn, n, reps=8):
-    """`device_ms` of a tile-kernel launch pinned to each tile height, the
-    32-row tensor-core tile and the 16-row ``__dp4a`` one: the two graphs
-    are replayed in turns (A B B A ...); medians by height."""
-    from repro_torch.kernels.rns_fused import TM, TM_MMA
+def _heights(wg=False):
+    """The tile heights a launch is held and timed at: the 32-row
+    ``mma.sync`` tile and the 16-row ``__dp4a`` one, and first the 64-row
+    wgmma + TMA tile for a raw int8 (``wg``) launch."""
+    from repro_torch.kernels.rns_fused import TM, TM_MMA, TM_WG
 
-    heights = (TM_MMA, TM)
+    return ((TM_WG,) if wg else ()) + (TM_MMA, TM)
+
+
+def device_ms_heights(fn, n, reps=8, wg=False):
+    """`device_ms` of a tile-kernel launch pinned to each tile height
+    (`_heights`): the graphs are replayed in turns (A B B A ..., A B C C B
+    A ... for three); medians by height."""
+    heights = _heights(wg)
     graphs = [_pinned(lambda: _capture(fn, n), h) for h in heights]
     return dict(zip(heights, _in_turns(graphs, n, reps)))
 
 
 def _in_turns(graphs, n, reps):
-    """Two captured graphs of ``n`` calls replayed in turns (A B B A ...):
-    the median time of one call in each."""
-    times = ([], [])
+    """Captured graphs of ``n`` calls replayed in turns (A B B A ... for
+    two, A B C C B A ... for three): the median time of one call in
+    each."""
+    times = tuple([] for _ in graphs)
+    order = list(range(len(graphs)))
     for r in range(reps):
-        for h in ((0, 1) if r % 2 == 0 else (1, 0)):
+        for h in (order if r % 2 == 0 else order[::-1]):
             times[h].append(_replay_ms(graphs[h], n))
     return [sorted(t)[reps // 2] for t in times]
 
@@ -358,12 +373,12 @@ def device_ms_routes(fn, n, routes, reps=8):
     return dict(zip(routes, _in_turns(graphs, n, reps)))
 
 
-def _both_heights(again, want):
-    """``again()`` at each tile height, bit for bit against ``want``."""
+def _both_heights(again, want, wg=False):
+    """``again()`` at each tile height (`_heights`), bit for bit against
+    ``want``."""
     import torch
-    from repro_torch.kernels.rns_fused import TM, TM_MMA
 
-    return {h: torch.equal(_pinned(again, h), want) for h in (TM_MMA, TM)}
+    return {h: torch.equal(_pinned(again, h), want) for h in _heights(wg)}
 
 
 def _launched_rows(fn):
@@ -377,15 +392,13 @@ def _launched_rows(fn):
 
 
 def _height_info(eq, hts, picked):
-    """Row fields and the printed part of both heights' verdicts."""
-    from repro_torch.kernels.rns_fused import TM, TM_MMA
-
+    """Row fields and the printed part of every height's verdict."""
     if eq is None:
         return {}, ""
-    info = {"rows": picked, "equal_tm32": eq[TM_MMA], "equal_tm16": eq[TM],
-            "ms_tm32": hts[TM_MMA], "ms_tm16": hts[TM]}
-    text = (f"[rows={picked}] tm32: equal={eq[TM_MMA]} "
-            f"ms={hts[TM_MMA]:.4f} tm16: equal={eq[TM]} ms={hts[TM]:.4f} ")
+    info, text = {"rows": picked}, f"[rows={picked}] "
+    for h in eq:
+        info[f"equal_tm{h}"], info[f"ms_tm{h}"] = eq[h], hts[h]
+        text += f"tm{h}: equal={eq[h]} ms={hts[h]:.4f} "
     return info, text
 
 
@@ -626,24 +639,25 @@ def _sum(rows):
 
 
 def _measure(rows, kernel, label, got, want, launch, plain, lib, pool_n,
-             nbytes, ops, rate=None, tol=None, again=None,
+             nbytes, ops, rate=None, tol=None, again=None, wg=False,
              **info):
     """Compare one launch with its plain version (bit for bit, or within
     ``tol`` = (rtol, atol), see `_within`) and time kernel, plain version
     and yardstick; appends the row and returns the verdict.  ``again``
     recomputes ``got`` for a tile-kernel launch past 16 rows: it is run
-    pinned to each tile height, each held bit for bit against ``want``,
-    and the two timed in turns; ``ms`` is the launch as the tuner resolves
-    it (``info`` holds M, N and C)."""
+    pinned to each tile height (the 64-row one too for a raw int8 launch,
+    ``wg``), each held bit for bit against ``want``, and the heights timed
+    in turns; ``ms`` is the launch as the tuner resolves it (``info`` holds
+    M, N and C)."""
     import torch
 
-    eq = None if again is None else _both_heights(again, want)
+    eq = None if again is None else _both_heights(again, want, wg)
     torch.cuda.synchronize()
     same = torch.equal(got, want)
     err = 0.0 if same else (got.double() - want.double()).abs().max().item()
     ok = same if tol is None else _within(got, want, tol)
     ok &= eq is None or all(eq.values())
-    hts = device_ms_heights(launch, pool_n) if eq else None
+    hts = device_ms_heights(launch, pool_n, wg=wg) if eq else None
     picked = _launched_rows(lambda: launch(0)) if eq else None
     ms = device_ms(launch, pool_n)
     hinfo, htext = _height_info(eq, hts, picked)
@@ -816,7 +830,7 @@ def phase_kernels_slice2(staged_shapes, chain, decode_m, prefill_m, dev):
             a.numel() + C * k * n + 4 * C * m * n, 2 * C * m * k * n,
             again=(lambda a=a, w=w_res, mods=mods, signed=signed:
                    rns_matmul(a, w, mods, signed_a=signed)) if m > 16
-            else None, leaf=label, M=m, K=k, N=n, C=C,
+            else None, wg=signed, leaf=label, M=m, K=k, N=n, C=C,
             form="broadcast" if signed else "canonical")
 
     # rns_reverse: the (C, M·N) residues of every staged linear's output
@@ -1181,7 +1195,7 @@ def _int8_plain(route, x, w, wenc, basis, s):
     return ref.rns_reverse_ref(res, ConversionPlan.for_basis(basis), s)
 
 
-def phase_int8(layer_shapes, decode_m, prefill_m, dev):
+def phase_int8(layer_shapes, decode_m, prefill_m, dev, big_m=2048):
     """The exact-int8 entry, `core.rns_linear.rns_int_matmul`, at the
     reference's signature on its three routes (fused: one raw-int8
     `rns_fused_matmul`; staged: forward, broadcast `rns_matmul`, reverse;
@@ -1196,7 +1210,9 @@ def phase_int8(layer_shapes, decode_m, prefill_m, dev):
     scale, and to its plain version; each call's launches.  Then the new
     forms timed over operand copies that outgrow the L2: the raw-int8
     fused launch (encoded and live) beside `torch._int_mm` (M > 16) and
-    bf16 `torch.matmul`, and the one-channel raw-int8 slices."""
+    bf16 `torch.matmul`, and the one-channel raw-int8 slices; past 16 rows
+    each at every tile height in turns, the raw-int8 fused launch at
+    ``big_m`` rows too."""
     import torch
     from repro_torch.core import rns_linear
     from repro_torch.core.channel_plan import ChannelPlan
@@ -1206,6 +1222,7 @@ def phase_int8(layer_shapes, decode_m, prefill_m, dev):
                                             crt_tables, local_plan)
     from repro_torch.kernels import (ref, rns_fused_crt_partial,
                                      rns_fused_matmul, tune)
+    from repro_torch.kernels.rns_fused import TM_WG, tile_launches
 
     g = torch.Generator(device=dev).manual_seed(26)
     shapes = sorted({(k, n) for _, k, n, _ in layer_shapes})
@@ -1230,6 +1247,7 @@ def phase_int8(layer_shapes, decode_m, prefill_m, dev):
     for f in fns:
         f.launches = 0
     fns[0].raw_launches = fns[4].raw_launches = 0
+    tile_launches[TM_WG] = 0
     outs, calls = [], []
     for (M, K, N), (x, w, wenc, scales) in ops.items():
         basis = basis_for_int8_matmul(K)
@@ -1252,7 +1270,8 @@ def phase_int8(layer_shapes, decode_m, prefill_m, dev):
                 "rns_forward": fns[1].launches, "rns_matmul": fns[2].launches,
                 "rns_reverse": fns[3].launches,
                 "rns_fused_crt_partial": fns[4].launches,
-                "crt_raw_int8": fns[4].raw_launches}
+                "crt_raw_int8": fns[4].raw_launches,
+                "tile_wg": tile_launches[TM_WG]}
     want_calls = {("fused", "encoded"): [1, 0, 0, 0],
                   ("fused", "live"): [1, 0, 0, 0],
                   ("staged", "encoded"): [0, 0, 1, 1],
@@ -1312,7 +1331,7 @@ def phase_int8(layer_shapes, decode_m, prefill_m, dev):
                 rns_fused_matmul(x, arg, basis), plain(), launch, plain,
                 lib, len(wpool), nbytes, 2 * M * K * N,
                 again=(lambda x=x, arg=arg, basis=basis: rns_fused_matmul(
-                    x, arg, basis)) if M > 16 else None,
+                    x, arg, basis)) if M > 16 else None, wg=True,
                 M=M, K=K, N=N, C=C, weights=wname, bf16_ms=bf16_ms,
                 bound_channels_ms=bound_ms(nbytes, 2 * C * M * K * N)[0],
                 **extra)
@@ -1342,9 +1361,51 @@ def phase_int8(layer_shapes, decode_m, prefill_m, dev):
                 M * K + K * N + 4 * L1 * M * N, 2 * M * K * N,
                 again=(lambda x=x, arg=arg, tables=tables:
                        rns_fused_crt_partial(x, arg, **tables))
-                if M > 16 else None,
+                if M > 16 else None, wg=True,
                 M=M, K=K, N=N, C=C, weights=wname)
         del pool, live
+    # the raw-int8 fused launch at a training batch's rows (M = 2048, the
+    # train phase's B 8 x S 256): every height held against the plain
+    # version and timed in turns, beside `torch._int_mm` and the bound
+    M = big_m
+    for K, N in shapes:
+        basis = basis_for_int8_matmul(K)
+        C = len(basis.moduli)
+        x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        wenc = RNSTensor.from_int8(w)
+        pool = _copies(lambda: torch.randint(0, 37, (C, K, N), dtype=torch.int8,
+                                             device=dev), C * K * N)
+        live = _copies(lambda: torch.randint(-128, 128, (K, N),
+                                             dtype=torch.int8, device=dev),
+                       K * N)
+        live_t = _copies(lambda: torch.randint(-128, 128, (N, K),
+                                               dtype=torch.int8, device=dev),
+                         K * N)
+        lib = (lambda i, x=x, live_t=live_t: torch._int_mm(x, live_t[i].t()),
+               len(live_t))
+        for wname, arg, wpool in (("encoded", wenc.residues, pool),
+                                  ("live", w, live)):
+            def launch(i, x=x, wpool=wpool, basis=basis):
+                return rns_fused_matmul(x, wpool[i], basis)
+
+            def plain(x=x, arg=arg, basis=basis):
+                return ref.rns_fused_matmul_ref(x, arg, basis)
+
+            nbytes = M * K + arg.numel() + 4 * M * N
+            ok &= _measure(
+                rows, "rns_fused_matmul:raw_int8",
+                f"M={M} K={K} N={N} {wname}",
+                rns_fused_matmul(x, arg, basis), plain(), launch, plain,
+                lib, len(wpool), nbytes, 2 * M * K * N,
+                again=lambda x=x, arg=arg, basis=basis: rns_fused_matmul(
+                    x, arg, basis), wg=True,
+                M=M, K=K, N=N, C=C, weights=wname,
+                bf16_ms=0.0,
+                bound_channels_ms=bound_ms(nbytes, 2 * C * M * K * N)[0])
+        del pool, live, live_t
     return {"launches": launches, "calls": len(calls), "calls_ok": calls_ok,
             "exact_ok": bool(exact_ok), "plain_ok": bool(plain_ok),
             "sweeps": swept, "rows": rows, "ok": bool(ok and calls_ok
@@ -1360,7 +1421,8 @@ def int8_per_layer(rows, layer_shapes, M, kernel, weights):
                    and r["weights"] == weights)
               for _, k, n, _ in layer_shapes]
     agg = _sum(picked)
-    for key in ("bf16_ms", "bound_channels_ms", "int_mm_row_major_ms"):
+    for key in ("bf16_ms", "bound_channels_ms", "int_mm_row_major_ms",
+                "ms_tm64", "ms_tm32"):
         agg[key] = sum(r.get(key, 0.0) for r in picked)
     return agg
 
@@ -1380,7 +1442,9 @@ def print_int8(res, layer_shapes, decode_m, prefill_m, smi):
     for kernel, what in (("rns_fused_matmul:raw_int8", "launches"),
                          ("rns_fused_crt_partial:raw_int8",
                           "one-channel slices")):
-        for M in (decode_m, prefill_m):
+        big = sorted({r["M"] for r in res["rows"] if r["kernel"] == kernel}
+                     - {decode_m, prefill_m})
+        for M in (decode_m, prefill_m, *big):
             parts = []
             for weights in ("encoded", "live"):
                 a = int8_per_layer(res["rows"], layer_shapes, M, kernel,
@@ -1388,17 +1452,22 @@ def print_int8(res, layer_shapes, decode_m, prefill_m, smi):
                 lib = ("n/a" if a["library_ms"] is None
                        else f"{1e3 * a['library_ms']:.1f} us")
                 fused = kernel.startswith("rns_fused_matmul")
-                if fused and a["library_ms"] is not None:
+                if fused and a["int_mm_row_major_ms"]:
                     lib += (f" (row-major mat2 "
                             f"{1e3 * a['int_mm_row_major_ms']:.1f} us)")
-                yard = (f"torch._int_mm {lib}, bf16 torch.matmul "
-                        f"{1e3 * a['bf16_ms']:.1f} us"
-                        if fused else f"the full-basis raw-int8 launch {lib}")
+                yard = (f"torch._int_mm {lib}" + (
+                    f", bf16 torch.matmul {1e3 * a['bf16_ms']:.1f} us"
+                    if a["bf16_ms"] else "")
+                    if fused else f"the full-basis raw-int8 launch {lib}")
                 chans = (f"; over the C channels "
                          f"{1e3 * a['bound_channels_ms']:.2f} us"
                          if fused else "")
-                parts.append(f"{weights} {1e3 * a['ms']:.1f} us ({yard}, "
-                             f"bound {1e3 * a['bound_ms']:.2f} us{chans})")
+                turns = ("" if M <= 16 else
+                         f"; in turns: 64-row wgmma {1e3 * a['ms_tm64']:.1f}"
+                         f" us, 32-row mma.sync {1e3 * a['ms_tm32']:.1f} us")
+                parts.append(f"{weights} {1e3 * a['ms']:.1f} us as launched"
+                             f"{turns} ({yard}, bound "
+                             f"{1e3 * a['bound_ms']:.2f} us{chans})")
             print(f"int8: {kernel} one layer's 7 {what} at M={M}: "
                   + "; ".join(parts) + f" | on {smi}")
     if not res["ok"]:
@@ -1630,9 +1699,10 @@ def per_layer(rows, rows2, layer_shapes, m):
              "staged": [row2("rns_matmul", name)
                         for name, _, _, _ in layer_shapes]}
     keys = ("ms", "bound_ms", "library_ms") + (
-        ("ms_tm32", "ms_tm16") if m > 16 else ())
+        ("ms_tm64", "ms_tm32", "ms_tm16") if m > 16 else ())
     return {path: {"launches": len(rs),
-                   **{k: sum(r[k] for r in rs) for k in keys}}
+                   **{k: sum(r[k] for r in rs) for k in keys
+                      if all(k in r for r in rs)}}
             for path, rs in paths.items()}
 
 
@@ -1770,7 +1840,8 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     import numpy as np
     import torch
     from repro_torch.kernels import tune
-    from repro_torch.kernels.rns_fused import TM, TM_MMA, tile_launches
+    from repro_torch.kernels.rns_fused import (TM, TM_MMA, TM_WG,
+                                               tile_launches)
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import Engine
 
@@ -1802,11 +1873,11 @@ def phase_serve(cfg, dev, lanes, n_prompts=4, new_tokens=32, smax=128):
     tiles = (want["rns_fused_matmul"] + want["rns_matmul"]) // new_tokens
     if sum(heights.values()) != tiles * new_tokens or \
             not heights[TM] >= tiles * (new_tokens - 1) or \
-            heights[TM_MMA] > tiles:
+            heights[TM_MMA] + heights[TM_WG] > tiles:
         raise AssertionError(f"{cfg.name} tile launches by height "
                              f"{heights}: expected every decode launch at "
-                             f"{TM} rows, the {TM_MMA}-row ones among the "
-                             f"{tiles} prefill launches")
+                             f"{TM} rows, the {TM_MMA}- and {TM_WG}-row "
+                             f"ones among the {tiles} prefill launches")
     for p, o in zip(prompts, out):
         gen = o[len(p):]
         if o[:len(p)] != p or len(gen) != new_tokens or \
@@ -2448,9 +2519,11 @@ ZOO = ["gemma2-2b", "h2o-danube-1.8b", "hymba-1.5b",
 # the port to against the reference (tests/test_torch_families.py), a
 # share of the largest |logit|
 ZOO_RTOL = 0.08
-# the host loop's timed generates: 8 decode steps (its per-token cost
-# does not change with the position; the scan's generates take them all)
-FAMILY_HOST_TOKENS = 9
+# the host loop's timed generates: 5 decode steps (its per-token cost
+# does not change with the position; the scan's generates take them all;
+# cut from 8 to pay for the 64-row tile's rows in the int8 and staged
+# kernel phases)
+FAMILY_HOST_TOKENS = 6
 # the scheduled mamba2 serve: 4 slots of 512 tokens, chunks of 8 steps
 FAMILY_SCHED = {"slots": 4, "block_size": 16, "slot_tokens": 512,
                 "decode_chunk": 8}
@@ -4436,6 +4509,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.configs.base import get_config, get_smoke_config
     from repro_torch.kernels import tune
+    from repro_torch.kernels.rns_fused import TM_WG
 
     # the tuner reads and writes a copy of the committed H100 table, never
     # the tree or the user's cache
@@ -4578,9 +4652,11 @@ def main() -> int:
               f"{1e3 * agg['bound_ms']:.2f} us | on {smi}")
     prefill = per_layer(rows, rows2, layer_shapes, lanes * bucket)
     for path, agg in prefill.items():
+        tm64 = ("" if "ms_tm64" not in agg else
+                f"all 64-row (wgmma) {1e3 * agg['ms_tm64']:.1f} us, ")
         print(f"prefill: {path} one layer's tile launches at M="
-              f"{lanes * bucket}: as launched {1e3 * agg['ms']:.1f} us, all "
-              f"32-row {1e3 * agg['ms_tm32']:.1f} us, all 16-row "
+              f"{lanes * bucket}: as launched {1e3 * agg['ms']:.1f} us, "
+              f"{tm64}all 32-row {1e3 * agg['ms_tm32']:.1f} us, all 16-row "
               f"{1e3 * agg['ms_tm16']:.1f} us, bf16 torch.matmul "
               f"{1e3 * agg['library_ms']:.1f} us, bound "
               f"{1e3 * agg['bound_ms']:.1f} us | on {smi}")
@@ -4930,6 +5006,24 @@ def main() -> int:
               rows_of("rns_fused_crt_partial:raw_int8", int8["rows"]))
         | {"sources": [src + f for f in RAW_TILE_SOURCES]},
     ]
+    # the 64-row wgmma + TMA instances of the raw int8 A mode: launched
+    # wherever the tuner picks them on the int8 entry's run and the staged
+    # serve (its prefill's broadcast rns_matmul); timed pinned, per layer
+    # at M = lanes x bucket (encoded, in turns with the 32-row instance)
+    wg_paths = {"int8:rns_int_matmul": int8["launches"]["tile_wg"]}
+    for arch, sv in serves.items():
+        got = sv["tile_launches_by_rows"].get(TM_WG, 0)
+        if got:
+            wg_paths[arch] = got
+    wg_agg = int8_per_layer(int8["rows"], layer_shapes, lanes * bucket,
+                            "rns_fused_matmul:raw_int8", "encoded")
+    kernels.append(
+        entry("rns_tile_wg:raw_int8", src + "rns_tile_wg.cuh",
+              "src/repro/kernels/rns_fused.py:352", wg_paths,
+              dict(wg_agg, ms=wg_agg["ms_tm64"]),
+              [r for r in int8["rows"] + rows2 if "ms_tm64" in r])
+        | {"sources": [src + f for f in WG_TILE_SOURCES],
+           "ms_tm32": wg_agg["ms_tm32"]})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "

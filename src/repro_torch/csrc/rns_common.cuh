@@ -107,6 +107,8 @@ constexpr int LIMB_MASK = (1 << LIMB_BITS) - 1;
 constexpr int TM = 16;     // output rows per block (__dp4a tile)
 constexpr int TM_MMA = 32; // output rows per block (tensor-core tile)
 constexpr int MMA_MAXC = 7;    // widest basis compiled for the 32-row tile
+constexpr int TM_WG = 64;  // output rows per block (wgmma tile, raw int8 A;
+                           // rns_tile_wg.cuh)
 constexpr int TN = 64;     // output columns per block
 constexpr int TK = 32;     // K step staged in shared memory
 constexpr int KPAD = TK + 4;   // 36-byte rows: conflict-free int32 reads
@@ -1502,3 +1504,9 @@ int rns_launch_tile_mma_raw(const TileArgs& a, const FusedPlan& plan,
                             cudaStream_t stream);
 int rns_launch_tile_mma_int8(const TileArgs& a, const FusedPlan& plan,
                              cudaStream_t stream);
+// The 64-row wgmma + TMA instances of the raw int8 A mode (rns_tile_wg.cuh),
+// encoded and live weights in files of their own.
+int rns_launch_tile_wg_raw(const TileArgs& a, const FusedPlan& plan,
+                           cudaStream_t stream);
+int rns_launch_tile_wg_raw_live(const TileArgs& a, const FusedPlan& plan,
+                                cudaStream_t stream);

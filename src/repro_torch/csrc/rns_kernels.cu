@@ -495,6 +495,11 @@ int rns_tile_launch(int amode, const TileArgs* a, const FusedPlan* plan,
         return -1;
     }
   }
+  if (a->tm == rns::TM_WG) {
+    if (amode != rns::A_SHARED) return -1;
+    return a->encoded ? rns_launch_tile_wg_raw(*a, *plan, s)
+                      : rns_launch_tile_wg_raw_live(*a, *plan, s);
+  }
   if (a->tm != rns::TM) return -1;
   const bool wide = plan->C > rns::SPLIT_C;
   switch (amode) {

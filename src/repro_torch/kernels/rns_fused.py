@@ -44,14 +44,15 @@ from .ref import rns_fused_crt_partial_ref, rns_fused_matmul_ref
 __all__ = ["rns_fused_matmul", "rns_fused_crt_partial"]
 
 _TN, _TK = 64, 32                   # tile width and K step of the kernel
-# The two tile heights (rns::TM, rns::TM_MMA): the 16-row __dp4a tile and
-# the 32-row tensor-core tile, compiled for bases of up to _MMA_MAXC
-# channels.
-TM, TM_MMA, _MMA_MAXC = 16, 32, 7
+# The three tile heights (rns::TM, rns::TM_MMA, rns::TM_WG): the 16-row
+# __dp4a tile, the 32-row mma.sync tile and the 64-row wgmma + TMA tile of
+# the raw int8 A mode (csrc/rns_tile_wg.cuh), the last two compiled for
+# bases of up to _MMA_MAXC channels.
+TM, TM_MMA, TM_WG, _MMA_MAXC = 16, 32, 64, 7
 _MAX_SPLITS = 8                     # rns::MAX_SPLITS: the portable cluster
 _pinned_rows: int | None = None
 # launches of the tile kernel by tile height, over every entry
-tile_launches = {TM: 0, TM_MMA: 0}
+tile_launches = {TM: 0, TM_MMA: 0, TM_WG: 0}
 # rns::AMode and rns::Emit of csrc/rns_common.cuh
 A_F32, A_BF16, A_SHARED, A_PLANES = 0, 1, 2, 3
 EMIT_FLOAT, EMIT_RESIDUES, EMIT_CANONICAL, EMIT_CRT_LIMBS = 0, 1, 2, 3
@@ -71,18 +72,40 @@ def _kernel_plan(basis, K: int, signed: bool):
     return plan, conv, _build.plan_struct(plan, conv)
 
 
-def tile_rows(M: int, N: int, C: int, sms: int, vec: bool = True) -> int:
+def wg_ok(amode: int, C: int, K: int, vec: bool, tma: bool) -> bool:
+    """Whether the 64-row wgmma + TMA tile takes a launch: the raw int8 A
+    operand (``A_SHARED``), C <= 7, ``vec`` weights (N a multiple of 4,
+    aligned rows: its producer reads them four bytes or more a load) and
+    ``tma``: A rows TMA can read, K a multiple of 16 and the plane 16-byte
+    aligned."""
+    return amode == A_SHARED and C <= _MMA_MAXC and vec and tma \
+        and K % 16 == 0
+
+
+def route_rows(tm: int, amode: int, C: int, K: int, vec: bool,
+               tma: bool) -> int:
+    """The route rule of the 64-row tile: a launch it cannot take
+    (`wg_ok` false) runs on the 32-row ``mma.sync`` tile instead, whatever
+    chose 64 (the static rule, a table row or a pin)."""
+    if tm == TM_WG and not wg_ok(amode, C, K, vec, tma):
+        return TM_MMA
+    return tm
+
+
+def tile_rows(M: int, N: int, C: int, sms: int, vec: bool = True,
+              wg: bool = False) -> int:
     """Tile height of an (M, N) launch in a C-channel basis on ``sms`` SMs:
-    the 32-row tensor-core tile for M > 16 (prefill) when it is compiled
-    for C, the operands are ``vec`` (N and K multiples of 4, aligned rows:
-    the tile reads four values a load) and its grid has a tile for every
-    SM; the 16-row ``__dp4a`` tile otherwise (decode, bases of 8+
-    channels, odd shapes, and narrow launches, whose few 32-row tiles
-    would leave SMs idle: only the 16-row tile splits K)."""
+    for M > 16 (prefill) with the tensor-core tiles compiled for C, the
+    operands ``vec`` (N and K multiples of 4, aligned rows: the tiles read
+    four values a load) and a grid with a tile for every SM, the 64-row
+    wgmma tile where it takes the launch (``wg``: `wg_ok`), else the 32-row
+    ``mma.sync`` tile; the 16-row ``__dp4a`` tile otherwise (decode, bases
+    of 8+ channels, odd shapes, and narrow launches, whose few tiles would
+    leave SMs idle: only the 16-row tile splits K)."""
     if _pinned_rows is not None:
         return _pinned_rows
     if M > TM and C <= _MMA_MAXC and vec and _tiles(M, N, TM_MMA) >= sms:
-        return TM_MMA
+        return TM_WG if wg else TM_MMA
     return TM
 
 
@@ -92,7 +115,7 @@ def _pin_tile_rows(rows: int):
     the two heights against each other (the card's tests and
     ``chip_smoke.py``; no served path pins)."""
     global _pinned_rows
-    if rows not in (TM, TM_MMA):
+    if rows not in (TM, TM_MMA, TM_WG):
         raise ValueError(f"tile height {rows} is not compiled")
     prev, _pinned_rows = _pinned_rows, rows
     try:
@@ -123,10 +146,10 @@ def _split_k(M: int, K: int, N: int, sms: int,
 
 
 def static_choice(M: int, K: int, N: int, C: int, sms: int,
-                  vec: bool = True) -> tuple[int, int]:
+                  vec: bool = True, wg: bool = False) -> tuple[int, int]:
     """(tile height, K splits) of the static rule, `tile_rows` and
     `_split_k`: the tuner's fallback (`tune.blocks_for`)."""
-    tm = tile_rows(M, N, C, sms, vec)
+    tm = tile_rows(M, N, C, sms, vec, wg)
     return tm, _split_k(M, K, N, sms, tm)[0]
 
 
@@ -198,16 +221,20 @@ def launch_tile(amode: int, emit: int, st: _build.Plan, *, x, w, out,
     # A (and the gate) four k values at a time
     avec = K % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
                               for t in (x, gate) if t is not None)
+    # A's rows by TMA (the 64-row tile): 16-byte rows and plane
+    tma = K % 16 == 0 and x.data_ptr() % 16 == 0
     sms = _build.num_sms(x.device.index or 0)
     if _pinned_rows is not None:
-        tm = _pinned_rows
+        tm = route_rows(_pinned_rows, amode, C, K, vec, tma)
         splits = _split_k(M, K, N, sms, tm)[0]
     else:
         backend, dtype = launch_variant(name, amode, emit, gate is not None,
                                         w.ndim == 3)
         tm, splits = tune.choose(backend, dtype, M, K, N, C,
                                  device=x.device, sms=sms, vec=vec,
-                                 avec=avec, launch=(amode, emit, st))
+                                 avec=avec, tma=tma,
+                                 launch=(amode, emit, st))
+        tm = route_rows(tm, amode, C, K, vec, tma)
     if tm == TM_MMA and (C > _MMA_MAXC or not (vec and avec)):
         raise ValueError(f"{name}: the {TM_MMA}-row tile is compiled for "
                          f"C <= {_MMA_MAXC} and N, K multiples of 4 with "

@@ -2,9 +2,10 @@
 
 The tile kernel behind `rns_fused_matmul`, `rns_matmul` and
 `rns_fused_crt_partial` has a fixed width and K step (64 columns, 32 deep);
-its free choices are the tile height (``TM`` = 16, the ``__dp4a`` tile, or
-``TM_MMA`` = 32, the tensor-core tile) and the cluster K split of a 16-row
-launch (1 to ``MAX_SPLITS`` = 8 blocks; the 32-row tile never splits).  So
+its free choices are the tile height (``TM`` = 16, the ``__dp4a`` tile,
+``TM_MMA`` = 32, the ``mma.sync`` tile, or ``TM_WG`` = 64, the wgmma + TMA
+tile of the raw int8 A mode) and the cluster K split of a 16-row launch (1
+to ``MAX_SPLITS`` = 8 blocks; the taller tiles never split).  So
 a "block" here is ``(tm, splits)``, a table row ``[tm, splits]``.
 `blocks_for` resolves it:
 
@@ -15,9 +16,11 @@ a "block" here is ``(tm, splits)``, a table row ``[tm, splits]``.
      with CUDA events, persisted;
   3. on the CPU, on a miss while a CUDA graph is being captured (counted in
      ``stats["capture_misses"]``; a capture never sweeps or writes), and
-     where a stored row is not admissible for the call (the 32-row tile
-     needs aligned operand rows, which the key does not hold): the static
-     rule, `rns_fused.static_choice`.
+     where a stored row is not admissible for the call (the 32- and
+     64-row tiles need aligned operand rows, which the key does not hold):
+     the static rule, `rns_fused.static_choice`.  A chosen 64-row tile that
+     the call's operands rule out runs on the 32-row tile
+     (`rns_fused.route_rows`).
 
 Outputs are bit-equal for every choice (the integer stages are exact and
 the float epilogue runs per element), so the tuner changes when blocks
@@ -52,18 +55,23 @@ __all__ = ["CANDIDATES", "DECODE_CANDIDATES", "SMEM_BUDGET_BYTES",
 Blocks = Tuple[int, int]
 
 MAX_SPLITS = rf._MAX_SPLITS
-# Sweep candidates: the 32-row tile, and the 16-row tile at every cluster
-# size.  Decode shapes (M <= 16 rows) sweep only the 16-row tile: a 32-row
-# tile there computes at least half padding.
+# Sweep candidates: the 64-row tile (raw int8 A only: `inadmissible` drops
+# it for the other modes), the 32-row tile, and the 16-row tile at every
+# cluster size.  Decode shapes (M <= 16 rows) sweep only the 16-row tile: a
+# taller tile there computes at least half padding.
 DECODE_CANDIDATES: Tuple[Blocks, ...] = tuple(
     (rf.TM, s) for s in range(1, MAX_SPLITS + 1))
-CANDIDATES: Tuple[Blocks, ...] = ((rf.TM_MMA, 1),) + DECODE_CANDIDATES
+CANDIDATES: Tuple[Blocks, ...] = ((rf.TM_WG, 1), (rf.TM_MMA, 1)) + \
+    DECODE_CANDIDATES
 
 # An H100 block may hold 227 KB of dynamic shared memory.
 SMEM_BUDGET_BYTES = 227 * 1024
 # csrc/rns_common.cuh: K step, the 36-byte padded weight rows, the 16-row
 # tile's weight ring and the widest basis compiled
 _TK, _KPAD, _STAGES, _MAXC = rf._TK, rf._TK + 4, 3, 11
+# csrc/rns_tile_wg.cuh: the 64-row tile's K bytes a stage and columns (A
+# stage 64 x 128, a channel's weights 32 x 128)
+_WG_TK, _WG_TN = 128, 32
 
 COMMITTED_TABLE = Path(__file__).resolve().with_name("tune_table_h100.json")
 # Decode batch sizes of the serving paths: the static engine decodes at
@@ -126,7 +134,14 @@ def smem_footprint(tm: int, C: int, *, amode: int = rf.A_PLANES,
     """Shared memory of one block of the tile instance (height, C, A mode,
     encoded): the 16-row tile's dynamic bytes (``Tile16<C, AM,
     ENCODED>::BYTES``, as the library's ``rns_tile16_smem`` reports), the
-    32-row tile's static operand stages; 0 for an instance not compiled."""
+    32-row tile's static operand stages, the 64-row tile's dynamic ring
+    (``WgSmem<C>::BYTES``); 0 for an instance not compiled."""
+    if tm == rf.TM_WG:
+        if not 1 <= C <= rf._MMA_MAXC or amode != rf.A_SHARED:
+            return 0
+        stages = 4 if C <= 4 else 3
+        return 1024 + stages * (rf.TM_WG + C * _WG_TN) * _WG_TK + \
+            16 * stages
     ap = C if amode == rf.A_PLANES else 1
     # the instances `launch_tile` (csrc/rns_common.cuh) compiles: live
     # weights with every A mode but the residue planes, the 32-row tile up
@@ -147,19 +162,26 @@ def smem_footprint(tm: int, C: int, *, amode: int = rf.A_PLANES,
 def inadmissible(blocks, M: int, K: int, N: int, C: int, *,
                  amode: int = rf.A_PLANES, encoded: bool = True,
                  vec: Optional[bool] = None,
-                 avec: Optional[bool] = None) -> List[str]:
+                 avec: Optional[bool] = None,
+                 tma: Optional[bool] = None) -> List[str]:
     """Why the launch cannot run at ``blocks`` = (tm, splits), as the
-    launcher and ``prepare_tile16`` (`csrc/rns_common.cuh`) require; empty
-    when it can.  ``vec``/``avec`` (operand rows four values apart and
-    aligned) default to N and K multiples of 4."""
+    launchers and ``prepare_tile16`` (`csrc/rns_common.cuh`,
+    `rns_tile_wg.cuh`) require; empty when it can.  ``vec``/``avec``
+    (operand rows four values apart and aligned) default to N and K
+    multiples of 4, ``tma`` (A rows TMA can read) to K a multiple of 16."""
     tm, splits = (int(b) for b in blocks)
     vec = N % 4 == 0 if vec is None else vec
     avec = K % 4 == 0 if avec is None else avec
+    tma = K % 16 == 0 if tma is None else tma
     why = []
-    if tm not in (rf.TM, rf.TM_MMA):
-        why.append(f"tile height {tm} is not compiled (only {rf.TM} and "
-                   f"{rf.TM_MMA})")
+    if tm not in (rf.TM, rf.TM_MMA, rf.TM_WG):
+        why.append(f"tile height {tm} is not compiled (only {rf.TM}, "
+                   f"{rf.TM_MMA} and {rf.TM_WG})")
         return why
+    if tm == rf.TM_WG and not rf.wg_ok(amode, C, K, vec, tma):
+        why.append(f"the {tm}-row tile takes the raw int8 A operand at C <= "
+                   f"{rf._MMA_MAXC}, N a multiple of 4 and K of 16 with "
+                   f"aligned rows (A mode {amode}, C={C}, N={N}, K={K})")
     if not 1 <= splits <= (MAX_SPLITS if tm == rf.TM else 1):
         why.append(f"{splits} K splits: the {tm}-row tile takes 1"
                    + (f" to {MAX_SPLITS}" if tm == rf.TM else
@@ -408,10 +430,10 @@ def _default_sweep(M: int, K: int, N: int, C: int, dtype: str, backend: str,
 
 
 # ---------------------------------------------------------------- resolve --
-def _static(M, K, N, C, device, sms, vec) -> Blocks:
+def _static(M, K, N, C, device, sms, vec, wg=False) -> Blocks:
     if sms is None:
         sms = (_sms(device) if device.type == "cuda" else 132)
-    return rf.static_choice(M, K, N, C, sms, vec)
+    return rf.static_choice(M, K, N, C, sms, vec, wg)
 
 
 def _sms(device) -> int:
@@ -423,12 +445,14 @@ def _sms(device) -> int:
 
 def _resolve(M: int, K: int, N: int, C: int, *, dtype: str, backend: str,
              device, vec, avec, sweep, candidates, persist: bool, launch,
-             sms, moduli) -> Tuple[Blocks, bool]:
+             sms, moduli, tma=None) -> Tuple[Blocks, bool]:
     """(choice, whether it is the same on every later call)."""
     v = parse_shape_key(shape_key(M, K, N, C, dtype, backend, kind="-"))
     amode, encoded = v["amode"], v["encoded"]
     vec = N % 4 == 0 if vec is None else vec
     avec = K % 4 == 0 if avec is None else avec
+    tma = K % 16 == 0 if tma is None else tma
+    wg = rf.wg_ok(amode, C, K, vec, tma)
     device = torch.device(device if device is not None else
                           "cuda" if torch.cuda.is_available() else "cpu")
     table = _load_table()
@@ -438,16 +462,16 @@ def _resolve(M: int, K: int, N: int, C: int, *, dtype: str, backend: str,
         row = tuple(int(b) for b in hit)
         if len(row) == 2 and not inadmissible(
                 row, M, K, N, C, amode=amode, encoded=encoded, vec=vec,
-                avec=avec):
+                avec=avec, tma=tma):
             return row, True
-        return _static(M, K, N, C, device, sms, vec and avec), True
+        return _static(M, K, N, C, device, sms, vec and avec, wg), True
 
     if sweep is None or sweep is False:
         if sweep is False or device.type != "cuda":
-            return _static(M, K, N, C, device, sms, vec and avec), True
+            return _static(M, K, N, C, device, sms, vec and avec, wg), True
         if torch.cuda.is_current_stream_capturing():
             stats["capture_misses"] += 1
-            return _static(M, K, N, C, device, sms, vec and avec), False
+            return _static(M, K, N, C, device, sms, vec and avec, wg), False
         sweep = _default_sweep(M, K, N, C, dtype, backend, device, launch,
                                moduli)
     if candidates is None:
@@ -459,11 +483,11 @@ def _resolve(M: int, K: int, N: int, C: int, *, dtype: str, backend: str,
         c = _normalized((int(c[0]), int(c[1])), K)
         if c not in seen and not inadmissible(
                 c, M, K, N, C, amode=amode, encoded=encoded, vec=vec,
-                avec=avec):
+                avec=avec, tma=tma):
             seen.add(c)
             pool.append(c)
     if not pool:
-        pool = [_static(M, K, N, C, device, sms, vec and avec)]
+        pool = [_static(M, K, N, C, device, sms, vec and avec, wg)]
     best = min(pool, key=sweep)
     stats["sweeps"] += 1
     if persist:
@@ -480,7 +504,7 @@ def blocks_for(M: int, K: int, N: int, C: int, *, dtype: str = "int8",
                vec: Optional[bool] = None, avec: Optional[bool] = None,
                sweep=None, candidates: Optional[Sequence[Blocks]] = None,
                persist: bool = True, launch=None, sms: Optional[int] = None,
-               moduli=None) -> Blocks:
+               moduli=None, tma: Optional[bool] = None) -> Blocks:
     """Resolve (tile height, K splits) for one tile-kernel launch.
 
     Table hit → the stored row (the static rule if it is not admissible
@@ -493,23 +517,25 @@ def blocks_for(M: int, K: int, N: int, C: int, *, dtype: str = "int8",
     return _resolve(M, K, N, C, dtype=dtype, backend=backend, device=device,
                     vec=vec, avec=avec, sweep=sweep, candidates=candidates,
                     persist=persist, launch=launch, sms=sms,
-                    moduli=moduli)[0]
+                    moduli=moduli, tma=tma)[0]
 
 
 def choose(backend: str, dtype: str, M: int, K: int, N: int, C: int, *,
-           device, sms: int, vec: bool, avec: bool, launch) -> Blocks:
+           device, sms: int, vec: bool, avec: bool, launch,
+           tma: bool = False) -> Blocks:
     """`blocks_for` on the launch path (`rns_fused.launch_tile`), memoized
     per table and call signature, so a hit costs one dict lookup."""
     if _static_only or device.type != "cuda":
-        return rf.static_choice(M, K, N, C, sms, vec and avec)
+        wg = rf.wg_ok(amode_for(dtype, "_res" in backend), C, K, vec, tma)
+        return rf.static_choice(M, K, N, C, sms, vec and avec, wg)
     resolved = _RESOLVED.setdefault(cache_path(), {})
-    sig = (backend, dtype, C, M, K, N, device.index, vec, avec)
+    sig = (backend, dtype, C, M, K, N, device.index, vec, avec, tma)
     got = resolved.get(sig)
     if got is None:
         got, stable = _resolve(M, K, N, C, dtype=dtype, backend=backend,
                                device=device, vec=vec, avec=avec, sweep=None,
                                candidates=None, persist=True, launch=launch,
-                               sms=sms, moduli=None)
+                               sms=sms, moduli=None, tma=tma)
         if stable:
             resolved[sig] = got
     return got

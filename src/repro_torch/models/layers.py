@@ -40,6 +40,8 @@ __all__ = ["linear", "linear_qkv", "mlp_chain", "rms_norm", "rope",
            "update_cache_ring", "silu", "gelu", "act_fn", "paged_write",
            "paged_gather", "paged_kpos", "Leaf", "dense_leaf",
            "materialize", "matmul", "matmul_exact", "embed_rows",
+           "even_shards", "local_block", "local_weight", "local_matmul",
+           "from_local_blocks", "tp_matmul", "merge_heads",
            "split_dim", "lookup"]
 
 NEG_INF = -1e30
@@ -101,19 +103,16 @@ class _EmbedRows(torch.autograd.Function):
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
         ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        ctx.placements = getattr(table, "placements", None)
         return lookup(table, ids)
 
     @staticmethod
     def backward(ctx, g):
         ids, = ctx.saved_tensors
+        if hasattr(g, "placements"):
+            return _embed_grad_on_shards(ctx, g, ids), None
         flat = ids.reshape(-1)
         g64 = g.reshape(flat.numel(), -1).to(torch.float64)
-        if hasattr(g, "placements"):
-            # a mesh run (DTensor): one one-hot product, the ids' shards
-            # summed by DTensor's reduction into the table's placement
-            vocab = torch.arange(ctx.rows, device=g.device)
-            onehot = (flat[:, None] == vocab[None, :]).to(torch.float64)
-            return (onehot.T @ g64).to(ctx.dtype), None
         if g.device.type == "meta":
             # a dry run has no ids to read: take the most distinct ids the
             # batch can hold, so the shapes bound the work
@@ -130,6 +129,47 @@ class _EmbedRows(torch.autograd.Function):
             onehot = (inv[None, :] == cols[:, None]).to(torch.float64)
             out[uniq[s:s + step]] = (onehot @ g64).to(ctx.dtype)
         return out, None
+
+
+def _embed_grad_on_shards(ctx, g, ids):
+    """A mesh run's (DTensor) table gradient: each rank's one-hot float64
+    product over its own tokens (the ids' batch sharding) and its own
+    vocab rows (the table's vocab sharding), summed over the token shards
+    into the table's placement.  DTensor's own strategy for the global
+    product gathers the vocab, and the model ranks each repeat it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = g.device_mesh
+    nd = mesh.ndim
+    tpl = ctx.placements or [Replicate()] * nd
+    vocab = [i for i, p in enumerate(tpl) if isinstance(p, Shard)
+             and p.dim == 0]
+    n_v = math.prod(mesh.size(i) for i in vocab)
+    if ctx.rows % n_v:
+        vocab, n_v = [], 1
+    ipl = getattr(ids, "placements", [Replicate()] * nd)
+    tok, n = [], 1
+    for i, p in enumerate(ipl):
+        if isinstance(p, Shard) and p.dim == 0 and i not in vocab \
+                and ids.shape[0] % (n * mesh.size(i)) == 0:
+            tok.append(i)
+            n *= mesh.size(i)
+    rows_pl = [Shard(0) if i in tok else Replicate() for i in range(nd)]
+
+    li = local_block(ids, mesh, rows_pl).reshape(-1)
+    gl = local_block(g, mesh, rows_pl).reshape(li.numel(), -1).to(
+        torch.float64)
+    rows = ctx.rows // n_v
+    start = 0
+    for i in vocab:
+        start = start * mesh.size(i) + mesh.get_local_rank(i)
+    start *= rows
+    cols = torch.arange(start, start + rows, device=li.device)
+    onehot = (li[:, None] == cols[None, :]).to(torch.float64)
+    out = DTensor.from_local(
+        onehot.T @ gl, mesh, [Shard(0) if i in vocab else Partial() if i in tok
+                              else Replicate() for i in range(nd)],
+        run_check=False)
+    return out.redistribute(mesh, tpl).to(ctx.dtype)
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -209,8 +249,110 @@ def linear(x: torch.Tensor, w, spec="bf16", exact: bool = False
 def matmul(x: torch.Tensor, w: torch.Tensor, exact: bool = False
            ) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) in x's dtype: `matmul_exact` when
-    ``exact``, the library GEMM otherwise."""
+    ``exact``, the library GEMM otherwise.  On DTensors it runs as tensor
+    and data parallelism place it (`tp_matmul`)."""
+    if hasattr(x, "placements") and hasattr(w, "placements") and w.ndim == 2:
+        return tp_matmul(x, w, exact)
     return matmul_exact(x, w) if exact else torch.matmul(x, w)
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, exact: bool = False
+              ) -> torch.Tensor:
+    """A mesh run's (DTensor) x (..., d_in) @ w (d_in, d_out), forward and
+    backward each on every rank's own blocks (`_TPMatmul`)."""
+    return _TPMatmul.apply(x, w, exact)
+
+
+def _tp_plan(x, w):
+    """Per mesh dim, the placements (x, w, y) of x @ w under tensor and
+    data parallelism.  Along "model": where it shards w's output columns,
+    x is whole (features gathered, partial sums reduced) and y keeps the
+    column sharding; where it shards w's input rows, x's features are
+    sharded the same way and y is a partial sum.  Along any other dim w is
+    whole (an FSDP shard gathered), x keeps a batch-dim sharding and y
+    with it, and x's features are gathered.  DTensor's own strategies
+    price only the bytes they move: they may gather a weight along
+    "model", which repeats the product and its gradient products on every
+    model rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = w.device_mesh.mesh_dim_names or ()
+    last = x.ndim - 1
+    xp, wp, yp = [], [], []
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        model = i < len(names) and names[i] == "model"
+        if model and isinstance(pw, Shard) and pw.dim == 1:
+            xp.append(Replicate())
+            wp.append(pw)
+            yp.append(Shard(last))
+        elif model and isinstance(pw, Shard):
+            xp.append(Shard(last))
+            wp.append(pw)
+            yp.append(Partial())
+        elif isinstance(px, Shard) and px.dim % x.ndim != last:
+            xp.append(Shard(px.dim % x.ndim))
+            wp.append(Replicate())
+            yp.append(xp[-1])
+        else:
+            xp.append(Replicate())
+            wp.append(Replicate())
+            yp.append(Replicate())
+    return xp, wp, yp
+
+
+class _TPMatmul(torch.autograd.Function):
+    """x @ w on DTensors (`_tp_plan`), forward and backward each a local
+    product on every rank's blocks.  Backward: dy is placed as y (a
+    partial y's gradient whole), dx = dy @ wᵀ is a partial sum where w's
+    columns are sharded, and dw = xᵀ @ dy a partial sum over the batch
+    shards, each redistributed to its operand's placement (the data
+    ranks' gradient all-reduce, or a reduce-scatter into an FSDP shard).
+    DTensor's own backward strategies choose their placements anew and
+    may gather a weight there even where the forward did not."""
+
+    @staticmethod
+    def forward(ctx, x, w, exact):
+        from torch.distributed.tensor import Replicate
+        mesh = w.device_mesh
+        xp, wp, yp = _tp_plan(x, w)
+        xl = x.redistribute(mesh, xp).to_local()
+        wl = w.redistribute(mesh, wp).to_local()
+        yl = matmul_exact(xl, wl) if exact else torch.matmul(xl, wl)
+        ctx.save_for_backward(xl, wl)
+        ctx.mesh, ctx.plan = mesh, (xp, wp, yp)
+        ctx.shapes = (x.shape, w.shape)
+        ctx.back = ([Replicate() if p.is_partial() else p
+                     for p in x.placements],
+                    [Replicate() if p.is_partial() else p
+                     for p in w.placements])
+        return from_local_blocks(yl, mesh, yp,
+                                 (*x.shape[:-1], w.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        xl, wl = ctx.saved_tensors
+        mesh, (xp, wp, yp) = ctx.mesh, ctx.plan
+        xshape, wshape = ctx.shapes
+        last = len(xshape) - 1
+        gp = [Replicate() if p.is_partial() else p for p in yp]
+        gl = g.redistribute(mesh, gp).to_local()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # w's columns sharded: a partial sum; its rows: x's features
+            dxp = [p if not isinstance(q, Shard) else
+                   Partial() if q.dim == 1 else Shard(last)
+                   for p, q in zip(xp, wp)]
+            dx = from_local_blocks(torch.matmul(gl, wl.T), mesh, dxp,
+                                   xshape).redistribute(mesh, ctx.back[0])
+        if ctx.needs_input_grad[1]:
+            dwl = torch.matmul(xl.reshape(-1, xl.shape[-1]).T,
+                               gl.reshape(-1, gl.shape[-1]))
+            dwp = [q if isinstance(q, Shard) else
+                   Partial() if isinstance(p, Shard) else Replicate()
+                   for p, q in zip(xp, wp)]
+            dw = from_local_blocks(dwl.to(wl.dtype), mesh, dwp,
+                                   wshape).redistribute(mesh, ctx.back[1])
+        return dx, dw, None
 
 
 def matmul_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -316,6 +458,175 @@ def split_dim(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
     return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
 
 
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) → (B, S, H·dh).  On a DTensor (a mesh run) the
+    gradient is placed as the output was before the backward's view
+    splits H·dh again: the projection's backward may shard H·dh over a
+    mesh dim that does not divide H, and DTensor refuses that view."""
+    if not hasattr(o, "placements"):
+        return o.reshape(*o.shape[:2], -1)
+    return _MergeHeads.apply(o)
+
+
+class _MergeHeads(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, o):
+        y = o.reshape(*o.shape[:2], -1)
+        ctx.shape, ctx.placements = o.shape, y.placements
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        pl = [Replicate() if p.is_partial() else p for p in ctx.placements]
+        if list(g.placements) != pl:
+            g = g.redistribute(g.device_mesh, pl)
+        return g.reshape(ctx.shape)
+
+
+def even_shards(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every dim that a mesh dim shards but does not divide
+    gathered along that mesh dim (a DTensor, a mesh run; anything else as
+    it is): DTensor refuses to flatten an unevenly sharded dim into a view,
+    where GSPMD pads it.  The gather is a collective the trace prices."""
+    pl = getattr(x, "placements", None)
+    if pl is None:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    new, parts = [], {}
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            parts[p.dim] = parts.get(p.dim, 1) * mesh.size(i)
+            if x.shape[p.dim] % parts[p.dim]:
+                p = Replicate()
+        new.append(p)
+    return x if new == list(pl) else x.redistribute(mesh, new)
+
+
+def local_block(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of ``t`` (a DTensor, or a plain tensor taken as
+    replicated) redistributed to ``placements`` on ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, placements).to_local()
+
+
+def local_weight(w: torch.Tensor, mesh, placements, over) -> torch.Tensor:
+    """`local_block` of a weight that each rank applies to its own share
+    of the tokens, which mesh dims ``over`` split: its local gradient is a
+    partial sum there, reduced into the weight's own placement in the
+    backward (the data ranks' all-reduce, or a reduce-scatter into an
+    FSDP shard; `to_local` alone would take it as whole)."""
+    if not hasattr(w, "placements"):
+        return local_block(w, mesh, placements)
+    return _LocalWeight.apply(w, mesh, tuple(placements), tuple(over))
+
+
+class _LocalWeight(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, w, mesh, placements, over):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh, ctx.shape = mesh, w.shape
+        ctx.grad_pl = (placements, over)
+        ctx.back = [Replicate() if p.is_partial() else p
+                    for p in w.placements]
+        return w.redistribute(mesh, list(placements)).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+        placements, over = ctx.grad_pl
+        pl = [Partial() if i in over else p for i, p in enumerate(placements)]
+        dw = from_local_blocks(g, ctx.mesh, pl, ctx.shape)
+        return dw.redistribute(ctx.mesh, ctx.back), None, None, None
+
+
+def local_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., n, k) @ b (..., k, m), the batch dims broadcast.  On
+    DTensors (a mesh run over a sharded key sequence) each rank multiplies
+    its own blocks: torch's matmul flattens the batch dims into a view,
+    which DTensor refuses where a batch dim past the first is sharded
+    (torch 2.11) or unevenly sharded.  Per mesh dim: a batch dim either
+    operand shards is sliced from the other (a local chunk), a sharded
+    contraction dim leaves a partial sum, a sharded row or column dim
+    stays; any other pair gathers the smaller operand first, as a partial
+    one is reduced (the collectives the trace prices).  Plain tensors go
+    to torch.matmul."""
+    if not (hasattr(a, "placements") and hasattr(b, "placements")):
+        return torch.matmul(a, b)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, r = a.device_mesh, a.ndim
+    pa, pb, out = list(a.placements), list(b.placements), []
+
+    def dim(p):
+        return p.dim % r if isinstance(p, Shard) else None
+
+    for i in range(mesh.ndim):
+        for _ in range(3):      # reduce partials, gather one, then place
+            da, db = dim(pa[i]), dim(pb[i])
+            if pa[i].is_partial() or pb[i].is_partial():
+                if pa[i].is_partial():
+                    pa[i] = Replicate()
+                if pb[i].is_partial():
+                    pb[i] = Replicate()
+                continue
+            if da is None and db is None:
+                out.append(Replicate())
+            elif da is not None and da == db and da < r - 2:
+                out.append(Shard(da))
+            elif da == r - 1 and db == r - 2:
+                out.append(Partial())
+            elif db is None and da < r - 2:
+                if b.shape[da] > 1:
+                    pb[i] = Shard(da)
+                out.append(Shard(da))
+            elif da is None and db < r - 2:
+                if a.shape[db] > 1:
+                    pa[i] = Shard(db)
+                out.append(Shard(db))
+            elif db is None and da == r - 2:
+                out.append(Shard(r - 2))
+            elif da is None and db == r - 1:
+                out.append(Shard(r - 1))
+            elif db is None:                       # a shards k
+                pb[i] = Shard(r - 2)
+                out.append(Partial())
+            elif da is None:                       # b shards k
+                pa[i] = Shard(r - 1)
+                out.append(Partial())
+            else:
+                if a.numel() <= b.numel():
+                    pa[i] = Replicate()
+                else:
+                    pb[i] = Replicate()
+                continue
+            break
+    la = a.redistribute(mesh, pa).to_local()
+    lb = b.redistribute(mesh, pb).to_local()
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (
+        a.shape[-2], b.shape[-1])
+    return from_local_blocks(torch.matmul(la, lb), mesh, out, shape)
+
+
+def from_local_blocks(t: torch.Tensor, mesh, placements, shape):
+    """The DTensor of global ``shape`` whose block on each rank is ``t``
+    made contiguous, as its global strides say (`DTensor.from_local` alone
+    takes a sharded dim as evenly split)."""
+    from torch.distributed.tensor import DTensor
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.insert(0, acc)
+        acc *= n
+    return DTensor.from_local(t.contiguous(), mesh, placements,
+                              run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.silu as XLA lowers it: x · 1/(1 + exp(−x)), each op rounded
     to x's dtype (bit-equal in bfloat16; F.silu rounds once)."""
@@ -405,7 +716,7 @@ def _scores(qg, kg, scale, softcap):
     """(…, Sq, D) · (…, Sk, D) → float32 scores, summed in float64 and
     rounded to the operands' dtype as the reference's einsum is, then
     capped to softcap·tanh(s / softcap) when a softcap is given."""
-    s = torch.matmul(qg.to(torch.float64),
+    s = local_matmul(qg.to(torch.float64),
                      kg.to(torch.float64).transpose(-1, -2))
     s = s.to(qg.dtype).to(torch.float32) * scale
     if softcap is not None:
@@ -418,9 +729,12 @@ def _attention_on_shards(q, k, v, qpos, kpos, **kw):
     partitions a batched attention: the batch and the heads keep their
     sharding (a KV head sharding that does not divide the KV heads gathers
     the query heads too), the sequences and D are gathered, and each rank
-    attends its (batch, head) block with the plain ops, exactly.  None
-    when a key sequence is sharded (a decode cache): DTensor's own ops run
-    it, without gathering the cache."""
+    attends its (batch, head) block with the plain ops, exactly.  A mesh
+    dim that shards neither takes a share of the batch where it divides
+    it, else of the query rows (each row attends every key, and the rows
+    are gathered after), so no rank repeats another's work.  None when a key sequence is sharded (a
+    decode cache): DTensor's own ops run it, without gathering the
+    cache."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     def shard(t, d):
@@ -431,25 +745,36 @@ def _attention_on_shards(q, k, v, qpos, kpos, **kw):
         return None
     mesh = q.device_mesh
     batch = shard(q, 0)
-    heads = {i for i in shard(q, 2)
+    heads = {i for i in shard(q, 2) - batch
              if k.shape[2] % mesh.size(i) == 0}
-    place = [Shard(0) if i in batch else Shard(2) if i in heads
-             else Replicate() for i in range(mesh.ndim)]
+    nb = math.prod(mesh.size(i) for i in batch)
+    nr, rows_q = 1, set()
+    for i in sorted(set(range(mesh.ndim)) - batch - heads):
+        if q.shape[0] % (nb * mesh.size(i)) == 0:
+            batch.add(i)
+            nb *= mesh.size(i)
+        elif q.shape[1] % (nr * mesh.size(i)) == 0 and q.shape[1] > 1:
+            rows_q.add(i)
+            nr *= mesh.size(i)
+    kv = [Shard(0) if i in batch else Shard(2) if i in heads
+          else Replicate() for i in range(mesh.ndim)]
+    place = [Shard(1) if i in rows_q else p for i, p in enumerate(kv)]
     rows = [Shard(0) if i in batch else Replicate()
             for i in range(mesh.ndim)]
 
-    def local(t, pl):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return t.redistribute(mesh, pl).to_local()
+    def pos(t, pl):
+        return local_block(t, mesh, pl if t.ndim == 2 else [
+            Shard(0) if p == Shard(1) else Replicate() for p in pl])
 
-    def pos(t):
-        return local(t, rows if t.ndim == 2 else [Replicate()] * mesh.ndim)
-
-    out = attention(local(q, place), local(k, place), local(v, place),
-                    pos(qpos), pos(kpos), **kw)
-    return DTensor.from_local(out, mesh, place, run_check=False)
+    qrows = [Shard(1) if i in rows_q else p for i, p in enumerate(rows)]
+    out = attention(local_block(q, mesh, place), local_block(k, mesh, kv),
+                    local_block(v, mesh, kv), pos(qpos, qrows),
+                    pos(kpos, rows), **kw)
+    out = from_local_blocks(out, mesh, place, q.shape)
+    # the query rows gathered again: a sequence split would reach the
+    # flattened (B·S) rows of the projections as a strided sharding, whose
+    # strategies DTensor's propagation searches for minutes on a 3-D mesh
+    return out.redistribute(mesh, kv) if rows_q else out
 
 
 def attention(q, k, v, qpos, kpos, *, window: int = FULL_WINDOW,
@@ -491,7 +816,7 @@ def attention(q, k, v, qpos, kpos, *, window: int = FULL_WINDOW,
         s = torch.where(m, s, NEG_INF)
         e = torch.exp(s - s.amax(-1, keepdim=True))
         p = e / e.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
-        o = torch.matmul(p.to(v.dtype).to(torch.float64),
+        o = local_matmul(p.to(v.dtype).to(torch.float64),
                          vg.to(torch.float64)).to(v.dtype)
     else:
         m_run = torch.full((B, Hk, G, Sq, 1), NEG_INF, dtype=torch.float32,
@@ -513,6 +838,9 @@ def attention(q, k, v, qpos, kpos, *, window: int = FULL_WINDOW,
             m_run = m_new
         l_run = torch.where(l_run == 0.0, 1.0, l_run)
         o = (acc / l_run).to(v.dtype)
+    # a mesh run: the reshape flattens (Hk, G), which DTensor refuses where
+    # a mesh dim shards Hk unevenly (hymba's 5 KV heads over the pod axis)
+    o = even_shards(o)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
 
 

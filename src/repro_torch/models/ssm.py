@@ -21,7 +21,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .layers import Leaf, dense_leaf, materialize, matmul, rms_norm, silu
+from .layers import (Leaf, dense_leaf, even_shards, from_local_blocks,
+                     local_block, local_weight, materialize, matmul, rms_norm,
+                     silu)
 
 __all__ = ["ssm_param_spec", "make_ssm_params", "ssm_apply",
            "ssm_decode_step", "init_ssm_cache"]
@@ -59,6 +61,8 @@ def _split_proj(cfg, proj):
 def _conv(xBC, w, b, state=None):
     """Depthwise causal conv along S with SiLU.  xBC (B, S, C); ``state``
     (B, k−1, C) is the previous inputs (decode), else zeros lead."""
+    if hasattr(xBC, "placements"):
+        return _conv_on_shards(xBC, w, b, state)
     k = w.shape[0]
     if state is not None:
         xBC = torch.cat([state.to(xBC.dtype), xBC], dim=1)
@@ -69,6 +73,29 @@ def _conv(xBC, w, b, state=None):
     for j in range(1, k):
         out = out + xBC[:, j:j + S] * w[j]
     return silu(out + b)
+
+
+def _conv_on_shards(xBC, w, b, state):
+    """`_conv` on DTensors (a mesh run), on each rank's block: the batch and
+    the channels keep their sharding, a sharded S is gathered and a
+    partial sum reduced (the collectives the trace prices), and the
+    weights are sliced to the block's channels.  DTensor's own pad
+    (torch 2.11) fails to redistribute, and the conv is depthwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = xBC.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim % 3 != 1 else Replicate()
+          for p in xBC.placements]
+    chan = [isinstance(p, Shard) and p.dim % 3 == 2 for p in pl]
+    rows = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+            and p.dim % 3 == 0]
+
+    out = _conv(local_block(xBC, mesh, pl),
+                local_weight(w, mesh, [Shard(1) if c else Replicate()
+                                       for c in chan], rows),
+                local_weight(b, mesh, [Shard(0) if c else Replicate()
+                                       for c in chan], rows),
+                None if state is None else local_block(state, mesh, pl))
+    return from_local_blocks(out, mesh, pl, xBC.shape)
 
 
 def _gates(params, dt):
@@ -109,6 +136,20 @@ def _out(params, y, z, cfg, dtype, exact=False):
                   params["out_proj"], exact)
 
 
+def _cumsum_q(t):
+    """torch.cumsum over dim 1; on DTensors (a mesh run) on each rank's
+    block, dim 1 gathered: torch 2.11's DTensor has no rule for the flip
+    in its gradient."""
+    if not hasattr(t, "placements"):
+        return torch.cumsum(t, dim=1)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim % t.ndim != 1 else Replicate()
+          for p in t.placements]
+    return from_local_blocks(torch.cumsum(local_block(t, mesh, pl), dim=1),
+                             mesh, pl, t.shape)
+
+
 def _ssd(params, x, cfg, valid=None, exact=False):
     """Chunked SSD forward; returns (out (B, S, d_model), the streams)."""
     B, S, _ = x.shape
@@ -127,7 +168,7 @@ def _ssd(params, x, cfg, valid=None, exact=False):
     for c in range(S // Q):
         sl = slice(c * Q, (c + 1) * Q)
         xq, Bq, Cq, dtq = xf[:, sl], Bv[:, sl], Cv[:, sl], dt[:, sl]
-        cum = torch.cumsum(dA[:, sl], dim=1)                     # (B,Q,H)
+        cum = _cumsum_q(dA[:, sl])                               # (B,Q,H)
         diff = cum[:, :, None, :] - cum[:, None, :, :]           # (B,Q,Q,H)
         decay = torch.where(tril[None, :, :, None], torch.exp(diff), 0.0)
         cb = torch.einsum("bqn,btn->bqt", Cq, Bq)
@@ -181,8 +222,16 @@ def ssm_decode_step(params, x, cache, cfg):
     dt, dA = _gates(params, dt[:, 0])                             # (B,H)
     s_new = (cache["state"] * torch.exp(dA)[..., None, None]
              + torch.einsum("bh,bn,bhp->bhnp", dt, Bv, xi))
-    y = torch.einsum("bn,bhnp->bhp", Cv, s_new)
-    y = y + params["D"][None, :, None] * xi
+    if hasattr(s_new, "placements"):
+        # a mesh run (DTensor): the contraction over the state dim as a
+        # product and a sum, which keep the state's sharding; einsum's bmm
+        # flattens (heads, P), and DTensor refuses that view where a mesh
+        # dim shards heads it does not divide (hymba's 50 over 16)
+        y = (Cv[:, None, :, None] * s_new).sum(2)
+        y = even_shards(y + params["D"][None, :, None] * xi)
+    else:
+        y = torch.einsum("bn,bhnp->bhp", Cv, s_new)
+        y = y + params["D"][None, :, None] * xi
     cache["state"].copy_(s_new)
     conv.copy_(new_conv)
     return _out(params, y.reshape(B, 1, di), z, cfg, x.dtype), cache

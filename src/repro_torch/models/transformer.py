@@ -37,9 +37,9 @@ from repro_torch.configs.base import ModelConfig
 
 from .layers import (FULL_WINDOW, Leaf, act_fn, apply_rope, attention,
                      dense_leaf, embed_rows, linear, linear_qkv, lookup,
-                     materialize, mlp_chain, paged_gather, paged_kpos, paged_write,
-                     rms_norm, rope, sinusoidal, split_dim,
-                     update_cache_full, update_cache_ring)
+                     materialize, matmul, merge_heads, mlp_chain, paged_gather,
+                     paged_kpos, paged_write, rms_norm, rope, sinusoidal,
+                     split_dim, update_cache_full, update_cache_ring)
 from .moe import moe_apply, moe_param_spec
 from .ssm import (_ssd, init_ssm_cache, ssm_apply, ssm_decode_step,
                   ssm_param_spec)
@@ -384,7 +384,9 @@ def _embed(cfg: ModelConfig, params, batch):
 def _lm_head(cfg: ModelConfig, params, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(h, w).to(torch.float32)
+    # a mesh run (DTensor): the product keeps the head's vocab sharding
+    # (`layers.tp_matmul`)
+    logits = matmul(h, w).to(torch.float32)
     if cfg.softcap_final is not None:
         logits = torch.tanh(logits / cfg.softcap_final) * cfg.softcap_final
     return logits
@@ -397,7 +399,7 @@ def _attn_core(p, h, cfg: ModelConfig, window: int, positions):
     q, k, v = _project(p, h, cfg, positions)
     o = attention(q, k, v, positions, positions, window=window,
                   softcap=cfg.softcap_attn, block_kv=cfg.attn_block_kv)
-    return o.reshape(*o.shape[:2], -1)
+    return merge_heads(o)
 
 
 def _ssm_branch(p, h, cfg: ModelConfig, valid):

@@ -39,23 +39,59 @@ def loss_fn(cfg: ModelConfig, params, batch):
     """(loss, {"ce", "aux", "zloss"}), 0-d float32 tensors, of ``batch``
     ({"tokens" or "embeds", "labels"})."""
     logits, aux = T.forward(_train_cfg(cfg), params, batch)   # (B, S, V)
-    lse = torch.logsumexp(logits, dim=-1)                     # (B, S)
-    ll = _label_logits(logits, batch["labels"].long())
+    labels = batch["labels"].long()
+    if hasattr(logits, "placements"):
+        lse, ll = _lse_and_label_on_shards(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)                 # (B, S)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     ce = torch.mean(lse - ll)
     z = torch.mean(lse * lse)
     loss = ce + AUX_WEIGHT * aux + Z_WEIGHT * z
     return loss, {"ce": ce, "aux": aux, "zloss": z}
 
 
-def _label_logits(logits, labels):
-    """(B, S) logits of the labels.  A mesh run's vocab-sharded DTensor
-    logits take a masked sum over the vocab (one term nonzero, so the same
-    value): DTensor's masked partial for ``gather`` fails to reduce a
-    (B, S) result."""
-    if not hasattr(logits, "placements"):
-        return torch.gather(logits, -1, labels[..., None])[..., 0]
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
-    return torch.where(labels[..., None] == vocab, logits, 0.0).sum(-1)
+def _lse_and_label_on_shards(logits, labels):
+    """(logsumexp, the labels' logits), each (B, S), of a mesh run's
+    vocab-sharded DTensor logits, each rank on its own (rows, vocab)
+    block: a local max, sum of exponentials and label pick, combined over
+    the vocab shards by an all-reduce (max, then sums).  DTensor's own
+    strategies for ``logsumexp`` and a masked pick gather the batch or the
+    vocab, and their gradients with them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.models.layers import from_local_blocks, local_block
+    mesh, nd = logits.device_mesh, logits.ndim
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim % nd == nd - 1]
+    rows = [p if isinstance(p, Shard) and p.dim % nd < nd - 1 else
+            Replicate() for p in logits.placements]
+    block = [Shard(nd - 1) if i in vocab else p for i, p in enumerate(rows)]
+    x = local_block(logits, mesh, block)
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                      block)
+
+    def over_vocab(t, op):
+        return DTensor.from_local(
+            t, mesh, [Partial(op) if i in vocab else p
+                      for i, p in enumerate(rows)],
+            run_check=False).redistribute(mesh, rows).to_local()
+
+    m = x.amax(-1).detach()
+    if vocab:
+        m = over_vocab(m, "max")
+    se = torch.exp(x - m[..., None]).sum(-1)
+    idx = local_block(labels, mesh, rows) - offset[-1]
+    inside = (idx >= 0) & (idx < x.shape[-1])
+    pick = torch.gather(x, -1, idx.clamp(0, x.shape[-1] - 1)[..., None])
+    pick = torch.where(inside, pick[..., 0], 0.0)
+    if vocab:
+        se, pick = over_vocab(se, "sum"), over_vocab(pick, "sum")
+    shape = logits.shape[:-1]
+    return (from_local_blocks(torch.log(se) + m, mesh, rows, shape),
+            from_local_blocks(pick, mesh, rows, shape))
 
 
 def _value_and_grad(cfg: ModelConfig, params, batch):

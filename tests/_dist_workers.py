@@ -285,3 +285,299 @@ def compression_task(rank, n, mesh, grads_path):
 
     grads = torch.load(grads_path, weights_only=False)[rank]
     return compressed_mean_all_reduce(grads, mesh.group("model"))
+
+
+# ------------------------------------------------- the families on meshes --
+def _mesh2(shape):
+    """A ("data", "model") DeviceMesh of the given shape over the group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def moe_task(rank, n, mesh, arch, overrides, shapes, B, S, seed):
+    """`moe_apply` plain and on DTensors, on each ("data", "model") mesh
+    shape of ``shapes``: tokens sharded over "data", experts over "model"
+    (the dry run's expert rule).  Returns [(y, aux) plain, then (y, aux)
+    a mesh]."""
+    import dataclasses
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
+    g = torch.Generator().manual_seed(seed)
+    params = moe.make_moe_params(cfg, g, "cpu")
+    x = torch.randn(B, S, cfg.d_model, generator=g).to(
+        getattr(torch, cfg.param_dtype))
+    out = [moe.moe_apply(params, x, cfg)]
+    for shape in shapes:
+        dm = _mesh2(shape)
+
+        def place(t, path):
+            expert = path in ("w_gate", "w_up", "w_down")
+            return distribute_tensor(t, dm, [Replicate(),
+                                             Shard(0) if expert
+                                             else Replicate()])
+
+        pd = {k: ({kk: place(vv, "") for kk, vv in v.items()}
+                  if isinstance(v, dict) else place(v, k))
+              for k, v in params.items()}
+        xd = distribute_tensor(x, dm, [Shard(0), Replicate()])
+        y, aux = moe.moe_apply(pd, xd, cfg)
+        out.append((_full(y), _full(aux)))
+    return out
+
+
+def ssm_decode_task(rank, n, mesh, arch, overrides, B, seed):
+    """`ssm_decode_step` plain and on DTensors placed by the dry run's rules
+    (`launch.sharding.param_specs` in "tp" mode, `cache_specs`), one token
+    against a seeded state.  Returns (y, state) of each."""
+    import dataclasses
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.sharding import (cache_specs, distribute,
+                                             param_specs)
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
+    g = torch.Generator().manual_seed(seed)
+    params = ssm.make_ssm_params(cfg, g, "cpu")
+    cache = ssm.init_ssm_cache(cfg, B, "cpu")
+    cache = {k: torch.randn(v.shape, generator=g).to(v.dtype)
+             for k, v in cache.items()}
+    x = torch.randn(B, 1, cfg.d_model, generator=g).to(
+        getattr(torch, cfg.param_dtype))
+    y0, c0 = ssm.ssm_decode_step(params, x, {k: v.clone()
+                                             for k, v in cache.items()}, cfg)
+    pd = distribute(mesh, params, param_specs(mesh, cfg, params, "tp"))
+    cd = distribute(mesh, cache, cache_specs(mesh, cfg, cache))
+    # the hidden state as a layer hands it on: its features over "model"
+    xd = distribute_tensor(x, mesh.device_mesh, [Replicate(), Shard(2)])
+    with implicit_replication():
+        y, c = ssm.ssm_decode_step(pd, xd, cd, cfg)
+    return (y0, c0["state"]), (_full(y), _full(c["state"]))
+
+
+def ring_attention_task(rank, n, mesh, B, W, Hq, Hk, D, seed,
+                        shape=None, window=None):
+    """`layers.attention` of one query token over a cache, plain and on a
+    ("pod", "data", "model") mesh (``shape``, default (n, 1, 1)) with the
+    cache's slots sharded over "model" (the dry run's `cache_specs`) and
+    the query replicated.  Returns (plain, mesh) outputs."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.layers import attention
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, 1, Hq, D, generator=g)
+    k = torch.randn(B, W, Hk, D, generator=g)
+    v = torch.randn(B, W, Hk, D, generator=g)
+    kpos = torch.randint(-1, 3 * W, (W,), generator=g)
+    qpos = torch.full((1,), 3 * W)
+    kw = {} if window is None else dict(window=window)
+    want = attention(q, k, v, qpos, kpos, **kw)
+    dm = init_device_mesh("cpu", shape or (n, 1, 1),
+                          mesh_dim_names=("pod", "data", "model"))
+    rep = [Replicate()] * 3
+    cache = [Replicate(), Replicate(), Shard(1)]
+    qd, kd, vd = (distribute_tensor(q, dm, rep),
+                  distribute_tensor(k, dm, cache),
+                  distribute_tensor(v, dm, cache))
+    with implicit_replication():
+        got = attention(qd, kd, vd, qpos, kpos, **kw)
+    return want, _full(got)
+
+
+def ssm_apply_task(rank, n, mesh, arch, overrides, B, S, seed):
+    """`ssm_apply` (the chunked prefill, its causal conv without a state)
+    plain and on DTensors placed by the dry run's rules (`param_specs` in
+    "tp" mode), the batch over "data" and the features over "model".
+    Returns (plain, mesh) outputs."""
+    import dataclasses
+
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.sharding import distribute, param_specs
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
+    g = torch.Generator().manual_seed(seed)
+    params = ssm.make_ssm_params(cfg, g, "cpu")
+    x = torch.randn(B, S, cfg.d_model, generator=g).to(
+        getattr(torch, cfg.param_dtype))
+    want = ssm.ssm_apply(params, x, cfg)
+    pd = distribute(mesh, params, param_specs(mesh, cfg, params, "tp"))
+    xd = distribute_tensor(x, mesh.device_mesh, [Shard(0), Shard(2)])
+    with implicit_replication():
+        got = ssm.ssm_apply(pd, xd, cfg)
+    return want, _full(got)
+
+
+def local_matmul_task(rank, n, mesh, seed):
+    """`layers.local_matmul` of the attention's shapes, (B, Hk, G, Sq, D) ·
+    (B, Hk, 1, D, Sk), on a (1, n) ("data", "model") mesh, against
+    torch.matmul of the whole operands, for each pair of placements of
+    the "model" dim: heads on both, the query's heads against the keys'
+    slots (the decode cache), the batch on one operand only, and the
+    contraction on both (a partial sum).  Returns [(want, got), ...]."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.layers import local_matmul
+
+    dm = _mesh2((1, n))
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(4, 2 * n, 3, 1, 8, generator=g, dtype=torch.float64)
+    b = torch.randn(4, 2 * n, 1, 8, 6 * n, generator=g, dtype=torch.float64)
+    want = torch.matmul(a, b)
+    out = []
+    for pa, pb in ((Shard(1), Shard(1)), (Shard(1), Shard(4)),
+                   (Shard(0), Replicate()), (Shard(4), Shard(3))):
+        got = local_matmul(distribute_tensor(a, dm, [Replicate(), pa]),
+                           distribute_tensor(b, dm, [Replicate(), pb]))
+        out.append((want, _full(got)))
+    return out
+
+
+def tp_matmul_task(rank, n, mesh, seed):
+    """`layers.matmul` (x @ w on DTensors: `tp_matmul`) and its gradients,
+    float64, on each one-axis ("data", "model") mesh of the group, x's
+    batch over "data" and w's columns, rows or (over "data") its FSDP
+    rows sharded, against the plain product and autograd.  Returns
+    [(want, got) for y, dx, dw of each case]."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.layers import matmul
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2 * n, 3, 4 * n, generator=g, dtype=torch.float64)
+    w = torch.randn(4 * n, 6 * n, generator=g, dtype=torch.float64)
+    r = torch.randn(2 * n, 3, 6 * n, generator=g, dtype=torch.float64)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (matmul(xg, wg) * r).sum().backward()
+    want = (x @ w, xg.grad, wg.grad)
+    out = []
+    for shape in ((n, 1), (1, n)):
+        dm = _mesh2(shape)
+        for pw in (Shard(1), Shard(0)):
+            xd = distribute_tensor(x, dm, [Shard(0), Replicate()]
+                                   ).requires_grad_()
+            wd = distribute_tensor(w, dm, [Shard(0), pw]).requires_grad_()
+            with implicit_replication():
+                y = matmul(xd, wd)
+                (y * distribute_tensor(r, dm, [Shard(0), Replicate()])
+                 ).sum().backward()
+            out += list(zip(want, (_full(y), _full(xd.grad),
+                                   _full(wd.grad))))
+    return out
+
+
+def prefill_attention_task(rank, n, mesh, B, S, Hq, Hk, D, seed):
+    """`layers.attention` of a causal prefill and its query gradient,
+    plain and on a (1, n) ("data", "model") mesh whose "model" dim shards
+    neither the batch nor the KV heads (``Hk`` it does not divide): the
+    mesh run takes a share of the batch where ``n`` divides ``B``, else of
+    the query rows.  Returns (plain, mesh) (output, dq) pairs."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.layers import attention
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, Hq, D, generator=g)
+    k = torch.randn(B, S, Hk, D, generator=g)
+    v = torch.randn(B, S, Hk, D, generator=g)
+    r = torch.randn(B, S, Hq, D, generator=g)
+    pos = torch.arange(S)
+    qg = q.clone().requires_grad_()
+    want = attention(qg, k, v, pos, pos)
+    (want * r).sum().backward()
+    dm = _mesh2((1, n))
+    rep = [Replicate()] * 2
+    qd = distribute_tensor(q, dm, rep).requires_grad_()
+    kd, vd = distribute_tensor(k, dm, rep), distribute_tensor(v, dm, rep)
+    with implicit_replication():
+        got = attention(qd, kd, vd, pos, pos)
+        (got * distribute_tensor(r, dm, rep)).sum().backward()
+    return (want.detach(), _full(got)), (qg.grad, _full(qd.grad))
+
+
+def local_weight_task(rank, n, mesh, seed):
+    """`layers.local_weight`: each rank applies a weight to its share of
+    the tokens (x's rows over "data" of an (n, 1) mesh), and the weight's
+    gradient is the sum over the shares, reduced into its placement
+    (whole, or an FSDP row shard over "data").  Returns [(want, got)]."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.layers import local_weight
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(4 * n, 2 * n, generator=g, dtype=torch.float64)
+    w = torch.randn(2 * n, 5, generator=g, dtype=torch.float64)
+    r = torch.randn(4 * n, 5, generator=g, dtype=torch.float64)
+    wg = w.clone().requires_grad_()
+    ((x @ wg) * r).sum().backward()
+    dm = _mesh2((n, 1))
+    out = []
+    for pw in (Replicate(), Shard(0)):
+        wd = distribute_tensor(w, dm, [pw, Replicate()]).requires_grad_()
+        xl = distribute_tensor(x, dm, [Shard(0), Replicate()]).to_local()
+        rl = distribute_tensor(r, dm, [Shard(0), Replicate()]).to_local()
+        wl = local_weight(wd, dm, [Replicate(), Replicate()], [0])
+        ((xl @ wl) * rl).sum().backward()
+        out.append((wg.grad, _full(wd.grad)))
+    return out
+
+
+def vocab_loss_task(rank, n, mesh, seed):
+    """`trainstep._lse_and_label_on_shards` of float64 logits with the
+    batch over "data" and the vocab over "model", on each one-axis mesh
+    of the group, against `torch.logsumexp`, the labels' logits and the
+    logits' gradient of their mean difference.  Returns [(want, got)]."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.train.trainstep import _lse_and_label_on_shards
+
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(2 * n, 3, 5 * n, generator=g, dtype=torch.float64)
+    labels = torch.randint(0, 5 * n, (2 * n, 3), generator=g)
+    lg = logits.clone().requires_grad_()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels[..., None])[..., 0]
+    (lse - ll).mean().backward()
+    out = []
+    for shape in ((n, 1), (1, n)):
+        dm = _mesh2(shape)
+        ld = distribute_tensor(logits, dm, [Shard(0), Shard(2)]
+                               ).requires_grad_()
+        got = _lse_and_label_on_shards(
+            ld, distribute_tensor(labels, dm, [Shard(0), Shard(0)]))
+        (got[0] - got[1]).mean().backward()
+        out += [(lse.detach(), _full(got[0])), (ll.detach(), _full(got[1])),
+                (lg.grad, _full(ld.grad))]
+    return out
+
+
+def mesh_ops_task(rank, n, mesh, seed):
+    """The model code's DTensor paths in one group: `tp_matmul_task`,
+    `local_weight_task`, `vocab_loss_task` and `prefill_attention_task`
+    with B 2 and 1 (8 tokens, 6 query heads over 3 KV heads of 16)."""
+    return {"tp_matmul": tp_matmul_task(rank, n, mesh, seed),
+            "local_weight": local_weight_task(rank, n, mesh, seed),
+            "vocab_loss": vocab_loss_task(rank, n, mesh, seed),
+            **{f"attention_b{B}": prefill_attention_task(
+                rank, n, mesh, B, 8, 6, 3, 16, seed) for B in (2, 1)}}

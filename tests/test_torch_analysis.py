@@ -183,12 +183,16 @@ def test_check_pipeline_equals_reference(case):
 def test_admissibility_flags_bad_launches_and_wide_modulus():
     """A height that is not compiled, splits past the cluster, a split
     block without a K step, the 32-row tile on 8 channels or odd shapes or
-    split, and an instance that is not compiled — each named."""
-    cases = [((64, 1), "not compiled"), ((rf.TM, 9), "K splits"),
+    split, the 64-row tile on an operand other than raw int8, and an
+    instance that is not compiled — each named."""
+    cases = [((48, 1), "not compiled"), ((rf.TM, 9), "K splits"),
              ((rf.TM_MMA, 2), "never splits")]
     for blocks, what in cases:
         rep = tan.check_launch(64, 576, 576, 5, blocks)
         assert not rep.ok and what in _messages(rep), blocks
+    assert tan.check_launch(64, 576, 576, 5, (rf.TM_WG, 1)).ok
+    rep = tan.check_launch(64, 576, 576, 5, (rf.TM_WG, 1), x_channels=True)
+    assert "raw int8" in _messages(rep)
     rep = tan.check_launch(8, 64, 64, 5, (rf.TM, 8))
     assert "without a K step" in _messages(rep)
     rep = tan.check_launch(512, 1536, 576, 8, (rf.TM_MMA, 1),

@@ -16,7 +16,8 @@ import _convert_cases as cc
 from repro_torch.core import rns_tensor as trt
 from repro_torch.core.conversion_plan import ConversionPlan
 from repro_torch.core.quant import quant_scale, quantize_int8, requant_const
-from repro_torch.core.rns import basis_for_chain, basis_for_int8_matmul
+from repro_torch.core.rns import (RNSBasis, basis_for_chain,
+                                  basis_for_int8_matmul)
 from repro_torch.dist.rns_shard import channel_partials, channel_sliced_matmul
 from repro_torch.kernels import (flash_attention, fold, ref, rns_forward,
                                  rns_fused_crt_partial, rns_fused_matmul,
@@ -386,8 +387,138 @@ def test_tile_heights_agree(dev, form):
         got16 = run()
     torch.cuda.synchronize()
     assert tile.tile_launches == {tile.TM: before[tile.TM] + 1,
-                                  tile.TM_MMA: before[tile.TM_MMA] + 1}
+                                  tile.TM_MMA: before[tile.TM_MMA] + 1,
+                                  tile.TM_WG: before[tile.TM_WG]}
     assert torch.equal(got64, got16)
+
+
+# The 64-row wgmma + TMA tile (raw int8 A, csrc/rns_tile_wg.cuh), pinned:
+# ragged M; N not a multiple of its 32 columns (200) and rows read word by
+# word (N 36: not a multiple of 16); a K tail past the last full 128-deep
+# stage (208, 576); K % 16 != 0 (200) routes to the 32-row tile.
+WG_M = (17, 64, 100, 512, 2048)
+WG_SHAPES = ((576, 200), (208, 36), (1536, 64))
+
+
+def _wg_pinned(fn, routed=False):
+    """``fn()`` pinned to 64 rows, with the launches it made at 64 rows
+    (0 for a ``routed`` shape, which runs at 32)."""
+    before = dict(tile.tile_launches)
+    with tile._pin_tile_rows(tile.TM_WG):
+        out = fn()
+    torch.cuda.synchronize()
+    n = tile.tile_launches[tile.TM_WG] - before[tile.TM_WG]
+    m = tile.tile_launches[tile.TM_MMA] - before[tile.TM_MMA]
+    assert (n == 0 and m > 0) if routed else (n > 0 and m == 0)
+    return out
+
+
+def _wg_fused_case(dev, M, K, N, encoded, basis, seed):
+    """Raw int8 x on the 64-row tile in ``basis``: every scale form of the
+    float emit, the in-domain residue emit, and the CRT limbs of
+    one-channel and whole-basis slices, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    x[0, :] = -128
+    w[:, 0] = -128
+    arg = trt.RNSTensor.from_int8(w, basis=basis) if encoded else w
+    routed = K % 16 != 0
+    wres = arg.residues if encoded else w
+    C = len(basis.moduli)
+    for kind in INT8_SCALES:
+        s = _int8_scale(kind, M, N, g, dev)
+        got = _wg_pinned(lambda: rns_fused_matmul(x, arg, basis, scale=s),
+                         routed)
+        want = ref.rns_fused_matmul_ref(
+            x, wres, basis, scale=s if kind == "mn" else None,
+            scale_row=s if kind == "m1" else None,
+            scale_col=None if kind in ("none", "m1", "mn") else
+            s.reshape(1, -1).expand(1, N))
+        assert torch.equal(got, want), (C, K, N, kind)
+    sr = torch.rand(M, 1, generator=g, device=dev) * 1e-2 + 1e-3
+    sc = torch.rand(1, N, generator=g, device=dev) * 1e-2 + 1e-3
+    got = _wg_pinned(lambda: rns_fused_matmul(
+        x, arg, basis, emit="residues", scale_row=sr, scale_col=sc), routed)
+    # an int8 operand's in-domain epilogue reads no row factor
+    want = ref.rns_fused_matmul_ref(x, wres, basis, scale_col=sc,
+                                    creq=requant_const(sc, K))
+    assert torch.equal(got.residues, want), (C, K, N, "residues")
+    for n in sorted({1, C}):
+        parts = _wg_pinned(lambda: channel_partials(x, arg, n, basis=basis),
+                           routed)
+        for part, want in zip(parts, channel_partials(
+                x, arg, n, basis=basis, plain=True)):
+            assert torch.equal(part, want), (C, K, N, "crt", n)
+
+
+@pytest.mark.parametrize("M", WG_M)
+@pytest.mark.parametrize("encoded", [True, False])
+def test_wg_tile_fused_matches_plain(dev, M, encoded):
+    """Raw int8 x on the 64-row tile, C = 5 (and C = 6 at K = 5504), every
+    emit and scale form (`_wg_fused_case`)."""
+    shapes = WG_SHAPES + ((200, 64),) + (((5504, 40),) if M <= 100 else ())
+    for K, N in shapes:
+        _wg_fused_case(dev, M, K, N, encoded, basis_for_int8_matmul(K),
+                       M * K + N)
+
+
+@pytest.mark.parametrize("C", range(1, 8))
+@pytest.mark.parametrize("encoded", [True, False])
+def test_wg_tile_every_channel_count_matches_plain(dev, C, encoded):
+    """The 64-row tile's C = 1..7 instances (the chain basis's first C
+    moduli), encoded and live weights, every emit and scale form
+    (`_wg_fused_case`), at a ragged M: N not a multiple of the tile's 32
+    columns with a K tail past the last full stage (208, 36), and a
+    prefill shape (576, 200)."""
+    basis = RNSBasis(name=f"chain-1536-c{C}",
+                     moduli=basis_for_chain(1536).moduli[:C])
+    for M, K, N in ((100, 208, 36), (100, 576, 200), (512, 576, 200)):
+        _wg_fused_case(dev, M, K, N, encoded, basis, 11 * C + M + K)
+
+
+@pytest.mark.parametrize("M", WG_M)
+def test_wg_tile_broadcast_matches_plain(dev, M):
+    """The broadcast rns_matmul (canonical emit) on the 64-row tile at C =
+    2..7 (the chain basis's first C channels), bit for bit."""
+    mods_all = basis_for_chain(1536).moduli
+    for K, N in WG_SHAPES + ((200, 64),):
+        g = torch.Generator(device=dev).manual_seed(M + K * N)
+        x = torch.randint(-128, 128, (1, M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        for C in range(2, len(mods_all) + 1):
+            mods = mods_all[:C]
+            w = torch.stack([torch.randint(0, m, (K, N), generator=g,
+                                           device=dev) for m in mods]
+                            ).to(torch.int8)
+            got = _wg_pinned(lambda: rns_matmul(x, w, mods, signed_a=True),
+                             K % 16 != 0)
+            assert torch.equal(got, ref.rns_matmul_ref(x, w, mods,
+                                                       signed_a=True)), \
+                (K, N, C)
+
+
+def test_wg_tile_refuses_unreadable_operands(dev):
+    """Operands the 64-row tile cannot read run on the 32-row tile by the
+    route rule, also as a sliced (misaligned) A plane; the launcher itself
+    refuses them (cudaErrorInvalidValue) rather than reading past them."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    base = torch.randint(-128, 128, (512 * 576 + 4,), generator=g,
+                         device=dev, dtype=torch.int8)
+    x = base[4:].view(512, 576)               # 4-byte, not 16-byte aligned
+    w = torch.randint(-128, 128, (576, 64), generator=g, device=dev,
+                      dtype=torch.int8)
+    basis = basis_for_int8_matmul(576)
+    got = _wg_pinned(lambda: rns_fused_matmul(x, w, basis), routed=True)
+    assert torch.equal(got, ref.rns_fused_matmul_ref(x, w, basis))
+    st = tile._kernel_plan(basis, 576, True)[2]
+    out = torch.empty(512, 64, device=dev)
+    rc = tile.run_tile(tile.A_SHARED, tile.EMIT_FLOAT, st, x=x, w=w, out=out,
+                       M=512, K=576, N=64, tm=tile.TM_WG, splits=1, vec=True,
+                       avec=True)
+    assert rc == 1                            # cudaErrorInvalidValue
 
 
 # Decode launches (M <= 16) at K = 1536 on the 16-row tile, K split over

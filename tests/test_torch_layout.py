@@ -1,9 +1,10 @@
 """Layout rules of the port: `src/repro_torch`, `chip_smoke.py`,
-`tile_phases.py`, `convert_bench.py`, `tile_bench.py` and the edge cases
-`chip_smoke.py` shares with the card tests (`tests/_convert_cases.py`)
-import neither JAX nor the reference package; every module of the port
-imports first, in a fresh set of modules (no import cycle); and entry
-points use the CPU only when asked."""
+`tile_phases.py`, `wg_phases.py`, `convert_bench.py`, `tile_bench.py` and
+the edge cases `chip_smoke.py` shares with the card tests
+(`tests/_convert_cases.py`) import neither JAX nor the reference
+package; every module of the port imports first, in a fresh set of
+modules (no import cycle); and entry points use the CPU only when
+asked."""
 import ast
 import functools
 import json
@@ -22,7 +23,7 @@ from repro_torch.serve.scheduler import SlotScheduler
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tile_phases.py",
+    ROOT / "chip_smoke.py", ROOT / "tile_phases.py", ROOT / "wg_phases.py",
     ROOT / "convert_bench.py", ROOT / "tile_bench.py",
     ROOT / "tests" / "_convert_cases.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -90,8 +91,8 @@ def test_module_imports_first(name):
 
 def test_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert {"chip_smoke.py", "tile_phases.py", "convert_bench.py",
-            "tile_bench.py", "src/repro_torch/kernels/rns_fused.py",
+    assert {"chip_smoke.py", "tile_phases.py", "wg_phases.py",
+            "convert_bench.py", "tile_bench.py", "src/repro_torch/kernels/rns_fused.py",
             "src/repro_torch/kernels/rns_matmul.py",
             "src/repro_torch/kernels/rns_modmul.py",
             "src/repro_torch/kernels/rns_convert.py",

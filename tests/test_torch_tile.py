@@ -62,8 +62,10 @@ def test_pin_tile_rows():
             assert tile.tile_rows(8, 192, 5, SMS) == tile.TM_MMA
         assert tile.tile_rows(512, 576, 5, SMS) == tile.TM
     assert tile.tile_rows(512, 576, 5, SMS) == tile.TM_MMA
+    with tile._pin_tile_rows(tile.TM_WG):
+        assert tile.tile_rows(512, 576, 5, SMS) == tile.TM_WG
     with pytest.raises(ValueError, match="not compiled"):
-        with tile._pin_tile_rows(64):
+        with tile._pin_tile_rows(48):
             pass
 
 
@@ -265,3 +267,36 @@ def test_divide_free_mods_are_exact(mods):
             assert _mod_u(u, m, mu) == u % m
     with pytest.raises(ValueError, match="outside"):
         _build.set_moduli(_build.Plan(), ((1 << 15) + 1,))
+
+
+def test_wg_route_rule():
+    """The 64-row wgmma + TMA tile takes the raw int8 A operand at C <= 7
+    with weights read four bytes or more a load (``vec``) and A rows TMA
+    can read (K a multiple of 16, a 16-byte aligned plane); a launch it
+    cannot take runs on the 32-row tile, whatever chose 64."""
+    ok = dict(amode=tile.A_SHARED, C=5, K=576, vec=True, tma=True)
+    assert tile.wg_ok(**ok)
+    assert tile.route_rows(tile.TM_WG, **ok) == tile.TM_WG
+    for bad in (dict(amode=tile.A_PLANES), dict(amode=tile.A_F32),
+                dict(amode=tile.A_BF16), dict(C=8), dict(K=584),
+                dict(vec=False), dict(tma=False)):
+        kw = {**ok, **bad}
+        assert not tile.wg_ok(**kw)
+        assert tile.route_rows(tile.TM_WG, **kw) == tile.TM_MMA
+        for tm in (tile.TM, tile.TM_MMA):
+            assert tile.route_rows(tm, **kw) == tm
+
+
+def test_static_rule_heights():
+    """The static rule at M = 512: the 64-row tile where it takes the
+    launch, else the 32-row tile; decode stays on 16 rows, and a grid
+    with fewer tiles than SMs splits K on 16 rows."""
+    assert tile.static_choice(512, 576, 576, 5, SMS, True, True) == (
+        tile.TM_WG, 1)
+    assert tile.static_choice(512, 576, 576, 5, SMS, True, False) == (
+        tile.TM_MMA, 1)
+    assert tile.static_choice(8, 576, 576, 5, SMS, True, True)[0] == tile.TM
+    assert tile.static_choice(512, 576, 192, 5, SMS, True, True)[0] == \
+        tile.TM
+    assert tile.static_choice(512, 576, 576, 8, SMS, True, True)[0] == \
+        tile.TM

@@ -52,14 +52,19 @@ def fake_cuda(monkeypatch):
     return capturing
 
 
-def _static(M, K, N, C, vec=True):
-    return rf.static_choice(M, K, N, C, SMS, vec)
+def _static(M, K, N, C, vec=True, wg=False):
+    return rf.static_choice(M, K, N, C, SMS, vec, wg)
 
 
 def test_cpu_fallback_is_static_and_unpersisted(tune_cache):
     b = tune.blocks_for(64, 512, 64, 5, device="cpu")
     assert b == _static(64, 512, 64, 5)
+    # the raw int8 operand (the default dtype) takes the 64-row tile, a
+    # float one the 32-row tile
     assert tune.blocks_for(512, 576, 576, 5, device="cpu") == \
+        _static(512, 576, 576, 5, wg=True) == (rf.TM_WG, 1)
+    assert tune.blocks_for(512, 576, 576, 5, dtype="bfloat16",
+                           device="cpu") == \
         _static(512, 576, 576, 5) == (rf.TM_MMA, 1)
     assert not tune_cache.exists()            # no table poisoning
 
@@ -109,7 +114,15 @@ def test_candidates_are_normalized_and_admissible(tune_cache):
 
     tune.blocks_for(64, 96, 256, 5, sweep=sweep, device="cpu")
     assert sorted(seen) == [(rf.TM, 1), (rf.TM, 2), (rf.TM, 3),
-                            (rf.TM_MMA, 1)]
+                            (rf.TM_MMA, 1), (rf.TM_WG, 1)]
+    seen.clear()
+    # the 64-row tile takes only the raw int8 operand with K % 16 == 0
+    tune.blocks_for(64, 96, 256, 5, backend="matmul_res", sweep=sweep,
+                    device="cpu")
+    assert rf.TM_WG not in {b[0] for b in seen}
+    seen.clear()
+    tune.blocks_for(64, 100, 256, 5, sweep=sweep, device="cpu")
+    assert rf.TM_WG not in {b[0] for b in seen}
     seen.clear()
     tune.blocks_for(512, 1536, 576, 8, sweep=sweep, device="cpu")
     assert rf.TM_MMA not in {b[0] for b in seen}
@@ -118,7 +131,7 @@ def test_candidates_are_normalized_and_admissible(tune_cache):
     assert {b[0] for b in seen} == {rf.TM}
     seen.clear()
     tune.blocks_for(64, 1536, 576, 5, sweep=sweep, device="cpu",
-                    candidates=[(64, 1), (rf.TM, 9), (rf.TM_MMA, 2),
+                    candidates=[(48, 1), (rf.TM, 9), (rf.TM_MMA, 2),
                                 (rf.TM, 4)])
     assert seen == [(rf.TM, 4)]
 
@@ -440,3 +453,33 @@ def test_smem_footprint_mirror(C):
     assert tune.smem_footprint(rf.TM, 11, amode=rf.A_PLANES) == max(
         tune.smem_footprint(rf.TM, c, amode=a, encoded=e)
         for c in range(1, 12) for a in range(4) for e in (True, False))
+
+
+def test_tuner_height_choice_for_raw_int8(tune_cache):
+    """The tuner sweeps the 64-row tile for the raw int8 operand (and only
+    there), persists it when it wins, and a stored 64-row row that the
+    call's operands rule out resolves to the static rule."""
+    seen = []
+
+    def sweep(blocks):
+        seen.append(blocks)
+        return 1.0 if blocks[0] == rf.TM_WG else 2.0
+
+    assert tune.blocks_for(512, 576, 1536, 5, sweep=sweep,
+                           device="cpu") == (rf.TM_WG, 1)
+    assert (rf.TM_MMA, 1) in seen
+    assert [64, 1] in json.loads(tune_cache.read_text()).values()
+    assert tune.blocks_for(512, 576, 1536, 5, device="cpu",
+                           tma=False) == _static(512, 576, 1536, 5)
+    why = tune.inadmissible((rf.TM_WG, 1), 512, 576, 1536, 5,
+                            amode=rf.A_PLANES)
+    assert why and "raw int8" in why[0]
+    assert tune.inadmissible((rf.TM_WG, 1), 512, 576, 1536, 8,
+                             amode=rf.A_SHARED)
+    assert tune.inadmissible((rf.TM_WG, 1), 512, 584, 1536, 5,
+                             amode=rf.A_SHARED)
+    assert not tune.inadmissible((rf.TM_WG, 1), 512, 576, 1536, 5,
+                                 amode=rf.A_SHARED)
+    assert tune.smem_footprint(rf.TM_WG, 5, amode=rf.A_SHARED) == \
+        1024 + 3 * (64 + 5 * 32) * 128 + 3 * 16
+    assert tune.smem_footprint(rf.TM_WG, 5, amode=rf.A_PLANES) == 0
